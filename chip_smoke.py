@@ -5,26 +5,36 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's main path — an ``SDESampleEngine`` serving EES(2,5) and
-EES(2,7) Monte-Carlo sampling requests of the neural Langevin SDE at its
-Table-1 widths (``d_obs=1, d_z=16, width=32``), plus an ODE-mode ``sdeint``
-— through the hand-written CUDA kernels, and checks what comes out:
+It drives the port's two paths through the hand-written CUDA kernels — an
+``SDESampleEngine`` serving EES(2,5) and EES(2,7) Monte-Carlo sampling
+requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
+d_z=16, width=32``) plus an ODE-mode ``sdeint``, and the paper's Table-1
+training run with the reversible adjoint — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off;
 2. the kernel builds (one ``nvcc`` per source, in parallel);
 3. each kernel against its plain PyTorch twin on the card, float32 and
-   float64, at the served shape, a ragged size and an unaligned view, with
-   its time, the twin's time and its byte bound;
+   float64, at the served (or trained) shape, a ragged size and an
+   unaligned view, with its time, the twin's time and its byte bound;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
 5. an ODE-mode ``sdeint`` through the ``williamson2n`` kernel against the
-   plain path.
+   plain path;
+6. the serving path's launch counts;
+7. Table 1 on the card: the four ``:use_kernels=True`` solvers trained for
+   the reference's 60 epochs at 256 paths, after their first epochs are
+   held against the plain path on the card and on the CPU; one step of
+   each under ``torch.cuda.set_sync_debug_mode("error")``;
+8. one EES(2,5) training step at 65,536 paths under the reversible and the
+   full adjoint, 8 and 64 steps: peak device memory, and the profile of one
+   reversible step.
 
-The kernel launch counts are zeroed just before phase 4 and read after
-phase 5; a kernel of the path with no launch there fails the run.  The
-second-to-last line is the ``{"kernels": [...]}`` record and the last line
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
+The launch counts are zeroed just before each path (phases 4-5, and the
+60-epoch runs of phase 7) and read just after; a kernel of the path with no
+launch there fails the run.  The second-to-last line is the
+``{"kernels": [...]}`` record and the last line ``{"ok": true, "device":
+{...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
 of the jax package ``repro``.
@@ -38,6 +48,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 
@@ -46,6 +58,8 @@ FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 SERVE_SLOTS = 65536
 D_OBS, D_Z, WIDTH = 1, 16, 32  # benchmarks/table1_ou.py widths
 RAGGED = 1_000_003
+TRAIN_ELEMS = 256 * D_Z        # one Table-1 training batch (benchmarks/table1_ou.py)
+CHECK_EPOCHS = 3              # Table-1 epochs held against the plain path
 
 
 def fail(msg: str) -> None:
@@ -96,7 +110,8 @@ class Timer:
         for ev in prof.events():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            if "FillFunctor" in ev.name or ev.name.startswith("Memset"):
+            if flush and ("FillFunctor" in ev.name
+                          or ev.name.startswith("Memset")):
                 continue  # the L2 flush
             us, n = totals.get(ev.name, (0.0, 0))
             totals[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
@@ -144,34 +159,55 @@ def compare(torch, got, want):
 def kernel_phase(torch, timer):
     """Phase 3: each kernel against its plain twin; returns per-kernel stats."""
     from repro_torch.core.williamson import EES25_2N
-    from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
-    from repro_torch.kernels.sde_step.sde_step import ws_stage_diag
+    from repro_torch.kernels.sde_step import ref as sref
+    from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag,
+                                                       ws_stage_diag, ws_stage_diag_bwd)
     from repro_torch.kernels.williamson2n.ref import williamson2n_ref
     from repro_torch.kernels.williamson2n.williamson2n import williamson2n
 
     a, b, h = EES25_2N.A[1], EES25_2N.B[1], 0.25
     gen = torch.Generator(device="cuda").manual_seed(1234)
     served = SERVE_SLOTS * D_Z
+    shapes = (("served", served, 0), ("ragged", RAGGED, 0),
+              ("unaligned", RAGGED, 1))
+    # The training kernels are held bitwise (tolerance 0) at the Table-1
+    # batch too; the one PyTorch call that computes the s=1 axpy chain
+    # (torch.add with alpha) is timed beside it, and used nowhere in the port.
+    train_shapes = (("training", TRAIN_ELEMS, 0),) + shapes
     specs = {
         "ws_stage_diag": dict(
-            n_in=5, symbol="ws_stage_diag_kernel",
+            n_in=5, symbol="ws_stage_diag_kernel", shapes=shapes, exact=False,
             kernel=lambda x: ws_stage_diag(*x, h, a=a, b=b),
-            plain=lambda x: ws_stage_diag_ref(*x, h, a, b),
-            bytes_per_elem=7, ops_per_elem=6),
+            plain=lambda x: sref.ws_stage_diag_ref(*x, h, a, b),
+            bytes_per_elem=7, ops_per_elem=6, library=None),
         "williamson2n": dict(
-            n_in=3, symbol="williamson2n_kernel",
+            n_in=3, symbol="williamson2n_kernel", shapes=shapes, exact=False,
             kernel=lambda x: williamson2n(*x, a=a, b=b),
             plain=lambda x: williamson2n_ref(*x, a, b),
-            bytes_per_elem=5, ops_per_elem=4),
+            bytes_per_elem=5, ops_per_elem=4, library=None),
+        "ws_stage_diag_bwd": dict(
+            n_in=4, symbol="ws_stage_diag_bwd_kernel", shapes=train_shapes,
+            exact=True, kernel=lambda x: ws_stage_diag_bwd(*x, h, a=a, b=b),
+            plain=lambda x: sref.ws_stage_diag_bwd_ref(*x, h, a, b),
+            bytes_per_elem=8, ops_per_elem=6, library=None),
+        "increment_diag": dict(
+            n_in=3, symbol="increment_diag_kernel", shapes=train_shapes,
+            exact=True, kernel=lambda x: (increment_diag(*x, h),),
+            plain=lambda x: (sref.increment_diag_ref(*x, h),),
+            bytes_per_elem=4, ops_per_elem=3, library=None),
+        "axpy_chain": dict(
+            n_in=2, symbol="axpy_chain_kernel", shapes=train_shapes,
+            exact=True, kernel=lambda x: (axpy_chain(x[0], x[1:], [0.5]),),
+            plain=lambda x: (sref.axpy_chain_ref(x[0], x[1:], [0.5]),),
+            bytes_per_elem=3, ops_per_elem=2,
+            library=lambda x: torch.add(x[0], x[1], alpha=0.5)),
     }
     stats = {}
     for name, spec in specs.items():
         worst = {}
         for dtype in (torch.float32, torch.float64):
-            tol = 4 * torch.finfo(dtype).eps
-            for label, n, offset in (("served", served, 0),
-                                     ("ragged", RAGGED, 0),
-                                     ("unaligned", RAGGED, 1)):
+            tol = 0.0 if spec["exact"] else 4 * torch.finfo(dtype).eps
+            for label, n, offset in spec["shapes"]:
                 xs = [torch.randn(n + offset, generator=gen, device="cuda",
                                   dtype=dtype)[offset:]
                       for _ in range(spec["n_in"])]
@@ -193,6 +229,12 @@ def kernel_phase(torch, timer):
                            flush=False)
         plain_ms = timer.ms(lambda: spec["plain"](xs))
         plain_warm = timer.ms(lambda: spec["plain"](xs), flush=False)
+        library_ms = None
+        if spec["library"] is not None:
+            library_ms = timer.ms(lambda: spec["library"](xs))
+            print(f"  {name}: the one PyTorch call computing it "
+                  f"(torch.add(y, inc, alpha=c)) {library_ms * 1e3:.2f} us with "
+                  f"L2 flushed", flush=True)
         bytes_moved = spec["bytes_per_elem"] * served * 4
         bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = spec["ops_per_elem"] * served / FP32_FLOPS * 1e3
@@ -203,9 +245,9 @@ def kernel_phase(torch, timer):
               f"warm); bound {bound_ms * 1e3:.2f} us ({bytes_moved} B at "
               f"3.35 TB/s; ops bound {bound_ops_ms * 1e3:.3f} us); "
               f"{bound_ms / ms:.0%} of the HBM bound", flush=True)
-        stats[name] = dict(max_abs_err=worst[(torch.float32, "served")],
+        stats[name] = dict(max_abs_err=max(worst.values()),
                            ms=ms, ms_warm=ms_warm, plain_ms=plain_ms,
-                           bound_ms=bound_ms,
+                           bound_ms=bound_ms, library_ms=library_ms,
                            bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                            else "operations")
     return stats
@@ -392,6 +434,229 @@ def ode_phase(torch, params):
     check(launches > 0, "the ODE sdeint launched no williamson2n kernel")
 
 
+def _max_rel(got, want):
+    """max |got - want| / max(1, max |want|) over matching tensor lists."""
+    return max((g.double().cpu() - w.double().cpu()).abs().max().item()
+               / max(1.0, w.double().abs().max().item())
+               for g, w in zip(got, want))
+
+
+def _loss_err(got, want):
+    """max relative loss error over the epochs; a non-finite loss must be
+    non-finite on both sides (the guard then skipped the same updates)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.array_equal(np.isfinite(got), np.isfinite(want)):
+        return float("inf")
+    ok = np.isfinite(want)
+    return float(np.max(np.abs(got[ok] - want[ok]) / np.abs(want[ok]),
+                        initial=0.0))
+
+
+def table1_phase(torch):
+    """Phase 7: Table 1 on the card (repro_torch.benchmarks.table1_ou)."""
+    from repro_torch.benchmarks import table1_ou as t1
+    from repro_torch.core import prng
+    from repro_torch.kernels import KERNELS
+    from repro_torch.nsde import init_lsde
+
+    target = t1.target_paths()
+    weights = init_lsde(prng.PRNGKey(0, device="cuda"), t1.D_OBS, t1.D_Z,
+                        width=t1.WIDTH, device="cuda")
+
+    # 7a. The first epochs of every solver: kernels vs the plain path on the
+    # card (the forward is bitwise; the backward may sum in another order),
+    # and vs a float32 CPU run of the plain path from the same weights
+    # (torch's CPU and CUDA erfinv and matmuls differ in the last bits).
+    for name, spec, n_steps in t1.solvers():
+        plain = spec.split(":")[0]
+        runs = {label: t1.train_one(s, n_steps, target, device=dev,
+                                    epochs=CHECK_EPOCHS,
+                                    params=copy.deepcopy(weights).to(dev))
+                for label, s, dev in (("kernels", spec, "cuda"),
+                                      ("plain", plain, "cuda"),
+                                      ("cpu", plain, "cpu"))}
+        k, p, c = runs["kernels"], runs["plain"], runs["cpu"]
+        params = {key: list(r.params.parameters()) for key, r in runs.items()}
+        kp_loss = _loss_err(k.losses, p.losses)
+        kp_par = _max_rel(params["kernels"], params["plain"])
+        kc_loss = _loss_err(k.losses, c.losses)
+        kc_par = _max_rel(params["kernels"], params["cpu"])
+        bitwise = k.losses == p.losses and all(
+            torch.equal(a, b) for a, b in zip(params["kernels"], params["plain"]))
+        print(f"  {name} ({spec}, {n_steps} steps), first {CHECK_EPOCHS} "
+              f"epochs: losses {[f'{x:.6f}' for x in k.losses]}; kernels vs "
+              f"plain on the card: loss {kp_loss:.2e}, params {kp_par:.2e} "
+              f"(bitwise={bitwise}; tolerance 1e-5); vs the plain path on the "
+              f"CPU: loss {kc_loss:.2e}, params {kc_par:.2e} (tolerance 1e-4 "
+              f"relative)", flush=True)
+        check(kp_loss <= 1e-5 and kp_par <= 1e-5,
+              f"{name}: the kernel path trains unlike the plain path")
+        check(kc_loss <= 1e-4 and kc_par <= 1e-4,
+              f"{name}: the card trains unlike the CPU")
+
+    # 7b. The main path: the reference's 60 epochs for every solver, with the
+    # launch counts zeroed just before and read just after.
+    for kern in KERNELS:
+        kern.launches = 0
+    rows = {}
+    for name, spec, n_steps in t1.solvers():
+        before = {kern.name: kern.launches for kern in KERNELS}
+        r = t1.train_one(spec, n_steps, target, device="cuda")
+        per_step = {kern.name: (kern.launches - before[kern.name]) / t1.EPOCHS
+                    for kern in KERNELS if kern.launches > before[kern.name]}
+        rows[name] = r
+        us = r.seconds / t1.EPOCHS * 1e6
+        print(f"  table1_ou/{name}: terminal moment-MSE {r.loss:.6f} "
+              f"(finite={np.isfinite(r.loss)}), {us:.1f} us per training step "
+              f"({t1.EPOCHS} epochs x {t1.BATCH} paths x {n_steps} steps, "
+              f"host wall clock), guard skipped {r.skipped} updates; kernel "
+              f"launches per step {per_step}", flush=True)
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    check(all(np.isfinite(rows["EES(2,5)"].losses)),
+          "EES(2,5) training went non-finite")
+
+    # 7c. One step of each solver must not wait on the device.
+    for name, spec, n_steps in t1.solvers():
+        step, state, params, key = _train_step(torch, spec, n_steps, target)
+        step(params, state, key)  # warm-up outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(params, state, key)
+        except RuntimeError as exc:
+            fail(f"a {spec} training step synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    print("  one training step of each solver ran with "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
+    return launches
+
+
+def _train_step(torch, spec, n_steps, target, n_paths=256, **kw):
+    """A Table-1 training step of ``spec`` (and its state, weights and key);
+    ``kw`` goes to ``make_sde_train_step``."""
+    from repro_torch.benchmarks import table1_ou as t1
+    from repro_torch.core import prng
+    from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_sde_train_step
+
+    params = init_lsde(0, t1.D_OBS, t1.D_Z, t1.WIDTH, device="cuda")
+    tgt = torch.as_tensor(target, dtype=torch.float32, device="cuda")
+    opt = adamw(1e-2)
+    step = make_sde_train_step(
+        spec, lsde_term(), opt,
+        y0_fn=lambda p: torch.zeros(t1.D_Z, device="cuda") + p.encoder.b,
+        loss_fn_result=lambda p, r: moment_mse(lsde_readout(p, r.ys)[..., 0], tgt),
+        t0=0.0, t1=t1.T, n_steps=n_steps, n_paths=n_paths,
+        save_every=n_steps // 2, device="cuda", **kw)
+    return (step, opt.init(list(params.parameters())), params,
+            prng.PRNGKey(1, device="cuda"))
+
+
+def memory_phase(torch, timer):
+    """Phase 8: peak memory of one EES(2,5) step, reversible vs full, and the
+    profile of one reversible step."""
+    from repro_torch.benchmarks import table1_ou as t1
+
+    from repro_torch.core import TimeGrid, path_keys, prng
+    from repro_torch.core.brownian import brownian_path
+
+    target = t1.target_paths()
+
+    def peak_mib(fn):
+        """Peak device MiB allocated while ``fn`` runs, above what was
+        allocated before it, and ``fn``'s result."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20, out
+
+    # "per-step noise" draws each step's increment in the loop (and again in
+    # the backward sweep) instead of the bulk buffer: the adjoint alone.
+    configs = (("reversible", dict(adjoint="reversible")),
+               ("full", dict(adjoint="full")),
+               ("reversible, per-step noise",
+                dict(adjoint="reversible", bulk_increments=False)))
+    peaks = {}
+    for n_steps in (8, 64):
+        for label, kw in configs:
+            step, state, params, key = _train_step(
+                torch, "ees25:use_kernels=True", n_steps, target,
+                n_paths=SERVE_SLOTS, **kw)
+            peak, (_, _, m) = peak_mib(lambda: step(params, state, key))
+            peaks[(n_steps, label)] = peak
+            check(bool(torch.isfinite(m["loss"])), f"{label} {n_steps}-step "
+                  "training step at 65,536 paths is not finite")
+            print(f"  EES(2,5) step, {SERVE_SLOTS} paths x {n_steps} steps, "
+                  f"adjoint={label}: peak device memory {peak:.1f} MiB above "
+                  f"what the step's inputs hold", flush=True)
+        keys = path_keys(prng.PRNGKey(1, device="cuda"), SERVE_SLOTS)
+        bm = brownian_path(keys, 0.0, t1.T, n_steps, shape=(D_Z,))
+        ts = TimeGrid.from_path(bm).ts
+        peaks[(n_steps, "realization")], _ = peak_mib(
+            lambda: bm.grid_increments(ts))
+        print(f"  the bulk increment realization alone ({n_steps} steps): "
+              f"peak {peaks[(n_steps, 'realization')]:.1f} MiB for a "
+              f"{n_steps * SERVE_SLOTS * D_Z * 4 / 2**20:.1f} MiB float32 buffer",
+              flush=True)
+    dws = (64 - 8) * SERVE_SLOTS * D_Z * 4 / 2**20
+    growth = {label: peaks[(64, label)] - peaks[(8, label)]
+              for label in [c[0] for c in configs] + ["realization"]}
+    print(f"  growth from 8 to 64 steps (MiB): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in growth.items())
+          + f"; the increment buffer itself grows by {dws:.1f}", flush=True)
+    check(peaks[(64, "reversible")] < peaks[(64, "full")],
+          "the reversible adjoint's peak is not below the full adjoint's")
+
+    step, state, params, key = _train_step(
+        torch, "ees25:use_kernels=True", 8, target, n_paths=SERVE_SLOTS)
+    run = lambda: step(params, state, key)  # noqa: E731
+    totals = timer.kernels_us(run, reps=3, flush=False)
+    dev_ms = sum(t for t, _ in totals.values()) / 3 / 1e3
+    n_launch = sum(n for _, n in totals.values()) // 3
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    wall_ms = min(walls) * 1e3
+    print(f"  one reversible EES(2,5) training step ({SERVE_SLOTS} paths x 8 "
+          f"steps): host wall {wall_ms:.3f} ms, device kernel time "
+          f"{dev_ms:.3f} ms over {n_launch} launches (device busy "
+          f"{dev_ms / wall_ms:.0%})", flush=True)
+    rows = sorted(((t / 3, n // 3, name) for name, (t, n) in totals.items()),
+                  reverse=True)
+    for us, n, name in rows[:10]:
+        print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
+    host_profile(torch, run, wall_ms)
+
+
+def host_profile(torch, run, wall_ms):
+    """Where one step's host time goes: the operators with the most host
+    (self CPU) time, and their sum against the host wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    ops_ms = sum(e.self_cpu_time_total for e in rows) / 1e3
+    print(f"  host, one profiled step: {ops_ms:.3f} ms of own CPU time over "
+          f"all recorded events (the unprofiled step's wall is {wall_ms:.3f} "
+          f"ms; an autograd Function's own time is its Python); top:",
+          flush=True)
+    for e in rows[:12]:
+        print(f"    {e.self_cpu_time_total / 1e3:8.3f} ms {e.count:6d}x  "
+              f"{e.key[:90]}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -446,18 +711,39 @@ def main() -> int:
           flush=True)
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    sources = {"ws_stage_diag": ("src/repro_torch/csrc/ws_stage_diag.cu",
-                                 "src/repro/kernels/sde_step/sde_step.py:144"),
-               "williamson2n": ("src/repro_torch/csrc/williamson2n.cu",
-                                "src/repro/kernels/williamson2n/williamson2n.py:56")}
+
+    print("phase 7: Table 1 on the card", flush=True)
+    train_launches = table1_phase(torch)
+    print(f"  kernels launched on the training path (phase 7's 60-epoch runs): "
+          f"{train_launches}", flush=True)
+    for name in ("ws_stage_diag_bwd", "increment_diag", "axpy_chain",
+                 "ws_stage_diag"):
+        check(train_launches[name] > 0,
+              f"{name} was not launched on the training path")
+    launches.update({name: train_launches[name] for name in
+                     ("ws_stage_diag_bwd", "increment_diag", "axpy_chain")})
+
+    print("phase 8: reversible vs full adjoint memory; one step's profile",
+          flush=True)
+    memory_phase(torch, timer)
+
+    tpu = "src/repro/kernels/sde_step/sde_step.py"
+    sources = {"ws_stage_diag": ("ws_stage_diag.cu", f"{tpu}:144"),
+               "williamson2n": ("williamson2n.cu",
+                                "src/repro/kernels/williamson2n/williamson2n.py:56"),
+               "ws_stage_diag_bwd": ("ws_stage_diag_bwd.cu", f"{tpu}:182"),
+               "increment_diag": ("increment_diag.cu", f"{tpu}:65"),
+               "axpy_chain": ("axpy_chain.cu", f"{tpu}:286")}
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/csrc/{sources[name][0]}",
          "replaces": sources[name][1], "launches": launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"],
-         "bound_by": stats[name]["bound_by"], "library_ms": None}
-        for name in ("ws_stage_diag", "williamson2n")]}
+         "bound_by": stats[name]["bound_by"],
+         "library_ms": stats[name]["library_ms"]}
+        for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)

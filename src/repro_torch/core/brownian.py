@@ -11,21 +11,25 @@ The key may carry leading batch axes (``(*batch, 2)``): increments then have
 shape ``(*batch, *shape)``, one independent path per key — the port writes
 out the batch axis where the reference vmaps over single-key drivers.
 
-``grid_increments`` is the bulk realization every solve streams from: one
-vectorized threefry pass over ``(steps, *batch, *shape)``, with row ``n``
+``grid_increments`` is the bulk realization every solve streams from:
+vectorized threefry over ``(steps, *batch, *shape)``, with row ``n``
 bitwise-equal to ``increment(n)`` (the same elementwise ops on the same
-words).
+words).  Threefry in int64 torch ops holds about ten times its float32
+output while it runs, so the rows are drawn in passes of at most
+``BULK_PASS_ELEMENTS`` increments into one preallocated buffer: a long
+solve's peak is its buffer plus one pass, and every row is the same.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import prng
-from .pytree import tree_flatten, tree_unflatten
+from .pytree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = [
     "BrownianPath",
@@ -35,6 +39,10 @@ __all__ = [
 ]
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+#: Increments one threefry pass of a bulk realization draws at most (a
+#: serving tick of 65,536 paths x 8 steps x 16 is one pass).
+BULK_PASS_ELEMENTS = 1 << 23
 
 
 def _is_simple_shape(x) -> bool:
@@ -79,11 +87,31 @@ def _box_shapes(tree):
     return type(tree)(_box_shapes(v) for v in tree)
 
 
-def _step_keys(key: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """``fold_in(key, n)`` for every step ``n < n_rows``: ``(n_rows, *batch, 2)``."""
+def _step_keys(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``fold_in(key, n)`` for every step ``lo <= n < hi``: ``(hi - lo, *batch, 2)``."""
     batch_ndim = key.dim() - 1
-    steps = torch.arange(n_rows, dtype=torch.int64, device=key.device)
-    return prng.fold_in(key, steps.reshape((n_rows,) + (1,) * batch_ndim))
+    steps = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
+    return prng.fold_in(key, steps.reshape((hi - lo,) + (1,) * batch_ndim))
+
+
+def _bulk_draw(key: torch.Tensor, n_rows: int, shape, dtype, scale: float):
+    """Rows ``fold_in(key, n)``-drawn for ``n < n_rows``, stacked on a leading
+    axis, in passes of at most :data:`BULK_PASS_ELEMENTS` increments."""
+    leaves = [shape] if _is_simple_shape(shape) else _shape_leaves(shape)[0]
+    per_row = math.prod(key.shape[:-1]) * sum(math.prod(s) for s in leaves)
+    rows = max(1, BULK_PASS_ELEMENTS // max(per_row, 1))
+    if rows >= n_rows:
+        return _draw(_step_keys(key, 0, n_rows), shape, dtype, scale)
+    out = None
+    for lo in range(0, n_rows, rows):
+        hi = min(lo + rows, n_rows)
+        part = _draw(_step_keys(key, lo, hi), shape, dtype, scale)
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n_rows,) + tuple(x.shape[1:])),
+                           part)
+        tree_map(lambda o, x: o[lo:hi].copy_(x), out, part)
+        del part  # free this pass before the next one draws
+    return out
 
 
 _NATIVE_MSG = ("BrownianPath's native {n}-step grid; increments are indexed "
@@ -136,8 +164,8 @@ class BrownianPath:
         :meth:`increment` ``(n)``."""
         _check_steps(ts.shape[0] - 1, self.n_steps, _NATIVE_MSG.format(
             n=self.n_steps))
-        return _draw(_step_keys(self.key, self.n_steps), self.shape,
-                     self.dtype, _sqrt_in(self.h, self.dtype))
+        return _bulk_draw(self.key, self.n_steps, self.shape, self.dtype,
+                          _sqrt_in(self.h, self.dtype))
 
 
 def brownian_path(key, t0, t1, n_steps, shape=(), dtype=torch.float32) -> BrownianPath:
@@ -187,8 +215,8 @@ class PaddedBrownianPath:
         ``(n)``.  A padded solve asks only for its live prefix."""
         self._check_grid(ts)
         n_rows = self.n_steps if n_rows is None else int(n_rows)
-        return _draw(_step_keys(self.key, n_rows), self.shape, self.dtype,
-                     _sqrt_in(self.h, self.dtype))
+        return _bulk_draw(self.key, n_rows, self.shape, self.dtype,
+                          _sqrt_in(self.h, self.dtype))
 
 
 def padded_brownian_path(key, t0, h, n_steps, shape=(),

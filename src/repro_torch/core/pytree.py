@@ -42,67 +42,72 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+# The recursions below are module-level functions that take their
+# accumulator as an argument: a nested ``def rec`` that calls itself closes
+# over its own cell, and that cycle would keep every leaf it saw (device
+# buffers included) alive until Python's cyclic collector happened to run.
+
+def _flatten_into(x, leaves: List[Any]):
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return (dict, tuple(keys), tuple(_flatten_into(x[k], leaves) for k in keys))
+    if _is_namedtuple(x):
+        return (type(x), None, tuple(_flatten_into(v, leaves) for v in x))
+    if isinstance(x, (tuple, list)):
+        return (type(x), None, tuple(_flatten_into(v, leaves) for v in x))
+    leaves.append(x)
+    return _LEAF
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)``; tuples, lists, dicts (sorted keys) and
     namedtuples are nodes, ``None`` is an empty node, anything else a leaf."""
     leaves: List[Any] = []
+    treedef = _flatten_into(tree, leaves)
+    return leaves, treedef
 
-    def rec(x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            keys = sorted(x)
-            return (dict, tuple(keys), tuple(rec(x[k]) for k in keys))
-        if _is_namedtuple(x):
-            return (type(x), None, tuple(rec(v) for v in x))
-        if isinstance(x, (tuple, list)):
-            return (type(x), None, tuple(rec(v) for v in x))
-        leaves.append(x)
-        return _LEAF
 
-    return leaves, rec(tree)
+def _unflatten_from(d, it):
+    if d is None:
+        return None
+    if d == _LEAF:
+        return next(it)
+    kind, keys, children = d
+    vals = [_unflatten_from(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(keys, vals))
+    if kind in (tuple, list):
+        return kind(vals)
+    return kind(*vals)  # namedtuple
 
 
 def tree_unflatten(treedef, leaves):
     """Inverse of :func:`tree_flatten`."""
-    it = iter(leaves)
+    return _unflatten_from(treedef, iter(leaves))
 
-    def rec(d):
-        if d is None:
-            return None
-        if d == _LEAF:
-            return next(it)
-        kind, keys, children = d
-        vals = [rec(c) for c in children]
-        if kind is dict:
-            return dict(zip(keys, vals))
-        if kind in (tuple, list):
-            return kind(vals)
-        return kind(*vals)  # namedtuple
 
-    return rec(treedef)
+def _flatten_up_to_into(d, x, out: List[Any]) -> None:
+    if d is None:
+        return
+    if d == _LEAF:
+        out.append(x)
+        return
+    kind, keys, children = d
+    vals = [x[k] for k in keys] if kind is dict else list(x)
+    if len(vals) != len(children):
+        raise ValueError(f"tree structure mismatch: {len(vals)} vs "
+                         f"{len(children)} children")
+    for c, v in zip(children, vals):
+        _flatten_up_to_into(c, v, out)
 
 
 def flatten_up_to(treedef, tree) -> List[Any]:
     """The subtrees of ``tree`` at the leaf positions of ``treedef`` (a
     scalar ``dW`` against a tensor leaf stays whole)."""
     out: List[Any] = []
-
-    def rec(d, x):
-        if d is None:
-            return
-        if d == _LEAF:
-            out.append(x)
-            return
-        kind, keys, children = d
-        vals = [x[k] for k in keys] if kind is dict else list(x)
-        if len(vals) != len(children):
-            raise ValueError(f"tree structure mismatch: {len(vals)} vs "
-                             f"{len(children)} children")
-        for c, v in zip(children, vals):
-            rec(c, v)
-
-    rec(treedef, tree)
+    _flatten_up_to_into(treedef, tree, out)
     return out
 
 

@@ -4,8 +4,10 @@ Same spec grammar as the reference: ``name`` or ``name:key=val,key=val``,
 where a bare word in the tail is a boolean flag (``"ees25:adaptive"``), and
 the same normal form (:func:`canonical_spec`) and error messages.  Only the
 ported solvers are registered — ``ees25`` (``x``, ``use_kernels`` and its
-legacy spelling ``use_kernel``) and ``ees27`` — so any other name fails
-with the reference's unknown-solver message listing these two.
+legacy spelling ``use_kernel``), ``ees27``, ``reversible-heun``, the six
+Butcher tableaux (``euler`` ... ``rk4``) and their ``mcf-*`` couplings
+(``lam``, ``use_kernels``), ``ees25-butcher`` and ``ees27-butcher`` — so any
+other name fails with the reference's unknown-solver message listing them.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import ast
 import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from .solvers import ees25_solver, ees27_solver
+from . import tableaux
+from .solvers import ButcherSolver, MCFSolver, ReversibleHeun, ees25_solver, ees27_solver
 
 __all__ = ["register_solver", "get_solver", "list_solvers", "parse_solver_spec",
            "canonical_spec", "solver_kind"]
@@ -156,3 +159,28 @@ def get_solver(spec, **overrides):
 
 register_solver("ees25", ees25_solver)
 register_solver("ees27", ees27_solver)
+register_solver("reversible-heun",
+                lambda use_kernels=False: ReversibleHeun(use_kernels=use_kernels))
+
+
+def _butcher_factory(tab):
+    return lambda use_kernels=False: ButcherSolver(tab, use_kernels=use_kernels)
+
+
+def _mcf_factory(tab):
+    return lambda lam=0.999, use_kernels=False: MCFSolver(
+        tab, lam=lam, use_kernels=use_kernels)
+
+
+for _tab in (tableaux.euler, tableaux.midpoint, tableaux.heun,
+             tableaux.ralston3, tableaux.rk3, tableaux.rk4):
+    register_solver(_tab.name, _butcher_factory(_tab))
+    register_solver(f"mcf-{_tab.name}", _mcf_factory(_tab))
+
+
+def _ees25_butcher(x: float = 0.1):
+    return ButcherSolver(tableaux.ees25_tableau(x))
+
+
+register_solver("ees25-butcher", _ees25_butcher)
+register_solver("ees27-butcher", lambda: ButcherSolver(tableaux.ees27_tableau()))

@@ -194,8 +194,11 @@ def sdeint(
     leading ``B`` axis (``ys`` is ``(B, n_saves, ...)``, ``diverged``
     ``(B,)``).  ``device`` (default ``"cuda"``) is where the solve runs;
     keys and ``y0`` are moved there, ``args`` (e.g. an ``nn.Module``) must
-    already live there.  Adaptive solves, ``save_at``, the recursive and
-    reversible adjoints and mesh fan-out are not ported yet and raise.
+    already live there.  ``adjoint`` is ``"full"`` or ``"reversible"``
+    (O(1) memory in the trajectory; the parameters of an ``nn.Module``
+    ``args`` get their gradients through it).  Adaptive solves,
+    ``save_at``, the recursive adjoint and mesh fan-out are not ported yet
+    and raise.
     """
     device = resolve_device(device)
     one = _trajectory_fn(

@@ -4,12 +4,14 @@
 source, on first use); :func:`build_kernels` builds them all in parallel.
 """
 from ._build import build_all
-from .sde_step.sde_step import KERNEL as WS_STAGE_DIAG
+from .sde_step.sde_step import AXPY_CHAIN, INCREMENT_DIAG, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD
 from .williamson2n.williamson2n import KERNEL as WILLIAMSON2N
 
-KERNELS = (WS_STAGE_DIAG, WILLIAMSON2N)
+KERNELS = (WS_STAGE_DIAG, WILLIAMSON2N, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
+           AXPY_CHAIN)
 
-__all__ = ["KERNELS", "WS_STAGE_DIAG", "WILLIAMSON2N", "build_kernels"]
+__all__ = ["KERNELS", "WS_STAGE_DIAG", "WILLIAMSON2N", "WS_STAGE_DIAG_BWD",
+           "INCREMENT_DIAG", "AXPY_CHAIN", "build_kernels"]
 
 
 def build_kernels() -> float:

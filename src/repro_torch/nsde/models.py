@@ -62,8 +62,11 @@ def lsde_term() -> SDETerm:
         return p.drift(z)
 
     def diffusion(t, z, p):
-        tvec = torch.as_tensor(t, dtype=z.dtype, device=z.device)
-        tvec = tvec.reshape((1,) * z.dim())
+        shape = (1,) * z.dim()
+        if isinstance(t, torch.Tensor):
+            tvec = t.to(dtype=z.dtype, device=z.device).reshape(shape)
+        else:  # a host float (t0): filled on the device, no host copy
+            tvec = torch.full(shape, float(t), dtype=z.dtype, device=z.device)
         g = p.diff(tvec)
         return (torch.logaddexp(g, torch.zeros_like(g)) * 0.5 + 0.05).expand(z.shape)
 

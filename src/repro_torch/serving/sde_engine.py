@@ -380,9 +380,11 @@ class SDESampleEngine:
             if plan is not None:
                 self._staged = (plan, self._plan_keys(plan))
 
+    @torch.no_grad()
     def _dispatch_next(self, tick_limit: int) -> int:
         """Plan (or unstage), dispatch and deliver one tick stack; returns
-        the ticks served (0 when idle).  If a dispatch raises, every
+        the ticks served (0 when idle).  Serving records no autograd graph,
+        whether or not the model's parameters require gradients.  If a dispatch raises, every
         undelivered reservation is released before the error propagates."""
         self._expire()
         depth = min(tick_limit, self.cfg.ticks_per_dispatch)

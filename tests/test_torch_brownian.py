@@ -118,3 +118,50 @@ def test_grid_validation():
         TimeGrid.padded_uniform(0.0, 0.1, 9, 8, device="cpu")
     with pytest.raises(ValueError, match="scalar"):
         TimeGrid.padded_uniform(0.0, 0.1, torch.tensor([1, 2]), 8, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(5,), ((3,), (2,))], ids=["vector", "tuple"])
+@pytest.mark.parametrize("pass_elements", [1, 7, 40, 1 << 23])
+def test_bulk_passes_give_the_same_rows(monkeypatch, shape, pass_elements):
+    """The bulk buffer drawn in passes of any size is bitwise the one-pass
+    draw (every row is a function of its own fold_in key)."""
+    keys = prng.split(prng.PRNGKey(3, device="cpu"), 4)
+    bm = tbr.brownian_path(keys, 0.0, 1.0, 9, shape=shape)
+    pad = tbr.padded_brownian_path(keys, 0.0, 0.125, 16, shape=shape)
+    ts, pts = TimeGrid.from_path(bm).ts, torch.zeros(17)
+    whole = (bm.grid_increments(ts), pad.grid_increments(pts, n_rows=11))
+    monkeypatch.setattr(tbr, "BULK_PASS_ELEMENTS", pass_elements)
+    parts = (bm.grid_increments(ts), pad.grid_increments(pts, n_rows=11))
+    for w, p in zip(whole, parts):
+        for a, b in zip(tree_leaves(w), tree_leaves(p)):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_bulk_passes_are_freed_as_they_are_copied(monkeypatch):
+    """Each pass of a bulk draw is released once copied into the buffer, so
+    a long realization holds its buffer plus one pass (no pass waits for the
+    cyclic collector)."""
+    import gc
+    import weakref
+
+    passes = []
+    draw = tbr._draw
+
+    def spy(*args):
+        out = draw(*args)
+        passes.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(tbr, "_draw", spy)
+    monkeypatch.setattr(tbr, "BULK_PASS_ELEMENTS", 2 * 4 * 5)
+    keys = prng.split(prng.PRNGKey(3, device="cpu"), 4)
+    bm = tbr.brownian_path(keys, 0.0, 1.0, 9, shape=(5,))
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = bm.grid_increments(TimeGrid.from_path(bm).ts)
+        assert len(passes) == 5 and out.shape == (9, 4, 5)
+        assert all(p() is None for p in passes)
+    finally:
+        if was_enabled:
+            gc.enable()

@@ -95,3 +95,35 @@ def test_blowup_keeps_the_batch_axes():
     flags = tp.tree_blowup((y, y[:, :1] * 0), 1e6, batch_dims=1)
     assert flags.tolist() == [False, True, False, True]
     assert tp.tree_blowup(y, None, batch_dims=1).tolist() == [False, True, False, False]
+
+
+@pytest.mark.parametrize("op", ["tree_flatten", "tree_unflatten", "flatten_up_to",
+                                "tree_map", "tree_add"])
+def test_helpers_release_their_leaves_without_the_cycle_collector(op):
+    """A helper keeps no reference to the tensors it walked once it returns:
+    with the cyclic collector off, a leaf dies with its last outside
+    reference (a reference cycle would hold device buffers until a
+    collection happened to run)."""
+    import gc
+    import weakref
+
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    tree = {"a": (leaf,), "b": [None]}
+    treedef = tp.tree_flatten(tree)[1]
+    run = {
+        "tree_flatten": lambda: tp.tree_flatten(tree),
+        "tree_unflatten": lambda: tp.tree_unflatten(treedef, [leaf]),
+        "flatten_up_to": lambda: tp.flatten_up_to(treedef, tree),
+        "tree_map": lambda: tp.tree_map(lambda x: x, tree),
+        "tree_add": lambda: tp.tree_add(tree, tree),
+    }[op]
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = run()
+        del out, tree, leaf, run
+        assert ref() is None
+    finally:
+        if was_enabled:
+            gc.enable()

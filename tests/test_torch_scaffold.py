@@ -12,7 +12,9 @@ import repro_torch
 from repro_torch.core import PRNGKey, SDETerm, TimeGrid, path_keys, sdeint, sdeint_ticks
 from repro_torch.device import NotYetPorted, resolve_device
 from repro_torch.nsde import init_lsde
+from repro_torch.optim import adamw
 from repro_torch.serving import SDESampleConfig, SDESampleEngine
+from repro_torch.train import make_sde_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -27,7 +29,8 @@ def _port_files():
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.nsde, repro_torch.serving; "
+            "repro_torch.nsde, repro_torch.serving, repro_torch.train, "
+            "repro_torch.optim, repro_torch.benchmarks.table1_ou; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -71,9 +74,15 @@ def _term():
     return SDETerm(drift=lambda t, y, a: -y, diffusion=lambda t, y, a: 0.1 * torch.ones_like(y))
 
 
+def _train_step(**kw):
+    return make_sde_train_step("ees25", _term(), adamw(1e-2), lambda p: torch.zeros(2),
+                               lambda p, r: r.y_final.sum(), t0=0.0, t1=1.0,
+                               n_steps=2, n_paths=4, **kw)
+
+
 @pytest.mark.parametrize("entry", [
     "PRNGKey", "TimeGrid.uniform", "sdeint", "sdeint_ticks", "init_lsde",
-    "SDESampleEngine"])
+    "SDESampleEngine", "make_sde_train_step"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     key = PRNGKey(0, device="cpu")
     y0 = torch.zeros(2)
@@ -86,6 +95,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
             path_keys(key, 2)[None], **d),
         "init_lsde": lambda **d: init_lsde(0, 1, 2, 4, **d),
         "SDESampleEngine": lambda **d: SDESampleEngine(_term(), y0, **d),
+        "make_sde_train_step": lambda **d: _train_step(**d),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -93,15 +103,16 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
 
 
 @pytest.mark.parametrize("what", [
-    "adjoint=reversible", "adjoint=recursive", "adaptive spec", "adaptive flag",
-    "mesh", "engine auto", "engine adaptive", "engine compile cache",
+    "trainer microbatches", "adjoint=recursive", "adaptive spec", "adaptive flag",
+    "mesh", "trainer mesh", "engine auto", "engine adaptive", "engine compile cache",
     "engine mesh"])
 def test_unported_features_raise_not_yet_ported(what):
     key = PRNGKey(0, device="cpu")
     y0 = torch.zeros(2)
     run = {
-        "adjoint=reversible": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0,
-                                             key, adjoint="reversible", device="cpu"),
+        "trainer microbatches": lambda: _train_step(microbatches=2, device="cpu"),
+        "trainer mesh": lambda: _train_step(mesh=object(), mesh_axis="dp",
+                                            device="cpu"),
         "adjoint=recursive": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0,
                                             key, adjoint="recursive", device="cpu"),
         "adaptive spec": lambda: sdeint(_term(), "ees25:adaptive", 0.0, 1.0, 2,

@@ -333,3 +333,19 @@ def test_executor_cache_and_counters(lsde64):
     assert ex.has_compiled(bk, 2) and (ex.n_dispatches, ex.n_ticks) == (1, 2)
     assert out.y_final.shape == (2, 4, D_Z) and out.diverged.shape == (2, 4)
     assert out.ys is None
+
+
+def test_engine_serves_a_trainable_model_without_no_grad(lsde64):
+    """Parameters that require gradients (an nn.Module as built) serve as the
+    reference's do, without the caller turning autograd off, and give the
+    same samples as a run under no_grad."""
+    _, _, tparams, ty0 = lsde64
+    assert all(p.requires_grad for p in tparams.parameters())
+    eng, ref = _port_engine(tparams, ty0), _port_engine(tparams, ty0)
+    ids = _submit_all(eng)
+    assert _submit_all(ref) == ids
+    done = eng.run()
+    with torch.no_grad():
+        want = ref.run()
+    for rid in ids:
+        assert np.array_equal(done[rid].y_final, want[rid].y_final)

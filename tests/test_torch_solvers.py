@@ -1,11 +1,13 @@
-"""SDETerm, LowStorageSolver and the registry of the port against the
-reference, fed the same increments (float64).
+"""SDETerm, the solvers (2N, Butcher, Reversible Heun, MCF) and the registry
+of the port against the reference, fed the same increments (float64).
 
-Tolerance: 1e-12 relative.  Both sides run the same 2N recurrence in the
+Tolerance: 1e-12 relative.  Both sides run the same recurrences in the
 same order; they differ only in the last bits of sin/cos (XLA's and torch's
 CPU implementations) and in XLA's FMA contraction.  Within the port, the
-kernel route (its CPU twin) equals the plain route bitwise.
+kernel route (its CPU twins) equals the plain route bitwise.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,14 +124,26 @@ def test_general_noise_plain_matches_reference(method):
 
 
 def test_kernel_routes_still_to_port_raise():
+    """General noise still names its TPU kernels; the diagonal increment now
+    runs through the ``increment_diag`` kernel (its CPU twin) and equals the
+    plain route bitwise and the reference's fused route to 1e-12."""
     (_, _), (ty, tw) = _case("general", False)
     sol = treg.get_solver("ees25:use_kernels=True")
+    gterm = ts.SDETerm(**_fields("general", "torch"))
     with pytest.raises(ValueError, match="ws_stage_general_2d"):
-        sol.step(ts.SDETerm(**_fields("general", "torch")), ty[:3], 0.0, 0.1, tw, 0.7)
+        sol.step(gterm, ty[:3], 0.0, 0.1, tw, 0.7)
+    fg, gg = gterm.evals(0.0, ty[:3], 0.7)
+    with pytest.raises(ValueError, match="increment_general_2d"):
+        gterm.combine(fg, gg, 0.1, tw, use_kernels=True)
+    (jy, jw), (ty, tw) = _case("diagonal", True)
     term = ts.SDETerm(**_fields("diagonal", "torch"))
     f, g = term.evals(0.0, ty, 0.7)
-    with pytest.raises(ValueError, match="increment_diag_2d"):
-        term.combine(f, g, 0.1, ty, use_kernels=True)
+    fused = term.combine(f, g, 0.1, tw, use_kernels=True)
+    for p, k in zip(tree_leaves(term.combine(f, g, 0.1, tw)), tree_leaves(fused)):
+        assert torch.equal(p, k)
+    jterm = js.SDETerm(**_fields("diagonal", "jax"))
+    jf, jg = jterm.evals(0.0, jy, 0.7)
+    _assert_tree_close(fused, jterm.combine(jf, jg, 0.1, jw, use_kernels=True))
 
 
 @pytest.mark.parametrize("kwargs", [dict(drift=abs, noise="bogus"),
@@ -161,17 +175,23 @@ def test_spec_errors_equal(spec):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("name", ["rk4", "reversible_heun", "mcf-rk4", "milstein"])
+PORTED = ("ees25", "ees25-butcher", "ees27", "ees27-butcher", "euler", "heun",
+          "mcf-euler", "mcf-heun", "mcf-midpoint", "mcf-ralston3", "mcf-rk3",
+          "mcf-rk4", "midpoint", "ralston3", "reversible-heun", "rk3", "rk4")
+
+
+@pytest.mark.parametrize("name", ["milstein", "strat-milstein", "srk", "cfees25"])
 def test_unported_solvers_fail_with_the_unknown_solver_message(name):
     with pytest.raises(KeyError) as got:
         treg.get_solver(name)
     assert got.value.args[0] == (f"unknown solver {jreg._canon(name)!r}; "
-                                 "registered: ees25, ees27")
-    assert treg.list_solvers() == ("ees25", "ees27")
+                                 "registered: " + ", ".join(PORTED))
+    assert treg.list_solvers() == PORTED
+    assert set(PORTED) < set(jreg.list_solvers())
 
 
 def test_solver_objects_match():
-    for spec in SCHEMES:
+    for spec in SCHEMES + list(PORTED[1:]) + ["mcf-rk4:lam=0.9", "ees25-butcher:x=0.3"]:
         j, t = jreg.get_solver(spec), treg.get_solver(spec)
         assert (t.name, t.evals_per_step, t.is_reversible, t.sde_form,
                 t.strong_orders) == (j.name, j.evals_per_step, j.is_reversible,
@@ -184,3 +204,92 @@ def test_solver_objects_match():
     assert treg.get_solver(obj) is obj
     with pytest.raises(ValueError, match="overrides only apply"):
         treg.get_solver(obj, use_kernels=True)
+
+
+# -- Butcher, Reversible Heun and MCF -----------------------------------------
+
+OTHER = ["euler", "midpoint", "rk4", "ees25-butcher", "ees27-butcher",
+         "reversible-heun", "mcf-euler", "mcf-midpoint", "mcf-rk4:lam=0.9"]
+KERNEL_ROUTE = [s for s in OTHER if "butcher" not in s]  # factories without the flag
+OTHER_CASES = [("diagonal", False), ("diagonal", True), ("additive", False),
+               ("scalar", False), ("none", False)]
+
+
+@pytest.mark.parametrize("spec", OTHER)
+@pytest.mark.parametrize("noise,tuple_state", OTHER_CASES)
+@pytest.mark.parametrize("method", ["step", "reverse"])
+def test_other_solvers_match_reference(spec, noise, tuple_state, method):
+    (jy, jw), (ty, tw) = _case(noise, tuple_state, seed=7)
+    jsol, tsol = jreg.get_solver(spec), treg.get_solver(spec)
+    jterm, tterm = js.SDETerm(**_fields(noise, "jax")), ts.SDETerm(**_fields(noise, "torch"))
+    # the solvers' own initial states (Reversible Heun's evaluates f, g)
+    js0, ts0 = jsol.init(jterm, 0.3, jy, 0.7), tsol.init(tterm, 0.3, ty, 0.7)
+    want = getattr(jsol, method)(jterm, js0, 0.3, 0.1, jw, 0.7)
+    got = getattr(tsol, method)(tterm, ts0, 0.3, 0.1, tw, 0.7)
+    _assert_tree_close(got, want)
+    _assert_tree_close(tsol.extract(got), jsol.extract(want))
+
+
+@pytest.mark.parametrize("spec", KERNEL_ROUTE)
+@pytest.mark.parametrize("noise,tuple_state", OTHER_CASES)
+def test_other_solvers_kernel_route_bitwise(spec, noise, tuple_state):
+    """use_kernels=True (increment_diag + axpy_chain twins) == plain, bitwise,
+    on step and reverse; and == the reference's fused route to 1e-12."""
+    (jy, jw), (ty, tw) = _case(noise, tuple_state, seed=8)
+    tterm = ts.SDETerm(**_fields(noise, "torch"))
+    plain, fused = treg.get_solver(spec), treg.get_solver(spec, use_kernels=True)
+    assert fused.use_kernels and not plain.use_kernels
+    s0 = plain.init(tterm, 0.1, ty, 0.7)
+    for method in ("step", "reverse"):
+        p = getattr(plain, method)(tterm, s0, 0.1, 0.05, tw, 0.7)
+        f = getattr(fused, method)(tterm, s0, 0.1, 0.05, tw, 0.7)
+        for a, b in zip(tree_leaves(p), tree_leaves(f)):
+            assert torch.equal(a, b)
+    jsol = jreg.get_solver(spec, use_kernels=True)
+    jterm = js.SDETerm(**_fields(noise, "jax"))
+    want = jsol.step(jterm, jsol.init(jterm, 0.1, jy, 0.7), 0.1, 0.05, jw, 0.7)
+    _assert_tree_close(fused.step(tterm, s0, 0.1, 0.05, tw, 0.7), want)
+
+
+@pytest.mark.parametrize("spec", ["reversible-heun", "mcf-euler", "mcf-midpoint",
+                                  "mcf-rk4"])
+def test_algebraic_solvers_reverse_exactly(spec):
+    """reverse(step(s)) == s to rounding for the algebraically reversible
+    solvers (1e-13 absolute, as the reference's test)."""
+    (_, _), (ty, tw) = _case("diagonal", False, seed=9)
+    term = ts.SDETerm(**_fields("diagonal", "torch"))
+    sol = treg.get_solver(spec, use_kernels=True)
+    s0 = sol.init(term, 0.0, ty, 0.7)
+    back = sol.reverse(term, sol.step(term, s0, 0.0, 0.1, tw, 0.7), 0.0, 0.1, tw, 0.7)
+    for a, b in zip(tree_leaves(back), tree_leaves(s0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("spec", ["midpoint", "rk4", "ees25-butcher"])
+def test_butcher_step_with_error_matches_reference(spec):
+    (jy, jw), (ty, tw) = _case("diagonal", False, seed=10)
+    jsol, tsol = jreg.get_solver(spec), treg.get_solver(spec)
+    want = jsol.step_with_error(js.SDETerm(**_fields("diagonal", "jax")), jy, 0.3, 0.1, jw, 0.7)
+    got = tsol.step_with_error(ts.SDETerm(**_fields("diagonal", "torch")), ty, 0.3, 0.1, tw, 0.7)
+    _assert_tree_close(got, want)
+    with pytest.raises(ValueError) as w:
+        jreg.get_solver("euler").step_with_error(None, jy, 0.0, 0.1, jw, None)
+    with pytest.raises(ValueError) as g:
+        treg.get_solver("euler").step_with_error(None, ty, 0.0, 0.1, tw, None)
+    assert str(g.value) == str(w.value)
+
+
+def test_tableaux_equal_reference():
+    from repro.core import tableaux as jt
+    from repro_torch.core import tableaux as tt
+    fields = dataclasses.astuple
+    for name in ("euler", "midpoint", "heun", "ralston3", "rk3", "rk4"):
+        assert fields(getattr(tt, name)) == fields(getattr(jt, name))
+    for x in (0.1, 0.3):
+        assert fields(tt.ees25_tableau(x)) == fields(jt.ees25_tableau(x))
+    got, want = tt.ees27_tableau(), jt.ees27_tableau()
+    assert (got.name, got.order, got.sym_order) == (want.name, want.order, want.sym_order)
+    np.testing.assert_allclose(got.a, want.a, rtol=0, atol=1e-15)
+    np.testing.assert_allclose(got.b, want.b, rtol=0, atol=1e-15)
+    with pytest.raises(ValueError, match="admissible"):
+        tt.ees25_tableau(0.5)
