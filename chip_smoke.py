@@ -5,17 +5,20 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's two paths through the hand-written CUDA kernels — an
+It drives the port's paths through the nine hand-written CUDA kernels — an
 ``SDESampleEngine`` serving EES(2,5) and EES(2,7) Monte-Carlo sampling
 requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
-d_z=16, width=32``) plus an ODE-mode ``sdeint``, and the paper's Table-1
-training run with the reversible adjoint — and checks what comes out:
+d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
+training run with the reversible adjoint, and the serving and training of
+additive- and general-noise SDEs — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off;
 2. the kernel builds (one ``nvcc`` per source, in parallel);
 3. each kernel against its plain PyTorch twin on the card, float32 and
    float64, at the served (or trained) shape, a ragged size and an
-   unaligned view, with its time, the twin's time and its byte bound;
+   unaligned view (the general-noise kernels at (N, d, m) = (65536, 16, 4),
+   (65536, 16, 128) and (1001, 5, 3)), with its time, the twin's time, its
+   bound and, where one PyTorch call computes it, that call's time;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
@@ -28,11 +31,23 @@ training run with the reversible adjoint — and checks what comes out:
    each under ``torch.cuda.set_sync_debug_mode("error")``;
 8. one EES(2,5) training step at 65,536 paths under the reversible and the
    full adjoint, 8 and 64 steps: peak device memory, and the profile of one
-   reversible step.
+   reversible step;
+9. the step-kernel benchmark's additive, general and diagonal terms
+   (``repro_torch.benchmarks.step_kernels``, width 16, 4 channels, 64 steps)
+   served through ``SDESampleEngine`` — requests E-N: the prediffused
+   additive route (E bitwise equal to its diagonal relabel G), general noise
+   through the kernels (J against the plain L), Reversible Heun on both, and
+   the ``"auto"`` specs resolving to SRA1, EES(2,7), EES(2,5) and Milstein —
+   with a CPU cross-check, paths/s and one tick's device time;
+10. three training steps on those terms: the additive term under the full
+   adjoint through the prediffused kernels (bitwise equal to the diagonal
+   relabel on the plain route) and the general term under the reversible
+   adjoint through EES(2,5) and Reversible Heun (1e-5 of the plain route);
+   one step of each under ``set_sync_debug_mode("error")``.
 
-The launch counts are zeroed just before each path (phases 4-5, and the
-60-epoch runs of phase 7) and read just after; a kernel of the path with no
-launch there fails the run.  The second-to-last line is the
+The launch counts are zeroed just before each path (phases 4-5, the
+60-epoch runs of phase 7, phase 9's drain and phase 10's runs) and read just
+after; a kernel of the path with no launch there fails the run.  The second-to-last line is the
 ``{"kernels": [...]}`` record and the last line ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
@@ -60,6 +75,10 @@ D_OBS, D_Z, WIDTH = 1, 16, 32  # benchmarks/table1_ou.py widths
 RAGGED = 1_000_003
 TRAIN_ELEMS = 256 * D_Z        # one Table-1 training batch (benchmarks/table1_ou.py)
 CHECK_EPOCHS = 3              # Table-1 epochs held against the plain path
+# General-noise kernel shapes (rows, d, m): the served state with the
+# reference benchmark's 4 channels, the TPU kernel's lane-aligned m = 128,
+# and a ragged shape no (8, 128) tile fits.
+GENERAL_SHAPES = ((SERVE_SLOTS, D_Z, 4), (SERVE_SLOTS, D_Z, 128), (1001, 5, 3))
 
 
 def fail(msg: str) -> None:
@@ -156,100 +175,191 @@ def compare(torch, got, want):
     return abs_err, rel_err, same
 
 
+def _flat_inputs(torch, gen, n_in, n, offset=0):
+    """``n_in`` float vectors of ``n`` elements (an offset view when
+    ``offset``), drawn on the card."""
+    def make(dtype):
+        return [torch.randn(n + offset, generator=gen, device="cuda",
+                            dtype=dtype)[offset:] for _ in range(n_in)]
+    return make
+
+
+def _row_inputs(torch, gen, n_state, rows, d, m):
+    """General-noise operands: ``n_state`` states ``(rows, d)``, then the
+    diffusion ``(rows, d, m)`` and the increment ``(rows, m)``."""
+    def make(dtype):
+        draw = lambda *shape: torch.randn(*shape, generator=gen, device="cuda",  # noqa: E731
+                                          dtype=dtype)
+        return ([draw(rows, d) for _ in range(n_state)]
+                + [draw(rows, d, m), draw(rows, m)])
+    return make
+
+
 def kernel_phase(torch, timer):
-    """Phase 3: each kernel against its plain twin; returns per-kernel stats."""
+    """Phase 3: each kernel against its plain twin; returns per-kernel stats.
+
+    Every kernel is held at each of its shapes in float32 and float64 and
+    timed in float32 at its main-path shape (the first of ``timed``; the
+    general-noise kernels also at m = 128), with the L2 cache flushed and
+    warm, beside its plain twin, its bound and, where one PyTorch call
+    computes the same function, that call (timed here, used nowhere in the
+    port)."""
     from repro_torch.core.williamson import EES25_2N
     from repro_torch.kernels.sde_step import ref as sref
     from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag,
-                                                       ws_stage_diag, ws_stage_diag_bwd)
+                                                       increment_general, increment_pre,
+                                                       ws_stage_diag, ws_stage_diag_bwd,
+                                                       ws_stage_general, ws_stage_pre)
     from repro_torch.kernels.williamson2n.ref import williamson2n_ref
     from repro_torch.kernels.williamson2n.williamson2n import williamson2n
 
     a, b, h = EES25_2N.A[1], EES25_2N.B[1], 0.25
     gen = torch.Generator(device="cuda").manual_seed(1234)
     served = SERVE_SLOTS * D_Z
-    shapes = (("served", served, 0), ("ragged", RAGGED, 0),
-              ("unaligned", RAGGED, 1))
-    # The training kernels are held bitwise (tolerance 0) at the Table-1
-    # batch too; the one PyTorch call that computes the s=1 axpy chain
-    # (torch.add with alpha) is timed beside it, and used nowhere in the port.
-    train_shapes = (("training", TRAIN_ELEMS, 0),) + shapes
+
+    def flat(n_in, train=False):
+        """The flat shapes: (the Table-1 batch,) served, ragged, unaligned;
+        and the timed served shape with its float32 bytes per element."""
+        shapes = [(f"served n={served}", _flat_inputs(torch, gen, n_in, served)),
+                  (f"ragged n={RAGGED}", _flat_inputs(torch, gen, n_in, RAGGED)),
+                  (f"unaligned n={RAGGED}",
+                   _flat_inputs(torch, gen, n_in, RAGGED, 1))]
+        if train:
+            shapes.insert(0, (f"training n={TRAIN_ELEMS}",
+                              _flat_inputs(torch, gen, n_in, TRAIN_ELEMS)))
+        return shapes
+
+    def timed_flat(n_in, streams, ops):
+        return [(f"served n={served}", _flat_inputs(torch, gen, n_in, served),
+                 streams * served * 4, ops * served)]
+
+    def general(n_state, n_out, update_ops):
+        """Shapes of a general-noise kernel: (65536, 16, 4), (65536, 16, 128)
+        and a ragged (1001, 5, 3); the timed (N, d, m) with their float32
+        bytes (each input read once, each output written once) and flops
+        (``2m + 1`` per output for ``f*h + g@dW``, plus ``update_ops`` for
+        the 2N update)."""
+        shapes = [(f"(N,d,m)=({n},{d},{m})",
+                   _row_inputs(torch, gen, n_state, n, d, m))
+                  for n, d, m in GENERAL_SHAPES]
+        timed = []
+        for n, d, m in GENERAL_SHAPES[:2]:
+            elems = n * d * m + n * m + (n_state + n_out) * n * d
+            flops = n * d * (2 * m + 1 + update_ops)
+            timed.append((f"(N,d,m)=({n},{d},{m})",
+                          _row_inputs(torch, gen, n_state, n, d, m),
+                          elems * 4, flops))
+        return shapes, timed
+
+    gen_inc, gen_inc_timed = general(1, 1, 0)
+    gen_ws, gen_ws_timed = general(3, 2, 4)
     specs = {
         "ws_stage_diag": dict(
-            n_in=5, symbol="ws_stage_diag_kernel", shapes=shapes, exact=False,
+            symbol="ws_stage_diag_kernel", shapes=flat(5), exact=False,
+            timed=timed_flat(5, 7, 6),
             kernel=lambda x: ws_stage_diag(*x, h, a=a, b=b),
-            plain=lambda x: sref.ws_stage_diag_ref(*x, h, a, b),
-            bytes_per_elem=7, ops_per_elem=6, library=None),
+            plain=lambda x: sref.ws_stage_diag_ref(*x, h, a, b), library=None),
         "williamson2n": dict(
-            n_in=3, symbol="williamson2n_kernel", shapes=shapes, exact=False,
+            symbol="williamson2n_kernel", shapes=flat(3), exact=False,
+            timed=timed_flat(3, 5, 4),
             kernel=lambda x: williamson2n(*x, a=a, b=b),
-            plain=lambda x: williamson2n_ref(*x, a, b),
-            bytes_per_elem=5, ops_per_elem=4, library=None),
+            plain=lambda x: williamson2n_ref(*x, a, b), library=None),
         "ws_stage_diag_bwd": dict(
-            n_in=4, symbol="ws_stage_diag_bwd_kernel", shapes=train_shapes,
-            exact=True, kernel=lambda x: ws_stage_diag_bwd(*x, h, a=a, b=b),
+            symbol="ws_stage_diag_bwd_kernel", shapes=flat(4, train=True),
+            exact=True, timed=timed_flat(4, 8, 6),
+            kernel=lambda x: ws_stage_diag_bwd(*x, h, a=a, b=b),
             plain=lambda x: sref.ws_stage_diag_bwd_ref(*x, h, a, b),
-            bytes_per_elem=8, ops_per_elem=6, library=None),
+            library=None),
         "increment_diag": dict(
-            n_in=3, symbol="increment_diag_kernel", shapes=train_shapes,
-            exact=True, kernel=lambda x: (increment_diag(*x, h),),
-            plain=lambda x: (sref.increment_diag_ref(*x, h),),
-            bytes_per_elem=4, ops_per_elem=3, library=None),
+            symbol="increment_diag_kernel", shapes=flat(3, train=True),
+            exact=True, timed=timed_flat(3, 4, 3),
+            kernel=lambda x: (increment_diag(*x, h),),
+            plain=lambda x: (sref.increment_diag_ref(*x, h),), library=None),
         "axpy_chain": dict(
-            n_in=2, symbol="axpy_chain_kernel", shapes=train_shapes,
-            exact=True, kernel=lambda x: (axpy_chain(x[0], x[1:], [0.5]),),
+            symbol="axpy_chain_kernel", shapes=flat(2, train=True), exact=True,
+            timed=timed_flat(2, 3, 2),
+            kernel=lambda x: (axpy_chain(x[0], x[1:], [0.5]),),
             plain=lambda x: (sref.axpy_chain_ref(x[0], x[1:], [0.5]),),
-            bytes_per_elem=3, ops_per_elem=2,
-            library=lambda x: torch.add(x[0], x[1], alpha=0.5)),
+            library=("torch.add(y, inc, alpha=c)",
+                     lambda x: torch.add(x[0], x[1], alpha=0.5))),
+        "increment_pre": dict(
+            symbol="increment_pre_kernel", shapes=flat(2), exact=True,
+            timed=timed_flat(2, 3, 2),
+            kernel=lambda x: (increment_pre(*x, h),),
+            plain=lambda x: (sref.increment_pre_ref(*x, h),),
+            library=("torch.add(w, f, alpha=h)",
+                     lambda x: torch.add(x[1], x[0], alpha=h))),
+        "ws_stage_pre": dict(
+            symbol="ws_stage_pre_kernel", shapes=flat(4), exact=True,
+            timed=timed_flat(4, 6, 5),
+            kernel=lambda x: ws_stage_pre(*x, h, a=a, b=b),
+            plain=lambda x: sref.ws_stage_pre_ref(*x, h, a, b), library=None),
+        "increment_general": dict(
+            symbol="increment_general_kernel", shapes=gen_inc, exact=True,
+            timed=gen_inc_timed,
+            kernel=lambda x: (increment_general(*x, h),),
+            plain=lambda x: (sref.increment_general_ref(*x, h),),
+            library=("torch.baddbmm(f[..., None], g, dW[..., None], beta=h)",
+                     lambda x: torch.baddbmm(x[0][..., None], x[1],
+                                             x[2][..., None], beta=h))),
+        "ws_stage_general": dict(
+            symbol="ws_stage_general_kernel", shapes=gen_ws, exact=True,
+            timed=gen_ws_timed,
+            kernel=lambda x: ws_stage_general(*x, h, a=a, b=b),
+            plain=lambda x: sref.ws_stage_general_ref(*x, h, a, b),
+            library=None),
     }
     stats = {}
     for name, spec in specs.items():
         worst = {}
         for dtype in (torch.float32, torch.float64):
             tol = 0.0 if spec["exact"] else 4 * torch.finfo(dtype).eps
-            for label, n, offset in spec["shapes"]:
-                xs = [torch.randn(n + offset, generator=gen, device="cuda",
-                                  dtype=dtype)[offset:]
-                      for _ in range(spec["n_in"])]
+            for label, make in spec["shapes"]:
+                xs = make(dtype)
                 got = spec["kernel"](xs)
                 want = spec["plain"](xs)
                 torch.cuda.synchronize()
                 abs_err, rel_err, same = compare(torch, got, want)
                 scale = max(1.0, max(w.abs().max().item() for w in want))
-                print(f"  {name} {str(dtype)[6:]} {label} n={n}: max_abs_err="
+                print(f"  {name} {str(dtype)[6:]} {label}: max_abs_err="
                       f"{abs_err:.3e} max_rel_err={rel_err:.3e} bitwise={same}"
                       f" (tolerance {tol:.1e} x max|out|)", flush=True)
                 check(abs_err <= tol * scale,
                       f"{name} {dtype} {label} disagrees with its plain twin")
                 worst[(dtype, label)] = abs_err
-        xs = [torch.randn(served, generator=gen, device="cuda")
-              for _ in range(spec["n_in"])]
-        ms = timer.ms(lambda: spec["kernel"](xs), spec["symbol"])
-        ms_warm = timer.ms(lambda: spec["kernel"](xs), spec["symbol"],
-                           flush=False)
-        plain_ms = timer.ms(lambda: spec["plain"](xs))
-        plain_warm = timer.ms(lambda: spec["plain"](xs), flush=False)
-        library_ms = None
-        if spec["library"] is not None:
-            library_ms = timer.ms(lambda: spec["library"](xs))
-            print(f"  {name}: the one PyTorch call computing it "
-                  f"(torch.add(y, inc, alpha=c)) {library_ms * 1e3:.2f} us with "
-                  f"L2 flushed", flush=True)
-        bytes_moved = spec["bytes_per_elem"] * served * 4
-        bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = spec["ops_per_elem"] * served / FP32_FLOPS * 1e3
-        bound_ms = max(bound_bytes_ms, bound_ops_ms)
-        print(f"  {name} float32 served n={served}, device time: kernel "
-              f"{ms * 1e3:.2f} us with L2 flushed ({ms_warm * 1e3:.2f} us warm),"
-              f" plain twin {plain_ms * 1e3:.2f} us ({plain_warm * 1e3:.2f} us "
-              f"warm); bound {bound_ms * 1e3:.2f} us ({bytes_moved} B at "
-              f"3.35 TB/s; ops bound {bound_ops_ms * 1e3:.3f} us); "
-              f"{bound_ms / ms:.0%} of the HBM bound", flush=True)
-        stats[name] = dict(max_abs_err=max(worst.values()),
-                           ms=ms, ms_warm=ms_warm, plain_ms=plain_ms,
-                           bound_ms=bound_ms, library_ms=library_ms,
-                           bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                           else "operations")
+                del xs, got, want
+        rows = []
+        for label, make, bytes_moved, ops in spec["timed"]:
+            xs = make(torch.float32)
+            ms = timer.ms(lambda: spec["kernel"](xs), spec["symbol"])
+            ms_warm = timer.ms(lambda: spec["kernel"](xs), spec["symbol"],
+                               flush=False)
+            plain_ms = timer.ms(lambda: spec["plain"](xs))
+            plain_warm = timer.ms(lambda: spec["plain"](xs), flush=False)
+            library_ms = None
+            if spec["library"] is not None:
+                call, fn = spec["library"]
+                library_ms = timer.ms(lambda: fn(xs))
+                print(f"  {name} {label}: the one PyTorch call computing it "
+                      f"({call}) {library_ms * 1e3:.2f} us with L2 flushed",
+                      flush=True)
+            bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+            bound_ops_ms = ops / FP32_FLOPS * 1e3
+            bound_ms = max(bound_bytes_ms, bound_ops_ms)
+            print(f"  {name} float32 {label}, device time: kernel "
+                  f"{ms * 1e3:.2f} us with L2 flushed ({ms_warm * 1e3:.2f} us "
+                  f"warm), plain twin {plain_ms * 1e3:.2f} us "
+                  f"({plain_warm * 1e3:.2f} us warm); bound {bound_ms * 1e3:.2f}"
+                  f" us ({bytes_moved} B at 3.35 TB/s; ops bound "
+                  f"{bound_ops_ms * 1e3:.3f} us); {bound_ms / ms:.0%} of the "
+                  f"bound", flush=True)
+            rows.append(dict(max_abs_err=max(worst.values()), ms=ms,
+                             ms_warm=ms_warm, plain_ms=plain_ms,
+                             bound_ms=bound_ms, library_ms=library_ms,
+                             bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                             else "operations"))
+            del xs
+        stats[name] = rows[0]
     return stats
 
 
@@ -657,6 +767,298 @@ def host_profile(torch, run, wall_ms):
               f"{e.key[:90]}", flush=True)
 
 
+NOISE_T1, NOISE_STEPS = 1.0, 64  # the step-kernel benchmark's horizon
+CPU_PATHS = 4096                 # paths of the CPU cross-checks
+
+
+def _rel(got, want):
+    """max |got - want| / max(1, max |want|) of two arrays."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def noise_serve_phase(torch, timer):
+    """Phase 9: additive, general and diagonal SDEs served through the
+    engine (requests E-N of the step-kernel benchmark's terms); returns the
+    new kernels' launch counts."""
+    from repro_torch.benchmarks import step_kernels as sk
+    from repro_torch.core import PRNGKey, SDETerm, path_keys, sdeint
+    from repro_torch.kernels import (INCREMENT_GENERAL, INCREMENT_PRE, KERNELS,
+                                     WS_STAGE_GENERAL, WS_STAGE_PRE)
+    from repro_torch.serving import BucketKey, SDESampleConfig, SDESampleEngine
+
+    args = sk.term_args("cuda")
+    additive = sk.make_term("prediffused")
+    terms = {
+        "additive": (additive, None),
+        "relabel": (SDETerm(additive.drift, additive.diffusion, "diagonal"), None),
+        "general": (sk.make_term("general"), (sk.N_CHANNELS,)),
+        "diagonal": (sk.make_term("diagonal"), None),
+    }
+    y0 = torch.ones(sk.DIM, device="cuda")
+    cfg = SDESampleConfig(slots=SERVE_SLOTS, ticks_per_dispatch=2,
+                          guard_threshold=1e6)
+    engines = {name: SDESampleEngine(term, y0, cfg, args=args, noise_shape=ns,
+                                     device="cuda")
+               for name, (term, ns) in terms.items()}
+    # (label, engine, spec, paths, seed, the spec "auto" must resolve to)
+    requests = [
+        ("E", "additive", "ees25:use_kernels=True", 2 * SERVE_SLOTS, 21, None),
+        ("F", "additive", "reversible-heun:use_kernels=True", SERVE_SLOTS, 22, None),
+        ("H", "additive", "auto", SERVE_SLOTS, 24, "srk:noise='additive'"),
+        ("I", "additive", "auto:stiffness=200", SERVE_SLOTS, 25, "ees27"),
+        ("G", "relabel", "ees25", 2 * SERVE_SLOTS, 21, None),
+        ("J", "general", "ees25:use_kernels=True", 2 * SERVE_SLOTS, 31, None),
+        ("K", "general", "reversible-heun:use_kernels=True", SERVE_SLOTS, 32, None),
+        ("L", "general", "ees25", 2 * SERVE_SLOTS, 31, None),
+        ("M", "general", "auto", SERVE_SLOTS, 34, "ees25"),
+        ("N", "diagonal", "auto", SERVE_SLOTS, 41, "milstein"),
+    ]
+    with torch.no_grad():
+        # Warm-up: each request's spec once on its engine (allocator,
+        # torch.func's first jvp, each route's first dispatch), outside the
+        # count and the clock; its wall is the route's first-use cost.
+        firsts = {}
+        for label, eng, spec, _, _, _ in requests:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            engines[eng].submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS,
+                                n_paths=1024, seed=99)
+            engines[eng].run()
+            torch.cuda.synchronize()
+            firsts[label] = time.perf_counter() - start
+        print("  warm-up, 1024 paths per request's spec (first use): "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in firsts.items()),
+              flush=True)
+        for kern in KERNELS:
+            kern.launches = 0
+        # One request at a time through its engine, each drain timed.
+        rids, walls = {}, {}
+        for label, eng, spec, n, seed, _ in requests:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            rids[label] = engines[eng].submit(spec, t1=NOISE_T1,
+                                              n_steps=NOISE_STEPS, n_paths=n,
+                                              seed=seed)
+            engines[eng].run()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - start
+        done = {name: eng.done for name, eng in engines.items()}
+    wall = sum(walls.values())
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    n_paths = sum(r[3] for r in requests)
+    print(f"  served {len(requests)} requests, {n_paths} paths x "
+          f"{NOISE_STEPS} steps in {wall:.3f} s: {n_paths / wall:.0f} paths/s "
+          f"(host wall clock incl. delivery); kernel launches {launches}",
+          flush=True)
+    for label, eng, spec, n, _, _ in requests:
+        print(f"    {label} ({eng}, {spec!r}, {n} paths): {walls[label]:.3f} s,"
+              f" {n / walls[label]:.0f} paths/s", flush=True)
+    # The same ten requests queued together and drained engine by engine:
+    # queueing changes when a path is served, never its sample.
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        again = {label: engines[eng].submit(spec, t1=NOISE_T1,
+                                            n_steps=NOISE_STEPS, n_paths=n,
+                                            seed=seed)
+                 for label, eng, spec, n, seed, _ in requests}
+        for eng in engines.values():
+            eng.run()
+        torch.cuda.synchronize()
+        queued_wall = time.perf_counter() - start
+    same = all(np.array_equal(engines[eng].done[again[label]].y_final,
+                              engines[eng].done[rids[label]].y_final)
+               for label, eng, *_ in requests)
+    print(f"  the same requests queued together: {queued_wall:.3f} s, "
+          f"{n_paths / queued_wall:.0f} paths/s; samples bitwise equal to the "
+          f"one-by-one drain: {same}", flush=True)
+    check(same, "queueing the requests together changed their samples")
+    res = {}
+    for label, eng, spec, n, _, resolves in requests:
+        r = done[eng][rids[label]]
+        res[label] = r.y_final
+        check(r.y_final.shape == (n, sk.DIM),
+              f"request {label} y_final shape {r.y_final.shape}")
+        check(bool(np.isfinite(r.y_final).all()),
+              f"request {label} has non-finite samples")
+        check(not r.diverged.any() and r.retries == 0,
+              f"request {label} diverged")
+        if resolves is not None:
+            got = r.bucket.solver if r.bucket is not None else None
+            print(f"  {label} ({eng}, {spec!r}) resolved to {got!r}",
+                  flush=True)
+            check(got == resolves, f"{spec!r} on the {eng} term resolved to "
+                  f"{got!r}, not {resolves!r}")
+    same = np.array_equal(res["E"], res["G"])
+    print(f"  E (additive, prediffused kernels) vs G (diagonal relabel, "
+          f"plain): bitwise={same}", flush=True)
+    check(same, "the prediffused route differs from the diagonal relabel")
+    jl = _rel(res["J"], res["L"])
+    print(f"  J (general, kernels) vs L (plain, same seed): max rel err "
+          f"{jl:.3e} (tolerance 1e-5; the kernel sums g@dW in another order "
+          f"than einsum)", flush=True)
+    check(jl <= 1e-5, "J and L disagree")
+    for label, key, seed in (("E", "additive", 21), ("J", "general", 31)):
+        term, ns = terms[key]
+        cpu_args = {k: v.cpu() for k, v in args.items()}
+        with torch.no_grad():
+            ref = sdeint(term, "ees25", 0.0, NOISE_T1, NOISE_STEPS, y0.cpu(),
+                         args=cpu_args, noise_shape=ns,
+                         batch_keys=path_keys(PRNGKey(seed, device="cpu"),
+                                              CPU_PATHS),
+                         device="cpu").y_final
+        err = _rel(res[label][:CPU_PATHS], ref.numpy())
+        print(f"  {label}[:{CPU_PATHS}] vs the plain path on the CPU: max rel "
+              f"err {err:.3e} (tolerance 1e-4)", flush=True)
+        check(err <= 1e-4, f"{label} disagrees with the CPU run")
+    for kern in (WS_STAGE_PRE, INCREMENT_PRE, WS_STAGE_GENERAL,
+                 INCREMENT_GENERAL):
+        check(launches.get(kern.name, 0) > 0,
+              f"serving launched no {kern.name} kernel")
+
+    # One bucketed tick of each route: device time and no host sync.
+    for label, key, spec in (("E", "additive", "ees25:use_kernels=True"),
+                             ("J", "general", "ees25:use_kernels=True"),
+                             ("H", "additive", "srk:noise='additive'"),
+                             ("N", "diagonal", "milstein")):
+        eng = engines[key]
+        bucket = BucketKey(spec, 0.0, NOISE_T1 / NOISE_STEPS, NOISE_STEPS)
+        keys = path_keys(PRNGKey(7, device="cuda"), SERVE_SLOTS)[None]
+
+        def dispatch():
+            return eng.executor.dispatch(bucket, keys, (NOISE_STEPS,))
+
+        with torch.no_grad():
+            totals = timer.kernels_us(dispatch, reps=3, flush=False)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dispatch()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dispatch()
+            except RuntimeError as exc:
+                fail(f"a {label} dispatch synchronized with the host: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        dev_ms = sum(t for t, _ in totals.values()) / 3 / 1e3
+        n_launch = sum(n for _, n in totals.values()) // 3
+        wall_ms = min(walls) * 1e3
+        print(f"  one {label} tick ({SERVE_SLOTS} paths x {NOISE_STEPS} "
+              f"steps): host wall {wall_ms:.3f} ms, device kernel time "
+              f"{dev_ms:.3f} ms over {n_launch} launches (device busy "
+              f"{dev_ms / wall_ms:.0%}); no host sync in the dispatch",
+              flush=True)
+        rows = sorted(((t / 3, n // 3, name) for name, (t, n) in totals.items()),
+                      reverse=True)
+        for us, n, name in rows[:6]:
+            print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
+    return launches
+
+
+def noise_train_phase(torch):
+    """Phase 10: three training steps of the OU model on the additive term
+    (full adjoint, prediffused kernels) and the general term (reversible
+    adjoint, EES(2,5) and Reversible Heun kernels), each against the plain
+    route; returns the new kernels' launch counts."""
+    from repro_torch.benchmarks import step_kernels as sk
+    from repro_torch.core import SDETerm, prng
+    from repro_torch.kernels import (INCREMENT_GENERAL, KERNELS, WS_STAGE_GENERAL,
+                                     WS_STAGE_PRE)
+    from repro_torch.nsde import moment_mse, ou_paths
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_sde_train_step
+
+    n_paths, save_every = 4096, 16
+    target = torch.as_tensor(
+        ou_paths(np.random.default_rng(0), 4096, NOISE_STEPS, T=NOISE_T1,
+                 nu=0.2, mu=0.1, sigma=0.8)[:, save_every::save_every],
+        dtype=torch.float32, device="cuda")
+    additive = sk.make_term("prediffused")
+    relabel = SDETerm(additive.drift, additive.diffusion, "diagonal")
+    general = sk.make_term("general")
+
+    def make(term, spec, adjoint, ns):
+        params = torch.nn.ParameterDict({
+            k: torch.nn.Parameter(torch.tensor(v, device="cuda"))
+            for k, v in (("nu", 0.5), ("mu", 0.0), ("sigma", 0.5))})
+        opt = adamw(1e-2)
+        step = make_sde_train_step(
+            spec, term, opt, y0_fn=lambda p: torch.zeros(sk.DIM, device="cuda"),
+            loss_fn_result=lambda p, r: moment_mse(r.ys[..., 0], target),
+            t0=0.0, t1=NOISE_T1, n_steps=NOISE_STEPS, n_paths=n_paths,
+            save_every=save_every, adjoint=adjoint, noise_shape=ns,
+            device="cuda")
+        return step, params, opt.init(list(params.parameters()))
+
+    def train(term, spec, adjoint, ns=None, steps=3):
+        step, params, state = make(term, spec, adjoint, ns)
+        losses = []
+        for i in range(steps):
+            params, state, m = step(params, state,
+                                    prng.PRNGKey(i, device="cuda"))
+            check(not bool(m["skipped"]), f"{spec} skipped an update")
+            losses.append(m["loss"].item())
+        return losses, [p.detach().clone() for p in params.parameters()]
+
+    cases = [
+        ("additive, full adjoint, prediffused", additive, relabel,
+         "ees25:use_kernels=True", "ees25", "full", None, WS_STAGE_PRE),
+        ("general, reversible adjoint, EES(2,5)", general, general,
+         "ees25:use_kernels=True", "ees25", "reversible", (sk.N_CHANNELS,),
+         WS_STAGE_GENERAL),
+        ("general, reversible adjoint, Reversible Heun", general, general,
+         "reversible-heun:use_kernels=True", "reversible-heun", "reversible",
+         (sk.N_CHANNELS,), INCREMENT_GENERAL),
+    ]
+    for kern in KERNELS:
+        kern.launches = 0
+    for label, term, plain_term, spec, plain, adjoint, ns, kern in cases:
+        before = kern.launches
+        t0 = time.perf_counter()
+        k_loss, k_par = train(term, spec, adjoint, ns)
+        seconds = time.perf_counter() - t0
+        p_loss, p_par = train(plain_term, plain, adjoint, ns)
+        bitwise = k_loss == p_loss and all(
+            torch.equal(a, b) for a, b in zip(k_par, p_par))
+        loss_err = _loss_err(k_loss, p_loss)
+        par_err = _max_rel(k_par, p_par)
+        print(f"  {label} ({spec}, {n_paths} paths x {NOISE_STEPS} steps): "
+              f"losses {[f'{x:.6f}' for x in k_loss]}, {seconds / 3 * 1e3:.1f}"
+              f" ms per training step (host wall); vs {plain!r} "
+              f"{'on the diagonal relabel' if term is additive else 'plain'}: "
+              f"loss {loss_err:.2e}, params {par_err:.2e}, bitwise={bitwise}; "
+              f"{kern.name} launches {kern.launches - before}", flush=True)
+        check(kern.launches > before, f"{label}: no {kern.name} launch")
+        if term is additive:
+            check(bitwise, "the prediffused route trains unlike the diagonal "
+                  "relabel")
+        else:
+            check(loss_err <= 1e-5 and par_err <= 1e-5,
+                  f"{label}: the kernel route trains unlike the plain route")
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+
+    for label, term, _, spec, _, adjoint, ns, _ in cases:
+        step, params, state = make(term, spec, adjoint, ns)
+        key = prng.PRNGKey(0, device="cuda")
+        step(params, state, key)  # warm-up outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(params, state, key)
+        except RuntimeError as exc:
+            fail(f"a {label} training step synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    print("  one training step of each case ran with "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -727,13 +1129,31 @@ def main() -> int:
           flush=True)
     memory_phase(torch, timer)
 
+    print("phase 9: serve additive, general and diagonal SDEs (requests E-N)",
+          flush=True)
+    serve_launches = noise_serve_phase(torch, timer)
+
+    print("phase 10: train on the additive and general terms", flush=True)
+    noise_train_launches = noise_train_phase(torch)
+    new = ("increment_pre", "ws_stage_pre", "increment_general",
+           "ws_stage_general")
+    launches.update({name: serve_launches.get(name, 0)
+                     + noise_train_launches.get(name, 0) for name in new})
+    print(f"  kernels launched on the noise-specialised paths (phases 9-10): "
+          f"serving {serve_launches}, training {noise_train_launches}",
+          flush=True)
+
     tpu = "src/repro/kernels/sde_step/sde_step.py"
     sources = {"ws_stage_diag": ("ws_stage_diag.cu", f"{tpu}:144"),
                "williamson2n": ("williamson2n.cu",
                                 "src/repro/kernels/williamson2n/williamson2n.py:56"),
                "ws_stage_diag_bwd": ("ws_stage_diag_bwd.cu", f"{tpu}:182"),
                "increment_diag": ("increment_diag.cu", f"{tpu}:65"),
-               "axpy_chain": ("axpy_chain.cu", f"{tpu}:286")}
+               "axpy_chain": ("axpy_chain.cu", f"{tpu}:286"),
+               "increment_pre": ("increment_pre.cu", f"{tpu}:85"),
+               "ws_stage_pre": ("ws_stage_pre.cu", f"{tpu}:212"),
+               "increment_general": ("increment_general.cu", f"{tpu}:112"),
+               "ws_stage_general": ("ws_stage_general.cu", f"{tpu}:247")}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{sources[name][0]}",

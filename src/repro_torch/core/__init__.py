@@ -6,19 +6,22 @@
   pytree     — pytrees of tensors and their leafwise linear algebra
   brownian   — counter-based fixed-grid Brownian drivers
   grid       — the time grid (uniform / padded uniform)
-  solvers    — SDETerm; 2N, Butcher, Reversible Heun and MCF solvers
+  solvers    — SDETerm; 2N, Butcher, Reversible Heun, MCF, Milstein, SRA1
   adjoint    — solve(): the one solve loop (full and reversible adjoints)
-  registry   — string-keyed solver registry ("ees25", "reversible-heun", ...)
+  registry   — string-keyed solver registry ("ees25", "milstein", ...) and
+               select_solver ("auto" specs)
+  stability  — linear and mean-square stability of RK tableaux (numpy)
   sdeint     — batched Monte-Carlo integration and multi-tick dispatch
 """
 from .adjoint import SolveResult, solve
 from .brownian import BrownianPath, PaddedBrownianPath, brownian_path, padded_brownian_path
 from .grid import TimeGrid
 from .prng import PRNGKey, fold_in, normal, split
-from .registry import canonical_spec, get_solver, list_solvers, parse_solver_spec, register_solver, solver_kind
+from .registry import (canonical_spec, get_solver, list_solvers, parse_solver_spec, register_solver,
+                       select_solver, solver_kind)
 from .sdeint import path_keys, sdeint, sdeint_ticks
-from .solvers import (VALID_NOISE, ButcherSolver, LowStorageSolver, MCFSolver, ReversibleHeun,
-                      SDETerm, ees25_solver, ees27_solver)
+from .solvers import (VALID_NOISE, ButcherSolver, LowStorageSolver, MCFSolver, Milstein,
+                      ReversibleHeun, SDETerm, SRKAdditive, ees25_solver, ees27_solver)
 from .williamson import EES25_2N, EES27_2N, bazavov_residuals, butcher_from_2n, ees25_2n
 
 __all__ = [
@@ -37,6 +40,7 @@ __all__ = [
     "register_solver",
     "canonical_spec",
     "solver_kind",
+    "select_solver",
     "BrownianPath",
     "brownian_path",
     "PaddedBrownianPath",
@@ -48,6 +52,8 @@ __all__ = [
     "ButcherSolver",
     "ReversibleHeun",
     "MCFSolver",
+    "Milstein",
+    "SRKAdditive",
     "ees25_solver",
     "ees27_solver",
     "EES25_2N",

@@ -23,10 +23,12 @@ The reference's ``lax.scan`` becomes a Python loop over steps, grouped into
   solves run exactly the unguarded steps;
 * a padded grid loops its ``n_active`` live steps only.
 
-The recursive adjoint, ``save_at`` dense output, realized (adaptive) grids
-and the prediffused additive fast path are not ported yet; an additive term
-takes the diagonal route, which the reference documents as bitwise-equal to
-its prediffused one.
+Solvers that advertise ``needs_levy_area`` (SRA1) get ``(dW, dH)`` pairs
+from the Levy-augmented driver queries, in bulk and per step, forward and in
+the reversible replay.  Under the full adjoint an ``"additive"`` term with
+bulk increments takes the prediffused fast path (:func:`_maybe_prediffuse`).
+The recursive adjoint, ``save_at`` dense output and realized (adaptive)
+grids are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from ..device import not_yet_ported
 from .brownian import BrownianPath
 from .grid import TimeGrid
 from .pytree import tree_add, tree_blowup, tree_flatten, tree_leaves, tree_map, tree_unflatten
+from .solvers import _PrediffusedTerm
 
 __all__ = ["SolveResult", "solve"]
 
@@ -76,6 +79,16 @@ def _pick_step(dWs, n):
     return tree_map(lambda x: x[n], dWs)
 
 
+def _step_increment(solver, grid: TimeGrid, dWs, n):
+    """Step ``n``'s driver increment: a row of the bulk buffer, or a
+    per-step draw (a ``(dW, dH)`` pair for a Levy-area solver)."""
+    if dWs is not None:
+        return _pick_step(dWs, n)
+    if getattr(solver, "needs_levy_area", False):
+        return grid.levy_increment(n)
+    return grid.increment(n)
+
+
 def _solve_loop(solver, term, y0, grid: TimeGrid, args, save_every, dWs,
                 guard, batch_dims):
     """The forward loop: ``(final solver state, ys or None, diverged or None)``."""
@@ -86,7 +99,7 @@ def _solve_loop(solver, term, y0, grid: TimeGrid, args, save_every, dWs,
     saves = []
     for seg in range(n_seg):
         for n in range(seg * seg_len, min((seg + 1) * seg_len, n_live)):
-            dW = grid.increment(n) if dWs is None else _pick_step(dWs, n)
+            dW = _step_increment(solver, grid, dWs, n)
             state = solver.step(term, state, grid.t_of(n), grid.h_of(n), dW,
                                 args)
         if guard is not None:
@@ -184,7 +197,7 @@ class _Reversible(torch.autograd.Function):
         # skipped backward too: the sweep starts at the last live step.
         for n in range(grid.n_live - 1, -1, -1):
             t, h = grid.t_of(n), grid.h_of(n)
-            dW = grid.increment(n) if plan.dWs is None else _pick_step(plan.dWs, n)
+            dW = _step_increment(solver, grid, plan.dWs, n)
             # 1. Reconstruct the pre-step state, with no graph.
             with torch.no_grad():
                 prev = solver.reverse(term, state, t, h, dW, args)
@@ -222,6 +235,36 @@ def _solve_reversible(solver, term, y0, grid: TimeGrid, args, save_every, dWs,
     ys = tree_unflatten(plan.ys_def, outs[plan.n_yf:plan.n_yf + plan.n_ys])
     div = outs[-1] if guard is not None else None
     return SolveResult(y_final, ys, div)
+
+
+def _maybe_prediffuse(solver, term, y0, grid: TimeGrid, args, adjoint, dWs):
+    """The additive fast path: hoist the diffusion out of the step loop.
+
+    Under ``noise="additive"`` the diffusion does not depend on ``t`` or
+    ``y`` (it may depend on ``args``), so ``w = g*dW`` is formed for every
+    step in one broadcast pass over the bulk buffer, under autograd, and a
+    :class:`~repro_torch.core.solvers._PrediffusedTerm` combines
+    ``f*h + w`` per step — the same multiply, hoisted, so results equal the
+    diagonal route bitwise.  The buffer ``w`` is as large as ``dWs``, and
+    both stay live for the solve.
+
+    Other cases keep their term and buffer: the reversible adjoint (its
+    backward treats the buffer as data, which would cut the diffusion
+    parameters' cotangents), per-step increments (nothing to hoist over),
+    and solvers that read ``term.diffusion`` or take Levy-area pairs
+    (Milstein, SRA1).
+    """
+    if (
+        dWs is None
+        or getattr(term, "noise", None) != "additive"
+        or adjoint != "full"
+        or getattr(solver, "needs_levy_area", False)
+        or getattr(solver, "needs_diffusion", False)
+    ):
+        return term, dWs
+    g0 = term.diffusion(grid.t0, y0, args)
+    ws = tree_map(lambda gi, wi: gi * wi, g0, dWs)
+    return _PrediffusedTerm(base=term), ws
 
 
 def solve(
@@ -271,7 +314,12 @@ def solve(
         raise not_yet_ported(f"adjoint={adjoint!r}")
     if adjoint not in ("full", "reversible"):
         raise ValueError(f"unknown adjoint {adjoint!r}")
-    dWs = grid.increments() if bulk_increments else None
+    dWs = None
+    if bulk_increments:
+        dWs = (grid.levy_increments()
+               if getattr(solver, "needs_levy_area", False)
+               else grid.increments())
+    term, dWs = _maybe_prediffuse(solver, term, y0, grid, args, adjoint, dWs)
     if adjoint == "reversible":
         return _solve_reversible(solver, term, y0, grid, args, save_every, dWs,
                                  guard, batch_dims)

@@ -11,6 +11,12 @@ The key may carry leading batch axes (``(*batch, 2)``): increments then have
 shape ``(*batch, *shape)``, one independent path per key — the port writes
 out the batch axis where the reference vmaps over single-key drivers.
 
+``levy_area_step`` draws the space-time Levy area ``DH ~ N(0, h/12)`` of a
+step from the reference's salted key family
+``fold_in(fold_in(key, _LEVY_SALT), n)``, so Levy queries leave the ``W``
+bits untouched; ``grid_levy_increment(s)`` return ``(dW, dH)`` pairs, per
+step or in bulk, for solvers that need them (SRA1).
+
 ``grid_increments`` is the bulk realization every solve streams from:
 vectorized threefry over ``(steps, *batch, *shape)``, with row ``n``
 bitwise-equal to ``increment(n)`` (the same elementwise ops on the same
@@ -39,6 +45,10 @@ __all__ = [
 ]
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+# Key-space salt of the Levy-area stream ("LEVY" in ASCII), as in the
+# reference: fold_in(key, _LEVY_SALT) derives an independent key family.
+_LEVY_SALT = 0x4C455659
 
 #: Increments one threefry pass of a bulk realization draws at most (a
 #: serving tick of 65,536 paths x 8 steps x 16 is one pass).
@@ -167,6 +177,32 @@ class BrownianPath:
         return _bulk_draw(self.key, self.n_steps, self.shape, self.dtype,
                           _sqrt_in(self.h, self.dtype))
 
+    def levy_area_step(self, n: int):
+        """Space-time Levy area ``DH`` over step ``n``: ``N(0, h/12)``, from
+        ``fold_in(fold_in(key, _LEVY_SALT), n)`` (``W`` bits untouched)."""
+        return _levy_draw(self.key, n, self.shape, self.dtype, self.h)
+
+    def grid_levy_increment(self, ts, n: int):
+        """The ``(dW, dH)`` pair over step ``n`` of this path's own grid."""
+        return self.grid_increment(ts, n), self.levy_area_step(n)
+
+    def grid_levy_increments(self, ts):
+        """Every step's ``(dW, dH)`` pair, stacked on a leading axis; row
+        ``n`` bitwise-equal to :meth:`grid_levy_increment` ``(ts, n)``."""
+        return (self.grid_increments(ts),
+                _bulk_levy(self.key, self.n_steps, self.shape, self.dtype,
+                           self.h))
+
+
+def _levy_draw(key, n, shape, dtype, h):
+    sub = prng.fold_in(prng.fold_in(key, _LEVY_SALT), n)
+    return _draw(sub, shape, dtype, _sqrt_in(h / 12.0, dtype))
+
+
+def _bulk_levy(key, n_rows, shape, dtype, h):
+    return _bulk_draw(prng.fold_in(key, _LEVY_SALT), n_rows, shape, dtype,
+                      _sqrt_in(h / 12.0, dtype))
+
 
 def brownian_path(key, t0, t1, n_steps, shape=(), dtype=torch.float32) -> BrownianPath:
     """Build a :class:`BrownianPath` (casts ``shape`` lists to tuples)."""
@@ -217,6 +253,22 @@ class PaddedBrownianPath:
         n_rows = self.n_steps if n_rows is None else int(n_rows)
         return _bulk_draw(self.key, n_rows, self.shape, self.dtype,
                           _sqrt_in(self.h, self.dtype))
+
+    def levy_area_step(self, n: int):
+        """Space-time Levy area over step ``n``: the same salted key family
+        as :meth:`BrownianPath.levy_area_step`."""
+        return _levy_draw(self.key, n, self.shape, self.dtype, self.h)
+
+    def grid_levy_increment(self, ts, n: int):
+        self._check_grid(ts)
+        return self.increment(n), self.levy_area_step(n)
+
+    def grid_levy_increments(self, ts, n_rows: Optional[int] = None):
+        """The first ``n_rows`` (default: all padded) ``(dW, dH)`` pairs,
+        stacked; row ``n`` bitwise-equal to :meth:`grid_levy_increment`."""
+        n_rows = self.n_steps if n_rows is None else int(n_rows)
+        return (self.grid_increments(ts, n_rows),
+                _bulk_levy(self.key, n_rows, self.shape, self.dtype, self.h))
 
 
 def padded_brownian_path(key, t0, h, n_steps, shape=(),

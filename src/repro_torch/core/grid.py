@@ -84,6 +84,35 @@ class TimeGrid:
             return self.driver.grid_increments(self.ts, n_rows=self.n_active)
         return self.driver.grid_increments(self.ts)
 
+    def _require_levy(self):
+        if self.driver is None:
+            raise ValueError(
+                "this solver needs space-time Levy areas but the grid has no "
+                "Brownian driver (ODE mode)"
+            )
+        if not hasattr(self.driver, "grid_levy_increment"):
+            raise ValueError(
+                f"this solver needs space-time Levy areas but driver "
+                f"{type(self.driver).__name__} has no grid_levy_increment — "
+                "use a BrownianPath or VirtualBrownianTree"
+            )
+
+    def levy_increment(self, n: int):
+        """The ``(dW, dH)`` pair over step ``n`` for Levy-area solvers (SRA1)."""
+        self._require_levy()
+        return self.driver.grid_levy_increment(self.ts, n)
+
+    def levy_increments(self):
+        """Every live step's ``(dW, dH)`` pair, stacked (the bulk realization
+        of Levy-area solvers); None for a driver without a bulk path."""
+        self._require_levy()
+        if not hasattr(self.driver, "grid_levy_increments"):
+            return None
+        if self.is_padded:
+            return self.driver.grid_levy_increments(self.ts,
+                                                    n_rows=self.n_active)
+        return self.driver.grid_levy_increments(self.ts)
+
     @classmethod
     def uniform(cls, t0: float, t1: float, n_steps: int, driver=None, *,
                 dtype=None, device=None) -> "TimeGrid":

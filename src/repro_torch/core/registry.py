@@ -2,12 +2,14 @@
 
 Same spec grammar as the reference: ``name`` or ``name:key=val,key=val``,
 where a bare word in the tail is a boolean flag (``"ees25:adaptive"``), and
-the same normal form (:func:`canonical_spec`) and error messages.  Only the
-ported solvers are registered — ``ees25`` (``x``, ``use_kernels`` and its
-legacy spelling ``use_kernel``), ``ees27``, ``reversible-heun``, the six
-Butcher tableaux (``euler`` ... ``rk4``) and their ``mcf-*`` couplings
-(``lam``, ``use_kernels``), ``ees25-butcher`` and ``ees27-butcher`` — so any
-other name fails with the reference's unknown-solver message listing them.
+the same normal form (:func:`canonical_spec`), error messages and
+:func:`select_solver` decision table.  The registered solvers are the
+reference's Euclidean ones — ``ees25`` (``x``, ``use_kernels`` and its legacy
+spelling ``use_kernel``), ``ees27``, ``reversible-heun``, the six Butcher
+tableaux (``euler`` ... ``rk4``) and their ``mcf-*`` couplings (``lam``,
+``use_kernels``), ``ees25-butcher``, ``ees27-butcher``, ``milstein``,
+``strat-milstein`` and ``srk`` — so any other name (the manifold solvers
+among them) fails with the reference's unknown-solver message listing them.
 """
 from __future__ import annotations
 
@@ -16,10 +18,11 @@ import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from . import tableaux
-from .solvers import ButcherSolver, MCFSolver, ReversibleHeun, ees25_solver, ees27_solver
+from .solvers import (ButcherSolver, MCFSolver, Milstein, ReversibleHeun, SRKAdditive,
+                      ees25_solver, ees27_solver)
 
 __all__ = ["register_solver", "get_solver", "list_solvers", "parse_solver_spec",
-           "canonical_spec", "solver_kind"]
+           "canonical_spec", "solver_kind", "select_solver"]
 
 
 _REGISTRY: Dict[str, Tuple[Callable[..., Any], str]] = {}
@@ -184,3 +187,40 @@ def _ees25_butcher(x: float = 0.1):
 
 register_solver("ees25-butcher", _ees25_butcher)
 register_solver("ees27-butcher", lambda: ButcherSolver(tableaux.ees27_tableau()))
+
+
+def _milstein_factory(form):
+    return lambda use_kernels=False: Milstein(form=form, use_kernels=use_kernels)
+
+
+register_solver("milstein", _milstein_factory("ito"))
+register_solver("strat-milstein", _milstein_factory("stratonovich"))
+register_solver("srk", lambda noise="additive": SRKAdditive(noise=noise))
+
+
+def select_solver(noise: str = "diagonal", stiffness: float = 0.0,
+                  dt: Optional[float] = None) -> str:
+    """Auto-select a registry spec from a request's noise and stiffness.
+
+    By the stability margin ``z = |stiffness| * dt`` first: ``z > 2.8`` gives
+    ``"ees27"`` (past EES(2,5)'s real-axis reach), ``z > 1.0`` gives
+    ``"ees25"``; otherwise by noise: ``"srk:noise=additive"`` for additive
+    noise, ``"milstein"`` for diagonal or scalar noise, ``"ees25"`` for the
+    rest (none, general).  Returns a spec string (the engine resolves
+    ``"auto"`` requests through it).
+    """
+    if noise not in ("none", "diagonal", "additive", "scalar", "general"):
+        raise ValueError(
+            f"unknown noise mode {noise!r} for select_solver; valid modes: "
+            "'none', 'diagonal', 'additive', 'scalar', 'general'"
+        )
+    z = abs(float(stiffness)) * float(dt) if dt is not None else 0.0
+    if z > 2.8:
+        return "ees27"
+    if z > 1.0:
+        return "ees25"
+    if noise == "additive":
+        return "srk:noise=additive"
+    if noise in ("diagonal", "scalar"):
+        return "milstein"
+    return "ees25"

@@ -1,12 +1,14 @@
 """Euclidean SDE terms and solvers: EES Runge-Kutta (Butcher and Williamson
-2N forms), Reversible Heun and McCallum-Foster reversible couplings.
+2N forms), Reversible Heun, McCallum-Foster reversible couplings and the
+noise-specialised schemes (Milstein, SRA1).
 
-Port of ``repro.core.solvers`` without the noise-specialised schemes
-(Milstein, SRA1), which come in a later slice: :class:`SDETerm` (five noise
-modes, same validation messages), :class:`ButcherSolver`,
-:class:`LowStorageSolver`, :class:`ReversibleHeun`, :class:`MCFSolver` and
-the ``ees25_solver`` / ``ees27_solver`` factories.  Every solver has the
-reference's interface (``init`` / ``step`` / ``reverse`` / ``extract``).
+Port of ``repro.core.solvers``: :class:`SDETerm` (five noise modes, same
+validation messages), the prediffused additive term the solve loop builds
+(:class:`_PrediffusedTerm`), :class:`ButcherSolver`,
+:class:`LowStorageSolver`, :class:`ReversibleHeun`, :class:`MCFSolver`,
+:class:`Milstein`, :class:`SRKAdditive` and the ``ees25_solver`` /
+``ees27_solver`` factories.  Every solver has the reference's interface
+(``init`` / ``step`` / ``reverse`` / ``extract``).
 
 SDEs ``dy = f(y) dt + g(y) o dW`` are stepped as RDEs driven by
 ``X = (t, W)``: the tableau is applied to the increment
@@ -14,12 +16,16 @@ SDEs ``dy = f(y) dt + g(y) o dW`` are stepped as RDEs driven by
 out as leading state axes, so drift and diffusion receive batched states.
 
 ``use_kernels=True`` keeps the reference's routing: the 2N solver runs each
-diagonal/additive stage through the fused :mod:`repro_torch.kernels.sde_step`
-stage kernel (scalar noise and ODE stages form ``k`` in plain torch and
-update the registers with :mod:`repro_torch.kernels.williamson2n`); the
-other solvers form diagonal/additive increments with the ``increment_diag``
-kernel and Butcher stage combinations with the ``axpy_chain`` kernel.  The
-default path is plain torch, bitwise equal to the kernel route.
+diagonal/additive, general or prediffused stage through the matching fused
+:mod:`repro_torch.kernels.sde_step` stage kernel (scalar noise and ODE
+stages form ``k`` in plain torch and update the registers with
+:mod:`repro_torch.kernels.williamson2n`); the other solvers form their
+increments with the ``increment_diag`` / ``increment_general`` /
+``increment_pre`` kernels and Butcher stage combinations with the
+``axpy_chain`` kernel.  The default path is plain torch: bitwise equal to
+the kernel route for diagonal, additive and prediffused noise, and equal to
+rounding for general noise (its kernels sum ``g@dW`` in another order than
+``torch.einsum``).
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ __all__ = [
     "LowStorageSolver",
     "ReversibleHeun",
     "MCFSolver",
+    "Milstein",
+    "SRKAdditive",
     "ees25_solver",
     "ees27_solver",
 ]
@@ -127,9 +135,10 @@ class SDETerm:
         """f * h + g . dW  (the driver-weighted increment).
 
         ``use_kernels=True`` routes diagonal and additive noise through the
-        ``increment_diag`` kernel (bitwise equal to the plain path); general
-        noise names its TPU kernel, still to port, and raises.  Scalar noise
-        and ODE mode stay on the plain path, as in the reference.
+        ``increment_diag`` kernel (bitwise equal to the plain path) and
+        general noise through ``increment_general`` (equal to rounding: the
+        plain path's einsum sums in another order).  Scalar noise and ODE
+        mode stay on the plain path, as in the reference.
         """
         if self.noise == "none" or g is None:
             return tree_scale(h, f)
@@ -148,6 +157,43 @@ class SDETerm:
     def increment(self, t, y, args, h, dW, use_kernels: bool = False):
         f, g = self.evals(t, y, args)
         return self.combine(f, g, h, dW, use_kernels=use_kernels)
+
+
+@dataclasses.dataclass(frozen=True)
+class _PrediffusedTerm:
+    """An additive-noise term whose diffusion increments were pre-weighted.
+
+    Built by :func:`repro_torch.core.adjoint.solve` when an ``"additive"``
+    term meets the bulk increment buffer under the full adjoint: the whole
+    ``w = g*dW`` buffer is formed once per solve (``g`` does not depend on
+    ``t`` or ``y``), and each step's ``dW`` is already ``w``, so ``combine``
+    is ``f*h + w`` — one operand stream fewer per stage (the ``prediffused``
+    kernels).  Bitwise equal to the diagonal route: ``g*dW`` is the same
+    multiply, hoisted out of the loop.
+    """
+
+    base: SDETerm
+    noise: str = "prediffused"
+
+    @property
+    def drift(self):
+        return self.base.drift
+
+    def evals(self, t, y, args):
+        f = self.base.drift(t, y, args)
+        # A placeholder diffusion: ``combine`` and the kernels never read it,
+        # but Reversible Heun carries g in its state and the 2N solver gates
+        # its fused path on ``g is None``.
+        return f, tree_map(torch.ones_like, f)
+
+    def combine(self, f, g, h, dW, use_kernels: bool = False):
+        if use_kernels:
+            return _fused_ops.tree_increment(f, None, dW, h, noise="prediffused")
+        return tree_map(lambda fi, wi: fi * h + wi, f, dW)
+
+    def increment(self, t, y, args, h, dW, use_kernels: bool = False):
+        f = self.base.drift(t, y, args)
+        return self.combine(f, None, h, dW, use_kernels=use_kernels)
 
 
 class ButcherSolver:
@@ -220,9 +266,10 @@ class ButcherSolver:
 class LowStorageSolver:
     """Two-register Williamson form (eq. (2)): the paper's memory-optimal EES.
 
-    ``use_kernels=True`` fuses each diagonal-noise stage (increment and the
-    two-register update) into one CUDA kernel pass; stages with no fused
-    noise take the precomputed-``k`` ``williamson2n`` kernel.
+    ``use_kernels=True`` fuses each diagonal/additive, general or
+    prediffused stage (increment and the two-register update) into one CUDA
+    kernel pass; stages with no fused noise take the precomputed-``k``
+    ``williamson2n`` kernel.
     """
 
     def __init__(self, ls: LowStorage, use_kernels: Optional[bool] = None,
@@ -410,6 +457,164 @@ class MCFSolver:
             ),
         )
         return (y, z)
+
+
+class Milstein:
+    """Milstein's method: Euler-Maruyama plus the first-order noise correction.
+
+        y' = y + f h + g dW + (1/2) (g . grad g) (dW^2 - h)     [Ito]
+        y' = y + f h + g dW + (1/2) (g . grad g) dW^2           [Stratonovich]
+
+    ``g . grad g`` is computed exactly with one ``torch.func.jvp`` of the
+    diffusion at tangent ``g`` (the reference's ``jax.jvp``).  Strong order 1
+    for scalar noise, for diagonal noise whose channels are componentwise,
+    and for additive noise (the correction vanishes); general noise needs
+    Levy areas and is rejected at ``init``.  ``reverse`` subtracts the full
+    increment evaluated at the step's endpoint (O(h^{3/2}) per step).
+    """
+
+    evals_per_step = 2
+    is_reversible = False
+    # Reads term.diffusion directly (for the jvp): opts out of the
+    # prediffused additive fast path (adjoint._maybe_prediffuse).
+    needs_diffusion = True
+    strong_orders = {"diagonal": 1.0, "scalar": 1.0, "additive": 1.0}
+
+    def __init__(self, form: str = "ito", use_kernels: bool = False):
+        if form not in ("ito", "stratonovich"):
+            raise ValueError(
+                f"unknown Milstein form {form!r}; valid forms: 'ito', "
+                "'stratonovich'"
+            )
+        self.form = form
+        self.sde_form = form
+        self.name = f"Milstein-{form}"
+        self.use_kernels = bool(use_kernels)
+
+    def init(self, term, t0, y0, args):
+        noise = getattr(term, "noise", "diagonal")
+        if noise not in ("none", "diagonal", "additive", "scalar"):
+            raise ValueError(
+                f"Milstein does not support noise={noise!r}: general "
+                "(non-commutative) noise needs full Levy areas; supported "
+                "modes: 'diagonal', 'additive', 'scalar', 'none'"
+            )
+        return y0
+
+    def extract(self, state):
+        return state
+
+    def _correction(self, term, t, y, g, h, dW, args):
+        """(1/2) (g . grad g) (dW^2 [- h]) as a pytree increment."""
+        _, gdg = torch.func.jvp(lambda yy: term.diffusion(t, yy, args),
+                                (y,), (g,))
+        if getattr(term, "noise", "diagonal") == "scalar":
+            def w2(like):  # one channel per path, broadcast over the leaf
+                w = _per_path(dW, like)
+                return w * w - h if self.form == "ito" else w * w
+
+            return tree_map(lambda d: 0.5 * d * w2(d), gdg)
+        if self.form == "ito":
+            return tree_map(lambda d, w: 0.5 * d * (w * w - h), gdg, dW)
+        return tree_map(lambda d, w: 0.5 * d * (w * w), gdg, dW)
+
+    def _increment(self, term, y, t, h, dW, args):
+        f, g = term.evals(t, y, args)
+        inc = term.combine(f, g, h, dW, use_kernels=self.use_kernels)
+        if g is None:
+            return inc
+        return tree_add(inc, self._correction(term, t, y, g, h, dW, args))
+
+    def step(self, term, state, t, h, dW, args):
+        return tree_add(state, self._increment(term, state, t, h, dW, args))
+
+    def step_with_error(self, term, state, t, h, dW, args):
+        """Milstein step with the correction as the embedded error estimate
+        (the difference from the order-1/2 Euler companion)."""
+        f, g = term.evals(t, state, args)
+        out = tree_add(state, term.combine(f, g, h, dW,
+                                           use_kernels=self.use_kernels))
+        if g is None:
+            return out, tree_zeros_like(out)
+        corr = self._correction(term, t, state, g, h, dW, args)
+        return tree_add(out, corr), corr
+
+    def reverse(self, term, state, t, h, dW, args):
+        # Subtract the increment re-evaluated at the endpoint (time t + h).
+        return tree_sub(state, self._increment(term, state, t + h, h, dW, args))
+
+
+class SRKAdditive:
+    """SRA1 (Roessler 2010): strong order 1.5 for additive noise.
+
+    Two drift stages plus the space-time Levy area ``DH``::
+
+        k1 = f(t, y)
+        y2 = y + (3/4) h k1 + (3/2) g (DH + DW/2)
+        y' = y + h (k1/3 + 2 k2/3) + g DW,     k2 = f(t + 3h/4, y2)
+
+    The driver increment is the pair ``(dW, dH)`` (solvers advertising
+    ``needs_levy_area`` get it from the Levy-augmented driver queries, in
+    bulk and per step, forward and in the reversible replay).  ``reverse``
+    replays with the whole pair negated.
+    """
+
+    name = "SRA1"
+    evals_per_step = 2
+    is_reversible = False
+    needs_levy_area = True
+    # Reads term.diffusion directly: opts out of the prediffused fast path.
+    needs_diffusion = True
+    sde_form = "ito"  # == stratonovich: additive noise has no correction
+    strong_orders = {"additive": 1.5}
+
+    def __init__(self, noise: str = "additive"):
+        if noise != "additive":
+            raise ValueError(
+                f"srk supports noise='additive' only (t/y-independent "
+                f"diffusion), got noise={noise!r}"
+            )
+
+    def init(self, term, t0, y0, args):
+        noise = getattr(term, "noise", "diagonal")
+        if noise != "additive":
+            raise ValueError(
+                f"SRA1 requires an SDETerm with noise='additive', got "
+                f"noise={noise!r} — declare the term additive (diffusion "
+                "independent of t and y) or pick another solver"
+            )
+        return y0
+
+    def extract(self, state):
+        return state
+
+    def step(self, term, state, t, h, dW_pair, args):
+        dW, dH = dW_pair
+        y = state
+        k1 = term.drift(t, y, args)
+        g = term.diffusion(t, y, args)
+        # DZ/h = dH + dW/2 (exact scalar weights; no h division).
+        y2 = tree_map(
+            lambda yi, ki, gi, wi, hi: yi + 0.75 * h * ki
+            + 1.5 * gi * (hi + 0.5 * wi),
+            y, k1, g, dW, dH)
+        k2 = term.drift(t + 0.75 * h, y2, args)
+        third = 1.0 / 3.0
+        return tree_map(
+            lambda yi, a, b, gi, wi: yi + h * (third * a + 2.0 * third * b)
+            + gi * wi,
+            y, k1, k2, g, dW)
+
+    def step_with_error(self, term, state, t, h, dW_pair, args):
+        """SRA1 step with its Euler companion as the embedded estimate."""
+        dW, _ = dW_pair
+        out = self.step(term, state, t, h, dW_pair, args)
+        f, g = term.evals(t, state, args)
+        y_low = tree_add(state, term.combine(f, g, h, dW))
+        return out, tree_sub(out, y_low)
+
+    def reverse(self, term, state, t, h, dW_pair, args):
+        return self.step(term, state, t + h, -h, tree_scale(-1.0, dW_pair), args)
 
 
 def ees25_solver(x: float = 0.1, use_kernels: Optional[bool] = None,

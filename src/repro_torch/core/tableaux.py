@@ -1,7 +1,7 @@
 """Butcher tableaux for explicit Runge-Kutta schemes (port of
 ``repro.core.tableaux``, the tableaux the solver registry needs).
 
-The standard library only, a copy of the reference's definitions (the
+A copy of the reference's definitions and its ``stability_poly`` (the
 reference module is not imported: its package pulls in jax).  The
 EES(n, m; x) schemes are explicit RK methods of order n whose composition
 ``Phi_{-h} o Phi_h`` recovers the initial condition up to order m.
@@ -14,6 +14,8 @@ import dataclasses
 from fractions import Fraction
 from typing import Tuple
 
+import numpy as np
+
 __all__ = [
     "Tableau",
     "ees25_tableau",
@@ -24,6 +26,7 @@ __all__ = [
     "ralston3",
     "rk3",
     "rk4",
+    "stability_poly",
 ]
 
 
@@ -102,3 +105,17 @@ rk4 = _tab(
     (Fraction(1, 6), Fraction(1, 3), Fraction(1, 3), Fraction(1, 6)),
     order=4,
 )
+
+
+def stability_poly(tab: Tableau) -> np.ndarray:
+    """Coefficients (ascending) of the linear stability polynomial R(rho):
+    ``R(rho) = 1 + sum_k (b^T A^k 1) rho^{k+1}``.  EES(2,5;x) yields
+    ``1 + rho + rho^2/2 + rho^3/8`` independently of x (Theorem 2.2)."""
+    A = np.array(tab.a, dtype=np.float64)
+    b = np.array(tab.b, dtype=np.float64)
+    coeffs = [1.0]
+    vec = np.ones(tab.stages)
+    for _ in range(tab.stages):
+        coeffs.append(float(b @ vec))
+        vec = A @ vec
+    return np.array(coeffs)

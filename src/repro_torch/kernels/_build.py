@@ -141,19 +141,21 @@ def pointer(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def cuda_operands(ref: torch.Tensor, *others: torch.Tensor):
-    """Check that ``others`` can join ``ref`` in one elementwise launch and
-    return them dense: same CUDA device, same float dtype, and broadcastable
-    to ``ref``'s shape (broadcast operands are materialized)."""
+def cuda_operands(ref: torch.Tensor, *others: torch.Tensor, shapes=None):
+    """Check that ``others`` can join ``ref`` in one launch and return them
+    dense: same CUDA device, same float dtype, and broadcastable to ``ref``'s
+    shape, or to ``shapes[i]`` for operand ``i`` (``ref`` is operand 0) when
+    ``shapes`` is given.  Broadcast operands are materialized."""
     if ref.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {ref.dtype}")
     out = []
-    for t in (ref,) + others:
+    for i, t in enumerate((ref,) + others):
         if t.device != ref.device:
             raise ValueError(f"operands on {t.device} and {ref.device}")
         if t.dtype != ref.dtype:
             raise TypeError(f"operand dtype {t.dtype} != {ref.dtype}")
-        if t.shape != ref.shape:
-            t = t.expand(ref.shape)
+        shape = ref.shape if shapes is None else torch.Size(shapes[i])
+        if t.shape != shape:
+            t = t.expand(shape)
         out.append(t.contiguous())
     return out

@@ -1,5 +1,6 @@
 """Fused SDE-step kernels (Hopper CUDA): the Williamson 2N stage and its VJP,
-the driver-weighted increment and the Butcher axpy chain.
+the driver-weighted increment (diagonal, prediffused and general noise, the
+stage too) and the Butcher axpy chain.
 
 Layout as in ``repro.kernels.sde_step``: ``sde_step.py`` (kernel wrappers),
 ``ref.py`` (plain torch twins), ``ops.py`` (autograd + pytree layer).

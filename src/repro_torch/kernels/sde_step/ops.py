@@ -1,24 +1,28 @@
 """Fused SDE-step ops: autograd wrappers and pytree layer.
 
-Port of ``repro.kernels.sde_step.ops`` for diagonal noise and the axpy chain:
+Port of ``repro.kernels.sde_step.ops``:
 
-* :func:`fused_increment` / :func:`tree_increment` — ``k = f*h + g*dW``;
+* :func:`fused_increment` / :func:`tree_increment` — ``k = f*h + g.dW``
+  (diagonal, general and prediffused noise);
 * :func:`fused_ws_stage` / :func:`tree_ws_stage` — increment + Williamson 2N
-  register update in one pass;
+  register update in one pass (the same three noise modes);
 * :func:`fused_axpy_chain` / :func:`tree_axpy_chain` — ``y + sum_i c_i k_i``
   (Butcher stage preparation and output combination).
 
 Each op is a ``torch.autograd.Function`` with the reference's closed-form
-backward (every op is linear in its array operands).  The stage's backward
-is itself a kernel (:func:`~repro_torch.kernels.sde_step.sde_step.ws_stage_diag_bwd`,
-as ``ws_stage_diag_bwd_2d`` is in the reference); the other two backwards
-are plain torch, as the reference's are plain XLA.  This keeps the
-reversible adjoint's replay of a step differentiable through the kernels.
+backward (every op is linear in its array operands).  The diagonal stage's
+backward is itself a kernel (:func:`~repro_torch.kernels.sde_step.sde_step.ws_stage_diag_bwd`,
+as ``ws_stage_diag_bwd_2d`` is in the reference); the others are plain
+torch, as the reference's are plain XLA (the general-noise cotangents of
+``g`` and ``dW`` are the reference's einsums).  This keeps the reversible
+adjoint's replay of a step differentiable through the kernels.
 
-The step size ``h`` and the coefficients are Python floats (the grid's
-static step and the scheme's constants), so they carry no gradient — the
-reference drops the grid's cotangents too.  ``noise="general"`` and
-``"prediffused"`` name TPU kernels still to port and raise.
+``noise="prediffused"`` takes ``dW`` as the pre-weighted increment
+``w = g*dW`` and ignores ``g`` (None in the pytree layer): the additive fast
+path of :func:`repro_torch.core.adjoint.solve`.  The step size ``h`` and
+the coefficients are Python floats (the grid's static step and the scheme's
+constants), so they carry no gradient — the reference drops the grid's
+cotangents too.
 """
 from __future__ import annotations
 
@@ -30,27 +34,25 @@ from . import sde_step as _k
 __all__ = ["fused_increment", "fused_ws_stage", "fused_axpy_chain",
            "tree_increment", "tree_ws_stage", "tree_axpy_chain"]
 
-_UNPORTED_STAGE = {
-    "general": "sde_step.py::ws_stage_general_2d",
-    "prediffused": "sde_step.py::ws_stage_pre_2d",
-}
-_UNPORTED_INCREMENT = {
-    "general": "sde_step.py::increment_general_2d",
-    "prediffused": "sde_step.py::increment_pre_2d",
-}
+_MODES = ("diagonal", "general", "prediffused")
 
 
-def _check_noise(noise: str, unported) -> None:
-    if noise in unported:
-        raise ValueError(
-            f"noise={noise!r} needs the TPU kernel {unported[noise]}, which "
-            "is not yet ported to repro_torch; only diagonal noise is"
-        )
-    if noise != "diagonal":
+def _check_noise(noise: str) -> None:
+    if noise not in _MODES:
         raise ValueError(
             f"unknown noise mode {noise!r}; valid kernel modes: 'diagonal', "
             "'general', 'prediffused'"
         )
+
+
+def _einsum_outer(ct, dW):
+    """``ct_g = ct (x) dW``: ``(..., d), (..., m) -> (..., d, m)``."""
+    return torch.einsum("...d,...m->...dm", ct, dW)
+
+
+def _einsum_gt(g, ct):
+    """``ct_dW = g^T ct``: ``(..., d, m), (..., d) -> (..., m)``."""
+    return torch.einsum("...dm,...d->...m", g, ct)
 
 
 # -- driver-weighted increment ------------------------------------------------
@@ -72,9 +74,42 @@ class _IncrementDiag(torch.autograd.Function):
                 None)
 
 
+class _IncrementPre(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, w, h):
+        ctx.h = h
+        return _k.increment_pre(f, w, h)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.h * ct, ct, None
+
+
+class _IncrementGeneral(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, g, dW, h):
+        ctx.save_for_backward(g, dW)
+        ctx.h = h
+        return _k.increment_general(f, g, dW, h)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g, dW = ctx.saved_tensors
+        need_f, need_g, need_dw, _ = ctx.needs_input_grad
+        return (ctx.h * ct if need_f else None,
+                _einsum_outer(ct, dW) if need_g else None,
+                _einsum_gt(g, ct) if need_dw else None,
+                None)
+
+
 def fused_increment(f, g, dW, h, *, noise: str):
-    """``k = f*h + g*dW`` for one leaf (diagonal noise)."""
-    _check_noise(noise, _UNPORTED_INCREMENT)
+    """``k = f*h + g.dW`` for one leaf.  ``noise="prediffused"``: ``dW`` is
+    the pre-weighted ``g*dW`` and ``g`` is ignored."""
+    _check_noise(noise)
+    if noise == "prediffused":
+        return _IncrementPre.apply(f, dW, float(h))
+    if noise == "general":
+        return _IncrementGeneral.apply(f, g, dW, float(h))
     return _IncrementDiag.apply(f, g, dW, float(h))
 
 
@@ -96,10 +131,51 @@ class _WSStageDiag(torch.autograd.Function):
         return ct_delta, ct_y2, ct_f, ct_g, ct_dW, None, None, None
 
 
+class _WSStagePre(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, delta, y, f, w, h, a, b):
+        ctx.coeffs = (h, a, b)
+        return _k.ws_stage_pre(delta, y, f, w, h, a=a, b=b)
+
+    @staticmethod
+    def backward(ctx, ct_d2, ct_y2):
+        h, a, b = ctx.coeffs
+        common = ct_d2 + b * ct_y2
+        # ct_w = common carries the gradient into the diffusion parameters
+        # through the hoisted g*dW buffer.
+        return a * common, ct_y2, h * common, common, None, None, None
+
+
+class _WSStageGeneral(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, delta, y, f, g, dW, h, a, b):
+        ctx.save_for_backward(g, dW)
+        ctx.coeffs = (h, a, b)
+        return _k.ws_stage_general(delta, y, f, g, dW, h, a=a, b=b)
+
+    @staticmethod
+    def backward(ctx, ct_d2, ct_y2):
+        g, dW = ctx.saved_tensors
+        h, a, b = ctx.coeffs
+        need = ctx.needs_input_grad
+        common = ct_d2 + b * ct_y2
+        return (a * common, ct_y2, h * common,
+                _einsum_outer(common, dW) if need[3] else None,
+                _einsum_gt(g, common) if need[4] else None,
+                None, None, None)
+
+
 def fused_ws_stage(delta, y, f, g, dW, h, *, a: float, b: float, noise: str):
-    """One fused Williamson stage for one leaf: returns ``(delta', y')``."""
-    _check_noise(noise, _UNPORTED_STAGE)
-    return _WSStageDiag.apply(delta, y, f, g, dW, float(h), float(a), float(b))
+    """One fused Williamson stage for one leaf: returns ``(delta', y')``.
+    ``noise="prediffused"``: ``dW`` is the pre-weighted ``g*dW`` and ``g``
+    is ignored."""
+    _check_noise(noise)
+    h, a, b = float(h), float(a), float(b)
+    if noise == "prediffused":
+        return _WSStagePre.apply(delta, y, f, dW, h, a, b)
+    if noise == "general":
+        return _WSStageGeneral.apply(delta, y, f, g, dW, h, a, b)
+    return _WSStageDiag.apply(delta, y, f, g, dW, h, a, b)
 
 
 # -- Butcher axpy chain -------------------------------------------------------
@@ -124,19 +200,25 @@ def fused_axpy_chain(y, incs, coeffs):
 # -- pytree layer (what core/solvers.py calls) --------------------------------
 
 def tree_increment(f, g, dW, h, *, noise: str):
-    """Leafwise :func:`fused_increment` over matching state pytrees."""
+    """Leafwise :func:`fused_increment` over matching state pytrees;
+    ``noise="prediffused"`` maps over ``(f, dW)`` only (``g`` is None)."""
+    if noise == "prediffused":
+        return tree_map(
+            lambda fi, wi: fused_increment(fi, None, wi, h, noise=noise), f, dW)
     return tree_map(lambda fi, gi, wi: fused_increment(fi, gi, wi, h, noise=noise),
                     f, g, dW)
 
 
 def tree_ws_stage(delta, y, f, g, dW, h, a: float, b: float, *, noise: str):
-    """Leafwise fused Williamson stage; returns the ``(delta', y')`` pytrees."""
+    """Leafwise fused Williamson stage; returns the ``(delta', y')`` pytrees.
+    ``noise="prediffused"`` pairs every leaf with ``g = None``."""
     d_leaves, treedef = tree_flatten(delta)
     leaves = lambda t: flatten_up_to(treedef, t)
+    g_leaves = [None] * len(d_leaves) if noise == "prediffused" else leaves(g)
     pairs = [
         fused_ws_stage(di, yi, fi, gi, wi, h, a=a, b=b, noise=noise)
         for di, yi, fi, gi, wi in zip(d_leaves, leaves(y), leaves(f),
-                                      leaves(g), leaves(dW))
+                                      g_leaves, leaves(dW))
     ]
     return (tree_unflatten(treedef, [p[0] for p in pairs]),
             tree_unflatten(treedef, [p[1] for p in pairs]))

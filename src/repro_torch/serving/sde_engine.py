@@ -20,9 +20,13 @@ reference engine's.  Double buffering and bucketing are on by default, as
 are the divergence guard and the retry ladder (halve ``h``, then fall back
 to ``ees27``).
 
-Not ported yet (they raise): ``"auto"`` solver selection, adaptive requests,
-``compile_cache_dir`` and mesh-sharded slots; ``warmup`` and the async
-engine are absent.
+``"auto"`` and ``"auto:stiffness=...,noise=..."`` specs resolve at submit
+time through :func:`~repro_torch.core.registry.select_solver` with the
+term's declared noise and the request's step ``dt``; the resolved spec is
+the request's signature, so requests that resolve alike share an executor.
+
+Not ported yet (they raise): adaptive requests, ``compile_cache_dir`` and
+mesh-sharded slots; ``warmup`` and the async engine are absent.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.prng import PRNGKey
-from ..core.registry import parse_solver_spec
+from ..core.registry import parse_solver_spec, select_solver
 from ..core.sdeint import path_keys
 from ..device import not_yet_ported, resolve_device
 from .bucketing import BucketKey, BucketingConfig, group_key
@@ -160,12 +164,25 @@ class SDESampleEngine:
         Arguments as for the reference engine's ``submit``: ``seed`` (default:
         the request id) keys path ``i`` as ``fold_in(PRNGKey(seed), i)``;
         ``priority`` reorders service, never samples; ``deadline_ms`` retires
-        an undelivered request with ``timed_out=True``.  Malformed options
-        raise here, never at the queue head; :class:`QueueFull` when
-        admission control refuses the request.
+        an undelivered request with ``timed_out=True``.  ``"auto"`` specs
+        resolve here through ``select_solver`` (keys ``noise``, defaulting to
+        the term's, and ``stiffness``; ``dt = (t1 - t0) / n_steps``).
+        Malformed options raise here, never at the queue head;
+        :class:`QueueFull` when admission control refuses the request.
         """
-        if isinstance(solver, str) and parse_solver_spec(solver)[0] == "auto":
-            raise not_yet_ported("'auto' solver selection (select_solver)")
+        if isinstance(solver, str):
+            name, auto_kw = parse_solver_spec(solver)
+            if name == "auto":
+                unknown = set(auto_kw) - {"stiffness", "noise"}
+                if unknown:
+                    raise ValueError(
+                        f"unknown option {sorted(unknown)[0]!r} for solver "
+                        "'auto'; valid keys: noise, stiffness"
+                    )
+                auto_kw.setdefault(
+                    "noise", getattr(self.term, "noise", "diagonal"))
+                solver = select_solver(
+                    dt=(t1 - t0) / max(int(n_steps), 1), **auto_kw)
         req = make_request(
             self.scheduler.next_request_id, solver, term_kind="euclidean",
             t0=t0, t1=t1, n_steps=n_steps, n_paths=n_paths,

@@ -165,3 +165,67 @@ def test_bulk_passes_are_freed_as_they_are_copied(monkeypatch):
     finally:
         if was_enabled:
             gc.enable()
+
+
+# -- space-time Levy areas (SRA1's driver queries) --------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(), (4,), ((3,), (2,))],
+                         ids=["scalar", "vector", "tuple"])
+def test_levy_area_steps_match_reference(dtype, shape):
+    """``levy_area_step`` draws from the reference's salted key family: the
+    keys and bits are exact, the normals within erfinv's last bits."""
+    k = jax.random.PRNGKey(5)
+    jbm = jbr.brownian_path(k, 0.0, 1.5, 6, shape=shape, dtype=JNP[dtype])
+    tbm = tbr.brownian_path(_tkey(k), 0.0, 1.5, 6, shape=shape, dtype=dtype)
+    for n in (0, 3, 5):
+        jkey = jax.random.fold_in(jax.random.fold_in(k, jbr._LEVY_SALT), n)
+        tkey = prng.fold_in(prng.fold_in(_tkey(k), tbr._LEVY_SALT), n)
+        assert (tkey.numpy() == np.asarray(jkey)).all()
+        assert (prng.random_bits(tkey, (8,)).numpy().astype(np.uint32)
+                == np.asarray(jax.random.bits(jkey, (8,), jnp.uint32))).all()
+        for w, g in zip(jax.tree_util.tree_leaves(jbm.levy_area_step(n)),
+                        tree_leaves(tbm.levy_area_step(n))):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       rtol=RTOL[dtype], atol=0)
+    want = jbm.grid_levy_increments(JGrid.from_path(jbm).ts)
+    got = tbm.grid_levy_increments(torch.zeros(7))
+    for w, g in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
+        assert w.shape == g.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL[dtype], atol=0)
+    assert tbr._LEVY_SALT == jbr._LEVY_SALT
+
+
+def test_levy_bulk_rows_equal_per_step_pairs_and_padding():
+    keys = prng.split(prng.PRNGKey(9, device="cpu"), 3)
+    bm = tbr.brownian_path(keys, 0.0, 1.25, 5, shape=(2,))
+    ts = TimeGrid.from_path(bm).ts
+    dws, dhs = bm.grid_levy_increments(ts)
+    assert torch.equal(dws, bm.grid_increments(ts))  # W bits untouched
+    for n in range(5):
+        dw, dh = bm.grid_levy_increment(ts, n)
+        assert torch.equal(dws[n], dw) and torch.equal(dhs[n], dh)
+    pad = tbr.padded_brownian_path(keys, 0.0, 0.25, 8, shape=(2,))
+    grid = TimeGrid.padded_uniform(0.0, 0.25, 5, 8, pad)
+    pdw, pdh = grid.levy_increments()
+    assert pdw.shape[0] == 5 and torch.equal(pdw, dws) and torch.equal(pdh, dhs)
+    assert all(torch.equal(a, b) for a, b in zip(grid.levy_increment(2),
+                                                 (dws[2], dhs[2])))
+
+
+def test_levy_queries_on_grids_without_them_fail_like_the_reference():
+    with pytest.raises(ValueError) as want:
+        JGrid.uniform(0.0, 1.0, 4).levy_increments()
+    with pytest.raises(ValueError) as got:
+        TimeGrid.uniform(0.0, 1.0, 4, device="cpu").levy_increments()
+    assert str(got.value) == str(want.value)
+
+    class Plain:  # a driver with increments only
+        def grid_increment(self, ts, n):
+            return ts[n]
+
+    with pytest.raises(ValueError) as want:
+        JGrid.uniform(0.0, 1.0, 4, Plain()).levy_increment(0)
+    with pytest.raises(ValueError) as got:
+        TimeGrid.uniform(0.0, 1.0, 4, Plain(), device="cpu").levy_increment(0)
+    assert str(got.value) == str(want.value)

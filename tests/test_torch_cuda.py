@@ -19,12 +19,14 @@ import torch
 
 from repro_torch.core import PRNGKey, path_keys, prng, sdeint
 from repro_torch.core.williamson import EES25_2N, EES27_2N
-from repro_torch.kernels import (AXPY_CHAIN, INCREMENT_DIAG, WILLIAMSON2N, WS_STAGE_DIAG,
-                                 WS_STAGE_DIAG_BWD, build_kernels)
+from repro_torch.kernels import (AXPY_CHAIN, INCREMENT_DIAG, INCREMENT_GENERAL, INCREMENT_PRE,
+                                 WILLIAMSON2N, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL,
+                                 WS_STAGE_PRE, build_kernels)
 from repro_torch.kernels.sde_step import ref as sref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
-from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, ws_stage_diag,
-                                                   ws_stage_diag_bwd)
+from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, increment_general,
+                                                   increment_pre, ws_stage_diag, ws_stage_diag_bwd,
+                                                   ws_stage_general, ws_stage_pre)
 from repro_torch.kernels.williamson2n.ref import williamson2n_ref
 from repro_torch.kernels.williamson2n.williamson2n import williamson2n
 from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
@@ -96,6 +98,61 @@ def test_training_kernels_equal_twins(cuda, dtype, n, offset):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (1_000_003, 0), (4099, 1)])
+def test_prediffused_kernels_equal_twins(cuda, dtype, n, offset):
+    a, b = EES27_2N.A[3], EES27_2N.B[3]
+    gen = torch.Generator(device=cuda).manual_seed(n + 2)
+    xs = [torch.randn(n + offset, generator=gen, device=cuda, dtype=dtype)[offset:]
+          for _ in range(4)]
+    cases = [
+        (INCREMENT_PRE, lambda: (increment_pre(*xs[:2], 0.25),),
+         lambda: (sref.increment_pre_ref(*xs[:2], 0.25),)),
+        (WS_STAGE_PRE, lambda: ws_stage_pre(*xs, 0.25, a=a, b=b),
+         lambda: sref.ws_stage_pre_ref(*xs, 0.25, a, b)),
+    ]
+    for kernel, run, twin in cases:
+        before = kernel.launches
+        got = run()
+        assert kernel.launches == before + 1
+        for g, w in zip(got, twin()):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d,m,offset", [(4096, 16, 4, 0), (512, 16, 128, 0),
+                                             (1001, 5, 3, 0), (333, 16, 4, 1)])
+def test_general_kernels_equal_twins(cuda, dtype, rows, d, m, offset):
+    a, b = EES25_2N.A[1], EES25_2N.B[1]
+    gen = torch.Generator(device=cuda).manual_seed(rows + m)
+
+    def draw(*shape):
+        n = int(np.prod(shape))
+        return torch.randn(n + offset, generator=gen, device=cuda,
+                           dtype=dtype)[offset:].view(shape)
+
+    delta, y, f = draw(rows, d), draw(rows, d), draw(rows, d)
+    g, dW = draw(rows, d, m), draw(rows, m)
+    cases = [
+        (INCREMENT_GENERAL, lambda: (increment_general(f, g, dW, 0.25),),
+         lambda: (sref.increment_general_ref(f, g, dW, 0.25),)),
+        (WS_STAGE_GENERAL, lambda: ws_stage_general(delta, y, f, g, dW, 0.25, a=a, b=b),
+         lambda: sref.ws_stage_general_ref(delta, y, f, g, dW, 0.25, a, b)),
+    ]
+    for kernel, run, twin in cases:
+        before = kernel.launches
+        got = run()
+        assert kernel.launches == before + 1
+        for gg, w in zip(got, twin()):
+            torch.testing.assert_close(gg, w, rtol=0, atol=0)
+    # a diffusion broadcast over the paths and leading batch axes
+    g_row = draw(d, m)
+    got = increment_general(f.view(1, rows, d), g_row, dW.view(1, rows, m), 0.5)
+    want = sref.increment_general_ref(f.view(1, rows, d), g_row, dW.view(1, rows, m), 0.5)
+    assert got.shape == (1, rows, d)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_stage_backward_runs_the_kernel_on_a_broadcast_diffusion(cuda):
     from repro_torch.kernels.sde_step.ops import fused_ws_stage
 
@@ -146,6 +203,39 @@ def test_reversible_train_step_kernels_equal_plain(cuda, spec):
                                rtol=1e-6, atol=0)
     for a, b in zip(out[True][1], out[False][1]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_noise_specialised_routes_on_the_card(cuda):
+    """The prediffused route (additive term, full adjoint) equals the
+    diagonal relabel on the plain route bitwise, in float32 on the card;
+    general noise through the kernels equals the plain route to 1e-5."""
+    from repro_torch.benchmarks import step_kernels as sk
+    from repro_torch.core import SDETerm
+
+    args = sk.term_args(cuda)
+    keys = path_keys(PRNGKey(3, device=cuda), 2048)
+    y0 = torch.ones(sk.DIM, device=cuda)
+    add = sk.make_term("prediffused")
+    relabel = SDETerm(add.drift, add.diffusion, "diagonal")
+    general = sk.make_term("general")
+
+    def run(term, spec, ns=None):
+        with torch.no_grad():
+            return sdeint(term, spec, 0.0, 1.0, 16, y0, args=args, batch_keys=keys,
+                          noise_shape=ns, device=cuda).y_final
+
+    before = [k.launches for k in (WS_STAGE_PRE, INCREMENT_PRE, WS_STAGE_GENERAL,
+                                   INCREMENT_GENERAL)]
+    assert torch.equal(run(add, "ees25:use_kernels=True"), run(relabel, "ees25"))
+    assert torch.equal(run(add, "reversible-heun:use_kernels=True"),
+                       run(relabel, "reversible-heun"))
+    for spec in ("ees25", "reversible-heun"):
+        fused = run(general, spec + ":use_kernels=True", (sk.N_CHANNELS,))
+        plain = run(general, spec, (sk.N_CHANNELS,))
+        torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-5)
+    after = [k.launches for k in (WS_STAGE_PRE, INCREMENT_PRE, WS_STAGE_GENERAL,
+                                  INCREMENT_GENERAL)]
+    assert all(a > b for a, b in zip(after, before))
 
 
 def test_kernel_wrappers_reject_mixed_operands(cuda):

@@ -18,13 +18,15 @@ from repro.kernels.sde_step import ref as jref
 from repro.kernels.sde_step import sde_step as jsk
 from repro.kernels.williamson2n.ops import williamson2n_update as jw2n
 from repro_torch.core.williamson import EES25_2N, EES27_2N
-from repro_torch.kernels import (AXPY_CHAIN, INCREMENT_DIAG, KERNELS, WILLIAMSON2N,
-                                 WS_STAGE_DIAG, WS_STAGE_DIAG_BWD)
+from repro_torch.kernels import (AXPY_CHAIN, INCREMENT_DIAG, INCREMENT_GENERAL, INCREMENT_PRE,
+                                 KERNELS, WILLIAMSON2N, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD,
+                                 WS_STAGE_GENERAL, WS_STAGE_PRE)
 from repro_torch.kernels.sde_step import ops as tops
 from repro_torch.kernels.sde_step import ref as tref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
-from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, ws_stage_diag,
-                                                   ws_stage_diag_bwd)
+from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, increment_general,
+                                                   increment_pre, ws_stage_diag, ws_stage_diag_bwd,
+                                                   ws_stage_general, ws_stage_pre)
 from repro_torch.kernels.williamson2n.ops import williamson2n_update
 from repro_torch.kernels.williamson2n.ref import williamson2n_ref
 from repro_torch.kernels.williamson2n.williamson2n import williamson2n
@@ -142,12 +144,143 @@ def test_williamson2n_backward():
         _close(g.numpy(), w, torch.float64)
 
 
-@pytest.mark.parametrize("noise,kernel", [("general", "ws_stage_general_2d"),
-                                          ("prediffused", "ws_stage_pre_2d")])
-def test_unported_stage_variants_name_their_kernel(noise, kernel):
-    x = torch.zeros(3)
-    with pytest.raises(ValueError, match=kernel + ".*not yet ported"):
-        tops.fused_ws_stage(x, x, x, x, x, 0.1, a=0.0, b=1.0, noise=noise)
+# -- the prediffused and general-noise variants ---------------------------------
+#
+# Twins and ops against the reference's twins and its Pallas kernels in
+# interpret mode.  Tolerance NEW_TOL (defined below): the port's general
+# twins sum g@dW left to right where the reference's einsum / dot_general
+# may sum in another order, and XLA may contract the interpreted bodies'
+# multiply-adds into FMAs.
+
+GENERAL_SHAPES = [((5,), 3), ((4, 8), 2), ((3, 2, 16), 128)]
+
+
+def _variant_inputs(noise, n_state, batch_d, m, dtype, seed):
+    """State operands (n_state of them), then g (None for prediffused) and
+    dW (the pre-weighted w for prediffused), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    draw = lambda *s: rng.normal(size=s).astype(NP[dtype])  # noqa: E731
+    states = [draw(*batch_d) for _ in range(n_state)]
+    if noise == "prediffused":
+        return states, None, draw(*batch_d)
+    return states, draw(*batch_d, m), draw(*batch_d[:-1], m)
+
+
+def _near_variant(got, want, g, w, dtype):
+    """NEW_TOL, widened for general noise by the bound on reordering an
+    m-term sum: ``2 m eps sum_j |g_j w_j|`` per output (scaled by the stage's
+    ``|b| <= 1`` and ``|a| <= 1``), since the reference's dot_general may sum
+    the channels in another order than the port's left-to-right twin."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = NEW_TOL[dtype]["atol"] + NEW_TOL[dtype]["rtol"] * np.abs(want)
+    if g is not None:
+        m = g.shape[-1]
+        bound = np.einsum("...dm,...m->...d", np.abs(g.astype(np.float64)),
+                          np.abs(w.astype(np.float64)))
+        tol = tol + 2 * m * np.finfo(NP[dtype]).eps * bound
+    assert np.all(np.abs(got - want) <= tol), np.max(np.abs(got - want) - tol)
+
+
+@pytest.mark.parametrize("noise", ["general", "prediffused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch_d,m", GENERAL_SHAPES)
+def test_stage_variants_match_interpret_kernel(noise, dtype, batch_d, m):
+    a, b = COEFFS[1]
+    (d, y, f), g, w = _variant_inputs(noise, 3, batch_d, m, dtype, seed=31)
+    jg = None if g is None else jnp.asarray(g)
+    jx = [jnp.asarray(x) for x in (d, y, f)]
+    want = jops.fused_ws_stage(*jx, jg, jnp.asarray(w), 0.25, a=a, b=b,
+                               noise=noise, interpret=True)
+    want_ref = (jref.ws_stage_pre_ref(*jx, jnp.asarray(w), 0.25, a, b)
+                if noise == "prediffused" else
+                jref.ws_stage_general_ref(*jx, jg, jnp.asarray(w), 0.25, a, b))
+    tx = [torch.from_numpy(x) for x in (d, y, f)]
+    tg = None if g is None else torch.from_numpy(g)
+    got = tops.fused_ws_stage(*tx, tg, torch.from_numpy(w), 0.25, a=a, b=b,
+                              noise=noise)
+    twin = (tref.ws_stage_pre_ref(*tx, torch.from_numpy(w), 0.25, a, b)
+            if noise == "prediffused" else
+            tref.ws_stage_general_ref(*tx, tg, torch.from_numpy(w), 0.25, a, b))
+    for gt, t, wk, wr in zip(got, twin, want, want_ref):
+        assert torch.equal(gt, t)  # the CPU op is the twin
+        _near_variant(gt.numpy(), wk, g, w, dtype)
+        _near_variant(gt.numpy(), wr, g, w, dtype)
+
+
+@pytest.mark.parametrize("noise", ["general", "prediffused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch_d,m", GENERAL_SHAPES)
+def test_increment_variants_match_interpret_kernel(noise, dtype, batch_d, m):
+    (f,), g, w = _variant_inputs(noise, 1, batch_d, m, dtype, seed=32)
+    jg = None if g is None else jnp.asarray(g)
+    want = jops.fused_increment(jnp.asarray(f), jg, jnp.asarray(w), 0.25,
+                                noise=noise, interpret=True)
+    want_ref = (jref.increment_pre_ref(jnp.asarray(f), jnp.asarray(w), 0.25)
+                if noise == "prediffused" else
+                jref.increment_general_ref(jnp.asarray(f), jg, jnp.asarray(w), 0.25))
+    tf, tw = torch.from_numpy(f), torch.from_numpy(w)
+    tg = None if g is None else torch.from_numpy(g)
+    got = tops.fused_increment(tf, tg, tw, 0.25, noise=noise)
+    twin = (increment_pre(tf, tw, 0.25) if noise == "prediffused"
+            else increment_general(tf, tg, tw, 0.25))
+    assert torch.equal(got, twin)
+    _near_variant(got.numpy(), want, g, w, dtype)
+    _near_variant(got.numpy(), want_ref, g, w, dtype)
+    # the pytree layer: prediffused maps over (f, w) with g = None
+    tree = tops.tree_increment((tf,), None if tg is None else (tg,), (tw,),
+                               0.25, noise=noise)
+    assert isinstance(tree, tuple) and torch.equal(tree[0], got)
+
+
+def test_general_twin_sums_channels_left_to_right():
+    """The general twins' g@dW is the explicit left-to-right channel sum the
+    kernels repeat (bitwise), and einsum's result to rounding."""
+    (f,), g, w = _variant_inputs("general", 1, (6, 5), 7, torch.float32, seed=33)
+    tg, tw = torch.from_numpy(g), torch.from_numpy(w)
+    acc = tg[..., 0] * tw[..., None, 0]
+    for j in range(1, 7):
+        acc = acc + tg[..., j] * tw[..., None, j]
+    assert torch.equal(tref.gdw_ref(tg, tw), acc)
+    torch.testing.assert_close(tref.gdw_ref(tg, tw),
+                               torch.einsum("...dm,...m->...d", tg, tw),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("noise", ["general", "prediffused"])
+def test_variant_backwards_match_reference(noise):
+    """The closed-form VJPs (plain torch, the reference's einsums for general
+    noise) against the reference's custom VJPs through its interpret
+    kernels, for the increment and the stage (float64)."""
+    a, b = COEFFS[0]
+    batch_d, m = (4, 6), 3
+    (d, y, f), g, w = _variant_inputs(noise, 3, batch_d, m, torch.float64, seed=34)
+    rng = np.random.default_rng(35)
+    c1, c2 = rng.normal(size=batch_d), rng.normal(size=batch_d)
+    prims = [d, y, f] + ([] if g is None else [g]) + [w]
+
+    def split(xs):
+        *st, last = xs
+        return (st[:3], None, last) if g is None else (st[:3], st[3], last)
+
+    ts = [torch.from_numpy(x).requires_grad_() for x in prims]
+    (td, ty, tf), tg, tw = split(ts)
+    d2, y2 = tops.fused_ws_stage(td, ty, tf, tg, tw, 0.3, a=a, b=b, noise=noise)
+    inc = tops.fused_increment(tf, tg, tw, 0.3, noise=noise)
+    loss = ((d2 * torch.from_numpy(c1)).sum() + (y2 * torch.from_numpy(c2)).sum()
+            + (inc * torch.from_numpy(c2)).sum())
+    got = torch.autograd.grad(loss, ts)
+
+    def jloss(*xs):
+        (jd, jy, jf), jg, jw = split(xs)
+        jd2, jy2 = jops.fused_ws_stage(jd, jy, jf, jg, jw, 0.3, a=a, b=b,
+                                       noise=noise, interpret=True)
+        jinc = jops.fused_increment(jf, jg, jw, 0.3, noise=noise, interpret=True)
+        return (jnp.sum(jd2 * c1) + jnp.sum(jy2 * c2) + jnp.sum(jinc * c2))
+
+    want = jax.grad(jloss, argnums=tuple(range(len(prims))))(
+        *map(jnp.asarray, prims))
+    for gt, wt in zip(got, want):
+        _near(gt.numpy(), wt, torch.float64)
 
 
 def test_unknown_stage_noise_same_message_as_reference():
@@ -167,13 +300,24 @@ def test_cpu_calls_are_twins_and_launch_nothing():
     ws_stage_diag_bwd(x, x, x, x, 0.5, a=0.5, b=0.5)
     increment_diag(x, x, x, 0.5)
     axpy_chain(x, [x] * 10, [0.5] * 10)
+    increment_pre(x, x, 0.5)
+    ws_stage_pre(x, x, x, x, 0.5, a=0.5, b=0.5)
+    g, w = torch.ones(2, 4, 3), torch.ones(2, 3)
+    increment_general(x.view(2, 4), g, w, 0.5)
+    ws_stage_general(x.view(2, 4), x.view(2, 4), x.view(2, 4), g, w, 0.5,
+                     a=0.5, b=0.5)
     assert [k.launches for k in KERNELS] == before
     meta = lambda n: [torch.ones(2, device="meta")] * n  # noqa: E731
+    mg, mw = torch.ones(2, 2, 3, device="meta"), torch.ones(2, 3, device="meta")
     for call in (lambda: ws_stage_diag(*meta(5), 0.5, a=0.5, b=0.5),
                  lambda: williamson2n(*meta(3), a=0.5, b=0.5),
                  lambda: ws_stage_diag_bwd(*meta(4), 0.5, a=0.5, b=0.5),
                  lambda: increment_diag(*meta(3), 0.5),
-                 lambda: axpy_chain(*meta(1), meta(2), [0.5, 0.5])):
+                 lambda: axpy_chain(*meta(1), meta(2), [0.5, 0.5]),
+                 lambda: increment_pre(*meta(2), 0.5),
+                 lambda: ws_stage_pre(*meta(4), 0.5, a=0.5, b=0.5),
+                 lambda: increment_general(*meta(1), mg, mw, 0.5),
+                 lambda: ws_stage_general(*meta(3), mg, mw, 0.5, a=0.5, b=0.5)):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
     with pytest.raises(ValueError, match="2 increments for 1 coefficients"):
@@ -183,9 +327,11 @@ def test_cpu_calls_are_twins_and_launch_nothing():
 def test_kernels_listed():
     assert {k.name for k in KERNELS} == {
         "ws_stage_diag", "williamson2n", "ws_stage_diag_bwd", "increment_diag",
-        "axpy_chain"}
+        "axpy_chain", "increment_pre", "ws_stage_pre", "increment_general",
+        "ws_stage_general"}
     for k in (WS_STAGE_DIAG, WILLIAMSON2N, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
-              AXPY_CHAIN):
+              AXPY_CHAIN, INCREMENT_PRE, WS_STAGE_PRE, INCREMENT_GENERAL,
+              WS_STAGE_GENERAL):
         assert k.source.name == f"{k.name}.cu"
 
 
@@ -290,30 +436,35 @@ def test_axpy_chain_backward_matches_reference():
         _near(got[1 + i].numpy(), ct_incs[i], torch.float64)
 
 
-@pytest.mark.parametrize("op", ["increment", "ws_stage", "axpy_chain"])
+@pytest.mark.parametrize("op", ["increment", "ws_stage", "axpy_chain", "increment_pre",
+                                "ws_stage_pre", "increment_general", "ws_stage_general"])
 def test_autograd_functions_pass_gradcheck(op):
     """The closed-form backwards against finite differences (float64)."""
     a, b = COEFFS[1]
     xs = [torch.from_numpy(x).requires_grad_()
           for x in _inputs(5, (3, 4), torch.float64, seed=18)]
+    rng = np.random.default_rng(19)
+    g3 = torch.from_numpy(rng.normal(size=(3, 4, 2))).requires_grad_()
+    w2 = torch.from_numpy(rng.normal(size=(3, 2))).requires_grad_()
     fns = {
         "increment": lambda f, g, w: tops.fused_increment(f, g, w, 0.3, noise="diagonal"),
         "ws_stage": lambda d, y, f, g, w: tops.fused_ws_stage(
             d, y, f, g, w, 0.3, a=a, b=b, noise="diagonal"),
         "axpy_chain": lambda y, k1, k2: tops.fused_axpy_chain(y, [k1, k2], (0.5, -1.5)),
+        "increment_pre": lambda f, w: tops.fused_increment(f, None, w, 0.3,
+                                                           noise="prediffused"),
+        "ws_stage_pre": lambda d, y, f, w: tops.fused_ws_stage(
+            d, y, f, None, w, 0.3, a=a, b=b, noise="prediffused"),
+        "increment_general": lambda f, g, w: tops.fused_increment(
+            f, g, w, 0.3, noise="general"),
+        "ws_stage_general": lambda d, y, f, g, w: tops.fused_ws_stage(
+            d, y, f, g, w, 0.3, a=a, b=b, noise="general"),
     }
-    n_in = {"increment": 3, "ws_stage": 5, "axpy_chain": 3}[op]
-    assert torch.autograd.gradcheck(fns[op], xs[:n_in])
-
-
-@pytest.mark.parametrize("noise,kernel", [("general", "increment_general_2d"),
-                                          ("prediffused", "increment_pre_2d")])
-def test_unported_increment_variants_name_their_kernel(noise, kernel):
-    x = torch.zeros(3)
-    with pytest.raises(ValueError, match=kernel + ".*not yet ported"):
-        tops.fused_increment(x, x, x, 0.1, noise=noise)
-    with pytest.raises(ValueError, match=kernel):
-        tops.tree_increment((x,), (x,), (x,), 0.1, noise=noise)
+    inputs = {"increment": xs[:3], "ws_stage": xs, "axpy_chain": xs[:3],
+              "increment_pre": xs[:2], "ws_stage_pre": xs[:4],
+              "increment_general": [xs[0], g3, w2],
+              "ws_stage_general": xs[:3] + [g3, w2]}[op]
+    assert torch.autograd.gradcheck(fns[op], inputs)
 
 
 def test_tree_axpy_chain_on_tuple_state():

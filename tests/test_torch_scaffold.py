@@ -104,7 +104,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
 
 @pytest.mark.parametrize("what", [
     "trainer microbatches", "adjoint=recursive", "adaptive spec", "adaptive flag",
-    "mesh", "trainer mesh", "engine auto", "engine adaptive", "engine compile cache",
+    "mesh", "trainer mesh", "engine adaptive", "engine compile cache",
     "engine mesh"])
 def test_unported_features_raise_not_yet_ported(what):
     key = PRNGKey(0, device="cpu")
@@ -122,8 +122,6 @@ def test_unported_features_raise_not_yet_ported(what):
         "mesh": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, device="cpu",
                                batch_keys=path_keys(key, 2), mesh_axis="mc",
                                mesh=object()),
-        "engine auto": lambda: SDESampleEngine(_term(), y0, device="cpu").submit(
-            "auto", t1=1.0, n_steps=2, n_paths=1),
         "engine adaptive": lambda: SDESampleEngine(_term(), y0, device="cpu").submit(
             "ees25:adaptive", t1=1.0, n_steps=2, n_paths=1),
         "engine compile cache": lambda: SDESampleEngine(

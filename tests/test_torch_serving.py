@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import solvers as jsde
 from repro.nsde import init_lsde as jinit, lsde_term as jterm
 from repro.serving import bucketing as jb
 from repro.serving import scheduler as jsch
@@ -349,3 +350,87 @@ def test_engine_serves_a_trainable_model_without_no_grad(lsde64):
         want = ref.run()
     for rid in ids:
         assert np.array_equal(done[rid].y_final, want[rid].y_final)
+
+
+# -- noise-specialised terms and "auto" specs -----------------------------------
+
+def _noise_terms(lib):
+    xp = jnp if lib == "jax" else torch
+    Term = jsde.SDETerm if lib == "jax" else SDETerm
+    drift = lambda t, y, a: 0.4 * (0.1 - y)  # noqa: E731
+    return {
+        "additive": (Term(drift, lambda t, y, a: 0.8 * xp.ones_like(y), "additive"), None),
+        "general": (Term(drift, lambda t, y, a: 0.8 * xp.stack(
+            [xp.ones_like(y), 0.5 * xp.cos(y)], -1), "general"), (2,)),
+        "diagonal": (Term(drift, lambda t, y, a: 0.5 + 0.3 * xp.cos(y), "diagonal"), None),
+    }
+
+
+AUTO_REQUESTS = [  # (term, spec, t1, n_steps, n_paths, seed, what it resolves to)
+    ("additive", "auto", 1.0, 8, 11, 1, "srk:noise='additive'"),
+    ("additive", "auto:stiffness=200", 1.0, 64, 5, 2, "ees27"),
+    ("additive", "auto:stiffness=20", 1.0, 8, 5, 3, "ees25"),
+    ("additive", "auto:noise='diagonal'", 1.0, 8, 5, 4, "milstein"),
+    ("general", "auto", 1.0, 8, 9, 5, "ees25"),
+    ("diagonal", "auto", 0.75, 6, 9, 6, "milstein"),
+]
+
+
+def _auto_engines(lib, **cfg):
+    cfg = dict(dict(slots=8, ticks_per_dispatch=2), **cfg)
+    engines = {}
+    for name, (term, ns) in _noise_terms(lib).items():
+        y0 = (jnp.linspace(-0.5, 0.5, D_Z) if lib == "jax"
+              else torch.linspace(-0.5, 0.5, D_Z, dtype=torch.float64))
+        if lib == "jax":
+            engines[name] = JEngine(term, y0, JConfig(dtype=jnp.float64, **cfg),
+                                    noise_shape=ns)
+        else:
+            engines[name] = SDESampleEngine(term, y0, SDESampleConfig(
+                dtype=torch.float64, **cfg), noise_shape=ns, device="cpu")
+    return engines
+
+
+def _drain(engines):
+    ids = [engines[name].submit(spec, t1=t1, n_steps=n, n_paths=p, seed=seed)
+           for name, spec, t1, n, p, seed, _ in AUTO_REQUESTS]
+    with torch.no_grad():
+        done = {name: eng.run() for name, eng in engines.items()}
+    return [done[r[0]][rid] for r, rid in zip(AUTO_REQUESTS, ids)]
+
+
+def test_engine_auto_specs_equal_reference():
+    """"auto" specs resolve through select_solver with the term's noise and
+    the request's dt, as the reference's engine resolves them; the drained
+    samples (SRA1 with Levy areas in a padded bucket, Milstein, EES) equal
+    the reference engine's to 1e-10 (float64 normals: erfinv ulps)."""
+    got, want = _drain(_auto_engines("torch")), _drain(_auto_engines("jax"))
+    for req, g, w in zip(AUTO_REQUESTS, got, want):
+        assert g.bucket is not None and g.bucket.solver == req[-1]
+        assert _bucket_tuple(g.bucket) == _bucket_tuple(w.bucket)
+        scale = max(1.0, np.abs(w.y_final).max())
+        assert np.abs(g.y_final - w.y_final).max() / scale < 1e-10
+
+
+@pytest.mark.parametrize("variant", [dict(bucketing=False), dict(ticks_per_dispatch=1)])
+def test_engine_auto_specs_invariants_bitwise(variant):
+    """Padded-bucket dispatch hands SRA1 its Levy pairs row for row: bucketed
+    == exact and one tick per dispatch == two, bitwise; and an "auto"
+    request equals submitting its resolved spec."""
+    base = _drain(_auto_engines("torch"))
+    other = _drain(_auto_engines("torch", **variant))
+    for a, b in zip(base, other):
+        assert np.array_equal(a.y_final, b.y_final)
+    eng = _auto_engines("torch")["additive"]
+    rid = eng.submit("srk:noise='additive'", t1=1.0, n_steps=8, n_paths=11, seed=1)
+    with torch.no_grad():
+        assert np.array_equal(eng.run()[rid].y_final, base[0].y_final)
+
+
+def test_engine_auto_spec_errors_equal_reference():
+    for spec in ("auto:bogus=1", "auto:noise='weird'"):
+        with pytest.raises(ValueError) as want:
+            _auto_engines("jax")["additive"].submit(spec, t1=1.0, n_steps=4, n_paths=1)
+        with pytest.raises(ValueError) as got:
+            _auto_engines("torch")["additive"].submit(spec, t1=1.0, n_steps=4, n_paths=1)
+        assert str(got.value) == str(want.value)

@@ -123,27 +123,32 @@ def test_general_noise_plain_matches_reference(method):
     _assert_tree_close(got, want)
 
 
-def test_kernel_routes_still_to_port_raise():
-    """General noise still names its TPU kernels; the diagonal increment now
-    runs through the ``increment_diag`` kernel (its CPU twin) and equals the
-    plain route bitwise and the reference's fused route to 1e-12."""
-    (_, _), (ty, tw) = _case("general", False)
-    sol = treg.get_solver("ees25:use_kernels=True")
-    gterm = ts.SDETerm(**_fields("general", "torch"))
-    with pytest.raises(ValueError, match="ws_stage_general_2d"):
-        sol.step(gterm, ty[:3], 0.0, 0.1, tw, 0.7)
-    fg, gg = gterm.evals(0.0, ty[:3], 0.7)
-    with pytest.raises(ValueError, match="increment_general_2d"):
-        gterm.combine(fg, gg, 0.1, tw, use_kernels=True)
-    (jy, jw), (ty, tw) = _case("diagonal", True)
-    term = ts.SDETerm(**_fields("diagonal", "torch"))
+@pytest.mark.parametrize("noise,tuple_state", [("general", False), ("diagonal", True)])
+def test_kernel_routes_match_reference(noise, tuple_state):
+    """``SDETerm.combine(use_kernels=True)`` runs ``increment_general`` /
+    ``increment_diag`` (their CPU twins) and the 2N solver the fused stage:
+    equal to the reference's fused routes to 1e-12, and to the port's plain
+    route bitwise for diagonal noise and to 1e-12 for general noise (its
+    kernels sum g@dW left to right, the plain route uses einsum)."""
+    (jy, jw), (ty, tw) = _case(noise, tuple_state)
+    if noise == "general":
+        jy, ty = jy[:3], ty[:3]
+    term = ts.SDETerm(**_fields(noise, "torch"))
+    jterm = js.SDETerm(**_fields(noise, "jax"))
     f, g = term.evals(0.0, ty, 0.7)
     fused = term.combine(f, g, 0.1, tw, use_kernels=True)
-    for p, k in zip(tree_leaves(term.combine(f, g, 0.1, tw)), tree_leaves(fused)):
-        assert torch.equal(p, k)
-    jterm = js.SDETerm(**_fields("diagonal", "jax"))
+    plain = term.combine(f, g, 0.1, tw)
+    for p, k in zip(tree_leaves(plain), tree_leaves(fused)):
+        if noise == "diagonal":
+            assert torch.equal(p, k)
+        else:
+            torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
     jf, jg = jterm.evals(0.0, jy, 0.7)
     _assert_tree_close(fused, jterm.combine(jf, jg, 0.1, jw, use_kernels=True))
+    sol = treg.get_solver("ees25:use_kernels=True")
+    jsol = jreg.get_solver("ees25:use_kernels=True")
+    _assert_tree_close(sol.step(term, ty, 0.0, 0.1, tw, 0.7),
+                       jsol.step(jterm, jy, 0.0, 0.1, jw, 0.7))
 
 
 @pytest.mark.parametrize("kwargs", [dict(drift=abs, noise="bogus"),
@@ -177,21 +182,25 @@ def test_spec_errors_equal(spec):
 
 PORTED = ("ees25", "ees25-butcher", "ees27", "ees27-butcher", "euler", "heun",
           "mcf-euler", "mcf-heun", "mcf-midpoint", "mcf-ralston3", "mcf-rk3",
-          "mcf-rk4", "midpoint", "ralston3", "reversible-heun", "rk3", "rk4")
+          "mcf-rk4", "midpoint", "milstein", "ralston3", "reversible-heun", "rk3",
+          "rk4", "srk", "strat-milstein")
 
 
-@pytest.mark.parametrize("name", ["milstein", "strat-milstein", "srk", "cfees25"])
+@pytest.mark.parametrize("name", ["cfees25", "cfees27", "geo-em", "cg2", "rkmk2"])
 def test_unported_solvers_fail_with_the_unknown_solver_message(name):
+    """The manifold solvers are the ones left; every Euclidean solver of the
+    reference is registered."""
     with pytest.raises(KeyError) as got:
         treg.get_solver(name)
     assert got.value.args[0] == (f"unknown solver {jreg._canon(name)!r}; "
                                  "registered: " + ", ".join(PORTED))
-    assert treg.list_solvers() == PORTED
-    assert set(PORTED) < set(jreg.list_solvers())
+    assert treg.list_solvers() == PORTED == jreg.list_solvers(kind="euclidean")
+    assert jreg.solver_kind(name) == "manifold"
 
 
 def test_solver_objects_match():
-    for spec in SCHEMES + list(PORTED[1:]) + ["mcf-rk4:lam=0.9", "ees25-butcher:x=0.3"]:
+    for spec in SCHEMES + list(PORTED[1:]) + ["mcf-rk4:lam=0.9", "ees25-butcher:x=0.3",
+                                              "srk:noise='additive'"]:
         j, t = jreg.get_solver(spec), treg.get_solver(spec)
         assert (t.name, t.evals_per_step, t.is_reversible, t.sde_form,
                 t.strong_orders) == (j.name, j.evals_per_step, j.is_reversible,
@@ -293,3 +302,121 @@ def test_tableaux_equal_reference():
     np.testing.assert_allclose(got.b, want.b, rtol=0, atol=1e-15)
     with pytest.raises(ValueError, match="admissible"):
         tt.ees25_tableau(0.5)
+
+
+# -- Milstein, SRA1, select_solver, stability -----------------------------------
+
+MILSTEIN_CASES = [("diagonal", False), ("diagonal", True), ("additive", False),
+                  ("scalar", False), ("none", False)]
+
+
+@pytest.mark.parametrize("spec", ["milstein", "strat-milstein", "milstein:use_kernels=True"])
+@pytest.mark.parametrize("noise,tuple_state", MILSTEIN_CASES)
+@pytest.mark.parametrize("method", ["step", "reverse", "step_with_error"])
+def test_milstein_matches_reference(spec, noise, tuple_state, method):
+    """Fed the reference's own increments; the correction's jvp
+    (``torch.func.jvp`` for ``jax.jvp``) included (1e-12 relative)."""
+    (jy, jw), (ty, tw) = _case(noise, tuple_state, seed=21)
+    jsol, tsol = jreg.get_solver(spec), treg.get_solver(spec)
+    jterm, tterm = js.SDETerm(**_fields(noise, "jax")), ts.SDETerm(**_fields(noise, "torch"))
+    want = getattr(jsol, method)(jterm, jsol.init(jterm, 0.3, jy, 0.7), 0.3, 0.1, jw, 0.7)
+    got = getattr(tsol, method)(tterm, tsol.init(tterm, 0.3, ty, 0.7), 0.3, 0.1, tw, 0.7)
+    _assert_tree_close(got, want)
+
+
+def test_milstein_kernel_route_is_bitwise_plain():
+    (_, _), (ty, tw) = _case("diagonal", True, seed=22)
+    term = ts.SDETerm(**_fields("diagonal", "torch"))
+    plain, fused = treg.get_solver("milstein"), treg.get_solver("milstein:use_kernels=True")
+    for a, b in zip(tree_leaves(plain.step(term, ty, 0.1, 0.05, tw, 0.7)),
+                    tree_leaves(fused.step(term, ty, 0.1, 0.05, tw, 0.7))):
+        assert torch.equal(a, b)
+
+
+def _levy_case(tuple_state, seed):
+    rng = np.random.default_rng(seed)
+    shapes = [(3,), (2,)] if tuple_state else [(4,)]
+    y, dw, dh = ([rng.normal(size=s) * sc for s in shapes] for sc in (1.0, 0.3, 0.1))
+    pack = (lambda xs, f: tuple(map(f, xs)) if tuple_state else f(xs[0]))
+    return ((pack(y, jnp.asarray), (pack(dw, jnp.asarray), pack(dh, jnp.asarray))),
+            (pack(y, torch.from_numpy), (pack(dw, torch.from_numpy),
+                                         pack(dh, torch.from_numpy))))
+
+
+@pytest.mark.parametrize("tuple_state", [False, True])
+@pytest.mark.parametrize("method", ["step", "reverse", "step_with_error"])
+def test_srk_matches_reference(tuple_state, method):
+    """SRA1 fed the reference's own ``(dW, dH)`` pairs (1e-12 relative)."""
+    (jy, jpair), (ty, tpair) = _levy_case(tuple_state, seed=23)
+    jsol, tsol = jreg.get_solver("srk"), treg.get_solver("srk")
+    jterm = js.SDETerm(**_fields("additive", "jax"))
+    tterm = ts.SDETerm(**_fields("additive", "torch"))
+    want = getattr(jsol, method)(jterm, jsol.init(jterm, 0.3, jy, 0.7), 0.3, 0.1, jpair, 0.7)
+    got = getattr(tsol, method)(tterm, tsol.init(tterm, 0.3, ty, 0.7), 0.3, 0.1, tpair, 0.7)
+    _assert_tree_close(got, want)
+
+
+@pytest.mark.parametrize("case", ["milstein general", "milstein form", "srk init",
+                                  "srk noise"])
+def test_noise_specialised_errors_equal(case):
+    def run(reg, sol_mod, lib):
+        if case == "milstein general":
+            return reg.get_solver("milstein").init(
+                sol_mod.SDETerm(**_fields("general", lib)), 0.0, None, None)
+        if case == "milstein form":
+            return sol_mod.Milstein(form="bogus")
+        if case == "srk init":
+            return reg.get_solver("srk").init(
+                sol_mod.SDETerm(**_fields("diagonal", lib)), 0.0, None, None)
+        return reg.get_solver("srk:noise='diagonal'")
+
+    with pytest.raises(ValueError) as want:
+        run(jreg, js, "jax")
+    with pytest.raises(ValueError) as got:
+        run(treg, ts, "torch")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("noise", ["none", "diagonal", "additive", "scalar", "general"])
+def test_select_solver_decision_table(noise):
+    for stiffness in (0.0, -0.5, 10.0, 50.0, 100.0, 200.0, -400.0):
+        for dt in (None, 0.001, 0.015625, 0.02, 0.05, 0.1):
+            assert treg.select_solver(noise=noise, stiffness=stiffness, dt=dt) \
+                == jreg.select_solver(noise=noise, stiffness=stiffness, dt=dt)
+    assert treg.select_solver(noise) == jreg.select_solver(noise)
+
+
+def test_select_solver_error_message():
+    with pytest.raises(ValueError) as want:
+        jreg.select_solver(noise="bogus")
+    with pytest.raises(ValueError) as got:
+        treg.select_solver(noise="bogus")
+    assert str(got.value) == str(want.value)
+    # every spec it returns resolves in the port's registry
+    for noise in ("none", "diagonal", "additive", "scalar", "general"):
+        for stiffness in (0.0, 100.0, 200.0):
+            treg.get_solver(treg.select_solver(noise, stiffness, dt=0.02))
+
+
+@pytest.mark.parametrize("tab", ["euler", "midpoint", "rk4", "ees25", "ees27"])
+def test_stability_matches_reference(tab):
+    from repro.core import stability as jstab
+    from repro.core import tableaux as jt
+    from repro_torch.core import stability as tstab
+    from repro_torch.core import tableaux as tt
+    pick = {"ees25": lambda m: m.ees25_tableau(), "ees27": lambda m: m.ees27_tableau()}
+    jtab = pick.get(tab, lambda m: getattr(m, tab))(jt)
+    ttab = pick.get(tab, lambda m: getattr(m, tab))(tt)
+    np.testing.assert_allclose(tt.stability_poly(ttab), jt.stability_poly(jtab),
+                               rtol=1e-14, atol=1e-15)
+    rho = np.array([-3.0, -1.0 + 0.5j, 0.25j, -2.5])
+    np.testing.assert_allclose(tstab.stability_function(ttab)(rho),
+                               jstab.stability_function(jtab)(rho), rtol=1e-13)
+    assert (tstab.is_linearly_stable(ttab, rho)
+            == jstab.is_linearly_stable(jtab, rho)).all()
+    for lam, mu, h in ((-1.0, 0.5, 0.5), (-4.0, 1.0, 0.25), (-0.2, 2.0, 1.0)):
+        assert tstab.mean_square_factor(ttab, lam, mu, h) == pytest.approx(
+            jstab.mean_square_factor(jtab, lam, mu, h), rel=1e-13)
+    grid = tstab.ms_stability_region(ttab, [-3.0, -1.0, -0.1], [0.0, 0.5, 2.0])
+    assert (grid == jstab.ms_stability_region(jtab, [-3.0, -1.0, -0.1],
+                                              [0.0, 0.5, 2.0])).all()
