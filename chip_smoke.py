@@ -5,20 +5,26 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's paths through the nine hand-written CUDA kernels — an
+It drives the port's paths through the eleven hand-written CUDA kernels — an
 ``SDESampleEngine`` serving EES(2,5) and EES(2,7) Monte-Carlo sampling
 requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
 d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
-training run with the reversible adjoint, and the serving and training of
-additive- and general-noise SDEs — and checks what comes out:
+training run with the reversible adjoint, the serving and training of
+additive- and general-noise SDEs, and the LM substrate's prefill and decode
+of zamba2-7b at full width — and checks what comes out:
 
-1. the card (``nvidia-smi`` name and power limit); TF32 off;
+1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
+   reducing in float32;
 2. the kernel builds (one ``nvcc`` per source, in parallel);
 3. each kernel against its plain PyTorch twin on the card, float32 and
    float64, at the served (or trained) shape, a ragged size and an
    unaligned view (the general-noise kernels at (N, d, m) = (65536, 16, 4),
-   (65536, 16, 128) and (1001, 5, 3)), with its time, the twin's time, its
-   bound and, where one PyTorch call computes it, that call's time;
+   (65536, 16, 128) and (1001, 5, 3)); flash attention in float32 and bf16
+   at the reference's test shapes, zamba2-7b's (2, 32, 32, 2048, 112),
+   qwen3-1.7b's (1, 16, 8, 2048, 128) and a ragged 200, and the SSD scan at
+   the reference's test shapes, its decay extremes, zamba2-7b's and
+   mamba2-130m's layer at 2048 tokens; with each kernel's time, the twin's
+   time, its bound and, where one PyTorch call computes it, that call's time;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
@@ -43,11 +49,23 @@ additive- and general-noise SDEs — and checks what comes out:
    adjoint through the prediffused kernels (bitwise equal to the diagonal
    relabel on the plain route) and the general term under the reversible
    adjoint through EES(2,5) and Reversible Heun (1e-5 of the plain route);
-   one step of each under ``set_sync_debug_mode("error")``.
+   one step of each under ``set_sync_debug_mode("error")``;
+11. the LM prefill of zamba2-7b at full width: in float32 at 12 layers
+   (B=2, S=256) the kernel path against the plain path, ``forward`` against
+   token-by-token ``serve_step``, and the card against a CPU run of the
+   plain path (6 layers, B=1, S=128), each within 1e-4 of max|logit|; then
+   in bf16 at all 81 layers (``init_params(PRNGKey(0))``) one
+   ``head_positions="last"`` prefill of B=2 x 2048 tokens: launch counts
+   (14 ``flash_attention``, 81 ``ssd_scan``), peak memory, tokens/s, the
+   profile by kernel kind, and no host sync;
+12. the decode ``Engine`` on those weights: 8 requests of 8-token prompts,
+   greedy, ``slots=8, max_len=64``: tokens/s, ticks, finite logits, and the
+   same tokens from a second drain on a new engine; one decode step's host
+   wall, device time and launches.
 
 The launch counts are zeroed just before each path (phases 4-5, the
-60-epoch runs of phase 7, phase 9's drain and phase 10's runs) and read just
-after; a kernel of the path with no launch there fails the run.  The second-to-last line is the
+60-epoch runs of phase 7, phase 9's drain, phase 10's runs and phase 11's
+counted prefill) and read just after; a kernel of the path with no launch there fails the run.  The second-to-last line is the
 ``{"kernels": [...]}`` record and the last line ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
@@ -70,6 +88,8 @@ SRC = os.path.join(REPO, "src")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12           # H100 SXM TF32 tensor cores, dense
 SERVE_SLOTS = 65536
 D_OBS, D_Z, WIDTH = 1, 16, 32  # benchmarks/table1_ou.py widths
 RAGGED = 1_000_003
@@ -193,6 +213,30 @@ def _row_inputs(torch, gen, n_state, rows, d, m):
         return ([draw(rows, d) for _ in range(n_state)]
                 + [draw(rows, d, m), draw(rows, m)])
     return make
+
+
+def _timed_row(name, label, timer, kernel, plain, library, symbol, bytes_moved,
+               ops, peak, peak_name, max_abs_err):
+    """Times a kernel (L2 flushed and warm), its twin and the library call;
+    returns the record's numbers."""
+    ms = timer.ms(kernel, symbol)
+    ms_warm = timer.ms(kernel, symbol, flush=False)
+    plain_ms = timer.ms(plain)
+    library_ms = None if library is None else timer.ms(library[1])
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    lib = ("no single PyTorch call" if library is None else
+           f"{library[0]} {library_ms * 1e3:.2f} us")
+    print(f"  {name} {label}, device time: kernel {ms * 1e3:.2f} us with L2 "
+          f"flushed ({ms_warm * 1e3:.2f} us warm), plain twin {plain_ms * 1e3:.2f}"
+          f" us, {lib}; bound {bound_ms * 1e3:.2f} us ({bytes_moved} B at 3.35 "
+          f"TB/s: {bytes_ms * 1e3:.2f} us; {ops:.4g} flop at the {peak_name} "
+          f"rate: {ops_ms * 1e3:.2f} us); {bound_ms / ms:.1%} of the bound",
+          flush=True)
+    return dict(max_abs_err=max_abs_err, ms=ms, ms_warm=ms_warm, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=library_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def kernel_phase(torch, timer):
@@ -331,35 +375,177 @@ def kernel_phase(torch, timer):
         rows = []
         for label, make, bytes_moved, ops in spec["timed"]:
             xs = make(torch.float32)
-            ms = timer.ms(lambda: spec["kernel"](xs), spec["symbol"])
-            ms_warm = timer.ms(lambda: spec["kernel"](xs), spec["symbol"],
-                               flush=False)
-            plain_ms = timer.ms(lambda: spec["plain"](xs))
-            plain_warm = timer.ms(lambda: spec["plain"](xs), flush=False)
-            library_ms = None
-            if spec["library"] is not None:
-                call, fn = spec["library"]
-                library_ms = timer.ms(lambda: fn(xs))
-                print(f"  {name} {label}: the one PyTorch call computing it "
-                      f"({call}) {library_ms * 1e3:.2f} us with L2 flushed",
-                      flush=True)
-            bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-            bound_ops_ms = ops / FP32_FLOPS * 1e3
-            bound_ms = max(bound_bytes_ms, bound_ops_ms)
-            print(f"  {name} float32 {label}, device time: kernel "
-                  f"{ms * 1e3:.2f} us with L2 flushed ({ms_warm * 1e3:.2f} us "
-                  f"warm), plain twin {plain_ms * 1e3:.2f} us "
-                  f"({plain_warm * 1e3:.2f} us warm); bound {bound_ms * 1e3:.2f}"
-                  f" us ({bytes_moved} B at 3.35 TB/s; ops bound "
-                  f"{bound_ops_ms * 1e3:.3f} us); {bound_ms / ms:.0%} of the "
-                  f"bound", flush=True)
-            rows.append(dict(max_abs_err=max(worst.values()), ms=ms,
-                             ms_warm=ms_warm, plain_ms=plain_ms,
-                             bound_ms=bound_ms, library_ms=library_ms,
-                             bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                             else "operations"))
+            library = spec["library"]
+            rows.append(_timed_row(
+                name, f"float32 {label}", timer, lambda: spec["kernel"](xs),
+                lambda: spec["plain"](xs),
+                None if library is None else (library[0], lambda: library[1](xs)),
+                spec["symbol"], bytes_moved, ops, FP32_FLOPS, "float32",
+                max(worst.values())))
             del xs
         stats[name] = rows[0]
+    return stats
+
+
+# Flash-attention shapes (b, hq, hkv, s, d, causal, sm_scale): the
+# reference's kernel tests (tests/test_kernels.py: MQA, GQA group 4,
+# bidirectional, sm_scale 0.5), then zamba2-7b's shared attention at 2048
+# tokens (the timed main-path shape), qwen3-1.7b's GQA and a ragged length.
+FLASH_REF_SHAPES = ((2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, None),
+                    (2, 2, 2, 256, 64, False, None), (1, 4, 4, 384, 32, True, None),
+                    (1, 16, 4, 256, 64, True, None), (1, 2, 2, 128, 64, True, 0.5))
+FLASH_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None), (1, 16, 8, 2048, 128, True, None),
+                   (2, 4, 2, 200, 112, True, None), (2, 4, 2, 200, 112, False, None))
+# SSD shapes (b, l, h, dh, ds, chunk): the reference's tests, then
+# zamba2-7b's layer at 2048 tokens (timed) and mamba2-130m's.
+SSD_REF_SHAPES = ((2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 128),
+                  (2, 64, 4, 8, 16, 64), (1, 512, 1, 32, 64, 64))
+SSD_LM_SHAPES = ((2, 2048, 112, 64, 64, 128), (1, 2048, 24, 64, 128, 128))
+
+
+def _flash_inputs(torch, gen, shape, dtype):
+    b, hq, hkv, s, d, _, _ = shape
+    q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def _ssd_inputs(torch, gen, shape):
+    """The reference's test inputs: x, B, C normal; dt = softplus(normal) *
+    0.1; A = -exp(normal)."""
+    b, l, h, dh, ds, _ = shape
+    draw = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")  # noqa: E731
+    return (draw(b, l, h, dh), torch.nn.functional.softplus(draw(b, l, h)) * 0.1,
+            -torch.exp(draw(h)), draw(b, l, ds), draw(b, l, ds))
+
+
+def lm_kernel_phase(torch, timer):
+    """Phase 3, the LM kernels: flash attention and the SSD scan against
+    their plain twins (at the reference's kernel-vs-oracle tolerances) at
+    the reference's test shapes and the LM path's, timed at the main-path
+    shape; returns their stats."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    # the float32 runs at the 2048-token shapes draw from their own
+    # generator, so every other case keeps its inputs
+    gen_lm32 = torch.Generator(device="cuda").manual_seed(4322)
+    stats, worst = {}, 0.0
+    for shape in FLASH_REF_SHAPES + FLASH_LM_SHAPES:
+        causal, scale = shape[5], shape[6]
+        dtypes = ((torch.float32, torch.bfloat16) if shape in FLASH_REF_SHAPES
+                  or shape[3] == 200 else (torch.bfloat16, torch.float32))
+        for dtype in dtypes:
+            own = dtype == torch.float32 and shape in FLASH_LM_SHAPES[:2]
+            q, k, v = _flash_inputs(torch, gen_lm32 if own else gen, shape, dtype)
+            got = flash_attention(q, k, v, causal=causal, sm_scale=scale)
+            want = attention_ref(q, k, v, causal=causal, sm_scale=scale)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            msg = (f"  flash_attention {str(dtype)[6:]} (b,hq,hkv,s,d)={shape[:5]} "
+                   f"causal={causal} sm_scale={scale}: max_abs_err={err:.3e}")
+            if dtype == torch.float32:  # the reference's kernel-vs-oracle atol
+                ok = err <= 2e-5
+                msg += " (tolerance 2e-5)"
+            else:
+                # both round a float32 result to bfloat16, so they may differ
+                # by one bf16 ulp (<= 2^-7 of the value): held elementwise at
+                # 8e-3 |want| + 1e-3, and at the reference's atol 3e-2
+                ratio = (diff / (8e-3 * want.float().abs() + 1e-3)).max().item()
+                ok = err <= 3e-2 and ratio <= 1.0
+                msg += (f", worst |got-want| / (8e-3 |want| + 1e-3) = {ratio:.3f} "
+                        f"(tolerance 1, and atol 3e-2)")
+            print(msg, flush=True)
+            check(got.dtype == dtype and got.shape == want.shape,
+                  f"flash_attention {shape} {dtype}: output {got.dtype} {tuple(got.shape)}")
+            check(ok, f"flash_attention {shape} {dtype} disagrees with its twin")
+            worst = max(worst, err)
+            del q, k, v, got, want, diff
+    rows = []
+    for shape in FLASH_LM_SHAPES[:2]:
+        b, hq, hkv, s, d, _, _ = shape
+        q, k, v = _flash_inputs(torch, gen, shape, torch.bfloat16)
+        # causal: row t attends to t + 1 keys; QK^T and PV, 2 flops a MAC
+        ops = 4 * b * hq * d * s * (s + 1) / 2
+        rows.append(_timed_row(
+            "flash_attention", f"bf16 (b,hq,hkv,s,d)={shape[:5]}", timer,
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: attention_ref(q, k, v, causal=True),
+            ("scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+            "flash_attention_kernel", 2 * (2 * q.numel() + 2 * k.numel()), ops,
+            BF16_FLOPS, "bf16 tensor-core", worst))
+        del q, k, v
+    stats["flash_attention"] = rows[0]
+
+    worst = 0.0
+    for shape in SSD_REF_SHAPES + SSD_LM_SHAPES + ("extremes",):
+        if shape == "extremes":  # the reference's decay extremes (dt 5, A -8)
+            x, _, _, B, C = _ssd_inputs(torch, gen, (1, 128, 2, 8, 16, 64))
+            xs = (x, torch.full((1, 128, 2), 5.0, device="cuda"),
+                  torch.tensor([-8.0, -0.001], device="cuda"), B, C)
+            chunk, label = 64, "decay extremes (dt=5, A=(-8, -0.001))"
+        else:
+            xs, chunk = _ssd_inputs(torch, gen, shape), shape[5]
+            label = f"(b,l,h,dh,ds,chunk)={shape}"
+        got = ssd_scan(*xs, chunk=chunk)
+        twin = ssd_chunked_ref(*xs, chunk=chunk)[0]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: non-finite y")
+        scale = twin.abs().max().item()
+        rel = (got - twin).abs().max().item() / scale
+        msg = (f"  ssd_scan float32 {label}: vs chunked twin {rel:.3e} of "
+               f"max|y|={scale:.3g} (tolerance 1e-5)")
+        if shape in SSD_LM_SHAPES:
+            check(rel <= 1e-5, f"ssd_scan {label} disagrees with its twin")
+        else:  # the reference's tolerance against the sequential recurrence
+            seq = ssd_ref(*xs)[0]
+            err = (got - seq).abs().max().item()
+            worst = max(worst, err)
+            tol, ok = 5e-4, rel <= 1e-5
+            if shape == "extremes":
+                # 5e-4 is the reference's tolerance for its test arrays,
+                # float64 there (its tests run with x64 on).  Here |y| reaches
+                # hundreds and float32's own two plain forms part by more
+                # than that: the kernel is held to the chunked twin at 5e-4
+                # and to the recurrence at 5e-4 beyond that spread.
+                spread = (twin - seq).abs().max().item()
+                own = (seq.double() - ssd_ref(*(t.double() for t in xs))[0]
+                       ).abs().max().item()
+                near = (got - twin).abs().max().item()
+                msg += (f"; float32 chunked twin vs float32 ssd_ref {spread:.3e} "
+                        f"(must exceed 5e-4), float32 ssd_ref vs float64 ssd_ref "
+                        f"{own:.3e}; kernel vs chunked twin {near:.3e} (tolerance "
+                        f"5e-4)")
+                check(spread > 5e-4, "the float32 twins of the decay extremes "
+                      "agree to the reference's 5e-4: hold the kernel to it")
+                tol = 5e-4 + spread
+                ok = ok and near <= 5e-4
+            msg += (f"; vs sequential ssd_ref max_abs_err={err:.3e} (tolerance "
+                    f"{tol:.2e})")
+            check(err <= tol and ok, f"ssd_scan {label} disagrees with its twins")
+        print(msg, flush=True)
+        del xs, got, twin
+    b, l, h, dh, ds, L = SSD_LM_SHAPES[0]
+    xs = _ssd_inputs(torch, gen, SSD_LM_SHAPES[0])
+    nc, tri = l // L, L * (L + 1) // 2
+    # MACs the chunked form needs: per (b, chunk, head) M@dx on the causal
+    # triangle, C@S_in^T and the state update; C.B^T once per (b, chunk)
+    # (the heads share B and C); 2 flops a MAC.
+    ops = 2 * (b * nc * h * (tri * dh + 2 * L * dh * ds) + b * nc * tri * ds)
+    bytes_moved = 4 * (2 * xs[0].numel() + xs[1].numel() + h + 2 * xs[3].numel())
+    stats["ssd_scan"] = _timed_row(
+        "ssd_scan", f"float32 (b,l,h,dh,ds,chunk)={SSD_LM_SHAPES[0]}", timer,
+        lambda: ssd_scan(*xs, chunk=L), lambda: ssd_chunked_ref(*xs, chunk=L),
+        None, "ssd_scan_kernel", bytes_moved, ops, FP32_FLOPS, "float32 FMA", worst)
+    print(f"  (the same work at the TF32 tensor-core rate, which would change "
+          f"the function: {ops / TF32_FLOPS * 1e6:.2f} us)", flush=True)
     return stats
 
 
@@ -768,6 +954,8 @@ def host_profile(torch, run, wall_ms):
 
 
 NOISE_T1, NOISE_STEPS = 1.0, 64  # the step-kernel benchmark's horizon
+LM_CHECK_LAYERS = 12             # phase 11a: float32 depth (shared block at 0 and 6)
+PREFILL_BATCH, PREFILL_LEN = 2, 2048
 CPU_PATHS = 4096                 # paths of the CPU cross-checks
 
 
@@ -1059,6 +1247,247 @@ def noise_train_phase(torch):
     return launches
 
 
+def _rel_to_max(torch, got, want) -> float:
+    """max |got - want| / max |want| (on the device of ``want``)."""
+    got = got.to(want.device).float()
+    want = want.float()
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def _lm_tokens(torch, cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, s))).to("cuda")
+
+
+def lm_float32_phase(torch):
+    """Phase 11a: zamba2-7b at full width in float32, 12 layers (the shared
+    block at layers 0 and 6): the kernel path against the plain path, the
+    full forward against token-by-token decode, and the card against a CPU
+    run of the plain path on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+    from repro_torch.models import (LMParams, ModelOptions, forward, init_cache,
+                                    init_params, serve_step)
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=LM_CHECK_LAYERS,
+                              dtype="float32")
+    start = time.perf_counter()
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    print(f"  zamba2-7b float32, {cfg.n_layers} layers at full width "
+          f"(d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.ssm_heads} SSM heads, state {cfg.ssm_state}): "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters "
+          f"drawn in {time.perf_counter() - start:.2f} s", flush=True)
+    B, S = 2, 256
+    toks = _lm_tokens(torch, cfg, B, S, seed=11)
+    with torch.no_grad():
+        FLASH_ATTENTION.launches = SSD_SCAN.launches = 0
+        kern, _ = forward(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launched = (FLASH_ATTENTION.launches, SSD_SCAN.launches)
+        plain, _ = forward(cfg, params, {"tokens": toks}, ModelOptions(use_flash="never"))
+        kp = _rel_to_max(torch, kern, plain)
+        check(launched == (2, LM_CHECK_LAYERS), f"the float32 forward launched "
+              f"(flash_attention, ssd_scan) = {launched}, not (2, {LM_CHECK_LAYERS})")
+        check(kern.shape == (B, S, cfg.vocab) and bool(torch.isfinite(kern).all()),
+              "the float32 forward's logits are not finite of shape (B, S, V)")
+        print(f"  B={B} S={S}: kernel path (flash_attention {launched[0]}, ssd_scan "
+              f"{launched[1]} launches) vs plain path: {kp:.3e} of max|logit|="
+              f"{plain.abs().max().item():.4g} (tolerance 1e-4)", flush=True)
+        check(kp <= 1e-4, "the kernel path disagrees with the plain path")
+
+        cache = init_cache(cfg, B, S, device="cuda")
+        start = time.perf_counter()
+        steps = [serve_step(cfg, params, cache, toks[:, i], i)[0] for i in range(S)]
+        torch.cuda.synchronize()
+        dec = _rel_to_max(torch, torch.stack(steps, dim=1), kern)
+        print(f"  token-by-token serve_step ({S} steps, {time.perf_counter() - start:.2f}"
+              f" s) vs the kernel-path forward: {dec:.3e} of max|logit| (tolerance "
+              f"1e-4)", flush=True)
+        check(dec <= 1e-4, "decode disagrees with the forward")
+        del steps, cache, plain
+
+        n_cpu = LM_CHECK_LAYERS // 2
+        cfg_cpu = dataclasses.replace(cfg, n_layers=n_cpu)
+        sub = LMParams(params.embed, list(params.layers[:n_cpu]), params.shared,
+                       params.final_norm, params.lm_head)
+        toks1 = toks[:1, :128]
+        card, _ = forward(cfg_cpu, sub, {"tokens": toks1})
+        start = time.perf_counter()
+        host = copy.deepcopy(sub).to("cpu")
+        ref, _ = forward(cfg_cpu, host, {"tokens": toks1.cpu()},
+                         ModelOptions(use_flash="never"))
+        cpu_rel = _rel_to_max(torch, card.cpu(), ref)
+        print(f"  {n_cpu} layers, B=1 S=128: the card (kernel path) vs the plain path "
+              f"on the CPU ({time.perf_counter() - start:.2f} s): {cpu_rel:.3e} of "
+              f"max|logit| (tolerance 1e-4)", flush=True)
+        check(cpu_rel <= 1e-4, "the card disagrees with the CPU")
+    del params, sub, host, kern, card
+    torch.cuda.empty_cache()
+
+
+def lm_prefill_phase(torch, timer):
+    """Phase 11b: zamba2-7b in bf16 at full width and depth: prefill of
+    B=2 x 2048 tokens through the kernels; returns (params, launches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+    from repro_torch.models import forward, init_params
+
+    cfg = get_arch("zamba2-7b")
+    start = time.perf_counter()
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"  zamba2-7b bf16, all {cfg.n_layers} layers: {n_par / 1e9:.3f} B "
+          f"parameters ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) "
+          f"drawn with init_params(PRNGKey(0)) in {time.perf_counter() - start:.2f} s",
+          flush=True)
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    toks = _lm_tokens(torch, cfg, B, S, seed=12)
+
+    def prefill():
+        return forward(cfg, params, {"tokens": toks}, head_positions="last")[0]
+
+    with torch.no_grad():
+        prefill()  # warm-up: first launches, cuBLAS handles, the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        FLASH_ATTENTION.launches = SSD_SCAN.launches = 0
+        logits = prefill()
+        torch.cuda.synchronize()
+        launches = {"flash_attention": FLASH_ATTENTION.launches,
+                    "ssd_scan": SSD_SCAN.launches}
+        peak = torch.cuda.max_memory_allocated()
+        check(logits.shape == (B, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              "the bf16 prefill's logits are not finite of shape (B, 1, V)")
+        n_inv = -(-cfg.n_layers // cfg.shared_attn_every)
+        print(f"  one prefill (B={B}, S={S}, head_positions='last'): launches "
+              f"{launches} (expected {n_inv} and {cfg.n_layers}); peak device memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+              f"weights and inputs)", flush=True)
+        check(launches == {"flash_attention": n_inv, "ssd_scan": cfg.n_layers},
+              f"the prefill's kernel launches are {launches}")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[1]
+        print(f"  prefill wall (host clock, synchronized): "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; median "
+              f"{wall * 1e3:.1f} ms = {B * S / wall:.0f} tokens/s", flush=True)
+        totals = timer.kernels_us(prefill, reps=1, flush=False)
+        dev_ms = sum(t for t, _ in totals.values()) / 1e3
+        groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "GEMM": 0.0, "other": 0.0}
+        for name, (us, _) in totals.items():
+            low = name.lower()
+            key = ("flash_attention" if "flash_attention_kernel" in name else
+                   "ssd_scan" if "ssd_scan_kernel" in name else
+                   "GEMM" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass"))
+                   else "other")
+            groups[key] += us / 1e3
+        print(f"  one profiled prefill: {dev_ms:.2f} ms of device time over "
+              f"{sum(n for _, n in totals.values())} launches (device busy "
+              f"{dev_ms / (wall * 1e3):.0%} of the median wall); by kind: "
+              + ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.0%})" for k, v in groups.items()),
+              flush=True)
+        rows = sorted(((t, n, name) for name, (t, n) in totals.items()), reverse=True)
+        for us, n, name in rows[:10]:
+            print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prefill()
+        except RuntimeError as exc:
+            fail(f"the prefill synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("  a prefill ran with torch.cuda.set_sync_debug_mode('error'): no "
+              "host sync", flush=True)
+    return cfg, params, launches
+
+
+def lm_serve_phase(torch, timer, cfg, params):
+    """Phase 12: zamba2-7b (bf16, full width and depth) served by the decode
+    Engine: 8 requests of 8-token prompts, greedy, twice."""
+    from repro_torch.serving import Engine, ServeConfig
+
+    prompts = np.random.default_rng(13).integers(2, cfg.vocab, size=(8, 8)).tolist()
+
+    def drain():
+        eng = Engine(cfg, params, ServeConfig(slots=8, max_len=64))
+        step, finite, ticks = eng._step, [], [0]
+
+        def counted(*args):
+            logits, cache = step(*args)
+            finite.append(torch.isfinite(logits).all())
+            ticks[0] += 1
+            return logits, cache
+
+        eng._step = counted
+        for p in prompts:
+            eng.submit(p)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - start, ticks[0], bool(torch.stack(finite).all())
+
+    first, wall, ticks, finite = drain()
+    new = sum(len(t) - len(p) for t, p in zip(first.values(), prompts))
+    print(f"  Engine(slots=8, max_len=64), 8 requests x 8-token prompts, greedy: "
+          f"{new} new tokens in {ticks} ticks, {wall:.3f} s = {new / wall:.1f} "
+          f"tokens/s ({wall / ticks * 1e3:.1f} ms a tick, host wall clock incl. "
+          f"the token-by-token prefill); logits finite: {finite}", flush=True)
+    check(finite, "the served logits are not finite")
+    check(len(first) == 8 and all(t[:8] == p for t, p in
+                                  zip((first[i] for i in range(8)), prompts)),
+          "the engine did not finish the 8 requests")
+    second, wall2, _, _ = drain()
+    same = second == first
+    print(f"  a second drain of the same requests on a new engine ({wall2:.3f} s, "
+          f"{new / wall2:.1f} tokens/s): the same tokens: {same}", flush=True)
+    check(same, "a second drain returned other tokens")
+    print(f"  request 0: prompt {prompts[0]} -> {first[0][8:16]} ...", flush=True)
+    tick_profile(torch, timer, cfg, params)
+
+
+def tick_profile(torch, timer, cfg, params):
+    """One decode step of 8 slots: host wall, device time, launches."""
+    from repro_torch.models import init_cache, serve_step
+
+    cache = init_cache(cfg, 8, 64, device="cuda")
+    toks = torch.full((8,), 7, dtype=torch.int64, device="cuda")
+
+    def step():
+        return serve_step(cfg, params, cache, toks, 9)
+
+    with torch.no_grad():
+        totals = timer.kernels_us(step, reps=3, flush=False)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+    dev_ms = sum(t for t, _ in totals.values()) / 3 / 1e3
+    launches = sum(n for _, n in totals.values()) // 3
+    wall_ms = min(walls) * 1e3
+    print(f"  one serve_step (8 slots, {cfg.n_layers} layers): host wall {wall_ms:.3f} "
+          f"ms, device kernel time {dev_ms:.3f} ms over {launches} launches "
+          f"(device busy {dev_ms / wall_ms:.0%}; {wall_ms / launches * 1e3:.1f} us of "
+          f"host per launch)", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1081,10 +1510,14 @@ def main() -> int:
     print(f"  card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"  torch {torch.__version__} (CUDA {torch.version.cuda}) on "
           f"{torch.cuda.get_device_name(0)}; TF32 off: "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; bf16 GEMMs reduce "
+          f"in float32: allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
 
     print("phase 2: build", flush=True)
     from repro_torch.kernels import KERNELS, WILLIAMSON2N, WS_STAGE_DIAG, build_kernels
@@ -1098,6 +1531,7 @@ def main() -> int:
     print("phase 3: kernels against their plain twins", flush=True)
     timer = Timer(torch)
     stats = kernel_phase(torch, timer)
+    stats.update(lm_kernel_phase(torch, timer))
 
     print("phase 4: serve requests A-D", flush=True)
     params, _ = serve_phase(torch, timer)
@@ -1143,6 +1577,14 @@ def main() -> int:
           f"serving {serve_launches}, training {noise_train_launches}",
           flush=True)
 
+    print("phase 11: LM prefill, zamba2-7b at full width", flush=True)
+    lm_float32_phase(torch)
+    cfg, lm_params, prefill_launches = lm_prefill_phase(torch, timer)
+    launches.update(prefill_launches)
+
+    print("phase 12: LM serving, zamba2-7b at full width (bf16)", flush=True)
+    lm_serve_phase(torch, timer, cfg, lm_params)
+
     tpu = "src/repro/kernels/sde_step/sde_step.py"
     sources = {"ws_stage_diag": ("ws_stage_diag.cu", f"{tpu}:144"),
                "williamson2n": ("williamson2n.cu",
@@ -1153,7 +1595,10 @@ def main() -> int:
                "increment_pre": ("increment_pre.cu", f"{tpu}:85"),
                "ws_stage_pre": ("ws_stage_pre.cu", f"{tpu}:212"),
                "increment_general": ("increment_general.cu", f"{tpu}:112"),
-               "ws_stage_general": ("ws_stage_general.cu", f"{tpu}:247")}
+               "ws_stage_general": ("ws_stage_general.cu", f"{tpu}:247"),
+               "flash_attention": ("flash_attention.cu", "src/repro/kernels/"
+                                   "flash_attention/flash_attention.py:119"),
+               "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan/ssd_scan.py:84")}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{sources[name][0]}",

@@ -4,18 +4,21 @@
 source, on first use); :func:`build_kernels` builds them all in parallel.
 """
 from ._build import build_all
+from .flash_attention.flash_attention import KERNEL as FLASH_ATTENTION
 from .sde_step.sde_step import (AXPY_CHAIN, INCREMENT_DIAG, INCREMENT_GENERAL, INCREMENT_PRE,
                                 WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL,
                                 WS_STAGE_PRE)
+from .ssd_scan.ssd_scan import KERNEL as SSD_SCAN
 from .williamson2n.williamson2n import KERNEL as WILLIAMSON2N
 
 KERNELS = (WS_STAGE_DIAG, WILLIAMSON2N, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
            AXPY_CHAIN, INCREMENT_PRE, WS_STAGE_PRE, INCREMENT_GENERAL,
-           WS_STAGE_GENERAL)
+           WS_STAGE_GENERAL, FLASH_ATTENTION, SSD_SCAN)
 
 __all__ = ["KERNELS", "WS_STAGE_DIAG", "WILLIAMSON2N", "WS_STAGE_DIAG_BWD",
            "INCREMENT_DIAG", "AXPY_CHAIN", "INCREMENT_PRE", "WS_STAGE_PRE",
-           "INCREMENT_GENERAL", "WS_STAGE_GENERAL", "build_kernels"]
+           "INCREMENT_GENERAL", "WS_STAGE_GENERAL", "FLASH_ATTENTION",
+           "SSD_SCAN", "build_kernels"]
 
 
 def build_kernels() -> float:

@@ -1,0 +1,312 @@
+"""Config-driven model assembly: init, forward, serve steps (port of
+``repro.models.transformer``, inference path).
+
+One code path serves the ``dense``, ``ssm`` and ``hybrid`` families:
+
+* dense — (attention + MLP) blocks, one per layer;
+* ssm — Mamba2 (SSD) blocks;
+* hybrid (zamba2) — a Mamba2 stack with one *shared* attention+MLP block
+  applied before every layer ``idx % shared_attn_every == 0`` (the shared
+  parameters exist once, as in the reference).
+
+Parameters live in :class:`LMParams`, an ``nn.Module`` whose leaves are
+``nn.Parameter``s under the reference's key names; the reference's stacked
+per-layer leaves are an ``nn.ModuleList`` (layer ``i`` is the reference's
+index ``i`` of the leading axis).  Decode carries KV caches (attention) and
+conv/SSD states (mamba) in the reference's stacked layout and updates them
+in place.  The ``moe`` family, the ``patch``/``frames`` frontends,
+``loss_fn`` and ``make_train_step`` raise
+:class:`~repro_torch.device.NotYetPorted`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core import prng
+from ..device import not_yet_ported, resolve_device
+from .common import ModelOptions, dtype_of
+from .layers import (
+    apply_norm,
+    attn_block,
+    attn_block_decode,
+    init_attn_block,
+    init_mlp,
+    mlp_block,
+    param_dict,
+)
+from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_block_decode
+
+__all__ = [
+    "LMParams",
+    "init_params",
+    "forward",
+    "loss_fn",
+    "init_cache",
+    "serve_step",
+    "make_train_step",
+    "make_serve_step",
+    "lm_params_from_jax",
+]
+
+
+class LMParams(nn.Module):
+    """The reference's parameter pytree as a module: ``embed``, ``layers``
+    (one ``nn.ModuleDict`` of ``nn.ParameterDict``s per layer), and the
+    optional ``shared``, ``final_norm`` and ``lm_head``.  ``params[name]``
+    and ``params.get(name)`` read it as the reference reads its dict."""
+
+    def __init__(self, embed: torch.Tensor, layers: List[nn.ModuleDict],
+                 shared: Optional[nn.ModuleDict] = None,
+                 final_norm: Optional[torch.Tensor] = None,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = nn.Parameter(embed)
+        self.layers = nn.ModuleList(layers)
+        if shared is not None:
+            self.shared = shared
+        if final_norm is not None:
+            self.final_norm = nn.Parameter(final_norm)
+        if lm_head is not None:
+            self.lm_head = nn.Parameter(lm_head)
+
+    def get(self, name: str, default=None):
+        return getattr(self, name, default)
+
+    def __getitem__(self, name: str):
+        value = self.get(name)
+        if value is None:
+            raise KeyError(name)
+        return value
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.family == "moe":
+        raise not_yet_ported(f"the moe family ({cfg.name}; models/moe.py)")
+    if cfg.frontend != "none":
+        raise not_yet_ported(f"the {cfg.frontend!r} frontend ({cfg.name})")
+
+
+# ---------------------------------------------------------------------------
+# Parameter init.
+# ---------------------------------------------------------------------------
+
+def _init_layer(cfg: ArchConfig, key, dtype) -> nn.ModuleDict:
+    if cfg.family in ("ssm", "hybrid"):
+        return nn.ModuleDict({"mamba": init_mamba_block(cfg, key, dtype)})
+    k1, k2 = prng.split(key)
+    return nn.ModuleDict({"attn": init_attn_block(cfg, k1, dtype),
+                          "mlp": init_mlp(cfg, k2, dtype)})
+
+
+def init_params(cfg: ArchConfig, key, device=None) -> LMParams:
+    """The reference's ``init_params`` on the port's threefry keys: ``key``
+    is a ``(2,)`` key or an int seed (``PRNGKey(seed)``).  Layer ``i`` draws
+    from ``split(keys[1], n_layers)[i]``, as the reference's ``vmap`` does,
+    so a key names the reference's weights (normals to ``erfinv``'s
+    rounding).  Tensors are drawn one at a time on ``device``."""
+    _check_supported(cfg)
+    if not isinstance(key, torch.Tensor):
+        key = prng.PRNGKey(key, device=device)
+    else:
+        key = key.to(resolve_device(device))
+    dtype = dtype_of(cfg.dtype)
+    keys = prng.split(key, 8)
+
+    def normal(k, shape):
+        return (prng.normal(k, shape, torch.float32) * 0.02).to(dtype)
+
+    embed = normal(keys[0], (cfg.padded_vocab, cfg.d_model))
+    layer_keys = prng.split(keys[1], cfg.n_layers)
+    layers = [_init_layer(cfg, layer_keys[i], dtype) for i in range(cfg.n_layers)]
+    shared = None
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        shared = nn.ModuleDict({"attn": init_attn_block(cfg, keys[2], dtype),
+                                "mlp": init_mlp(cfg, keys[3], dtype)})
+    final_norm = (torch.ones(cfg.d_model, dtype=dtype, device=key.device)
+                  if cfg.norm == "rmsnorm" else None)
+    lm_head = (None if cfg.tie_embeddings
+               else normal(keys[4], (cfg.d_model, cfg.padded_vocab)))
+    return LMParams(embed, layers, shared, final_norm, lm_head)
+
+
+def _to_tensor(x, dtype, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact via float32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_jax(params: Mapping[str, Any], *, dtype=None,
+                       device=None) -> LMParams:
+    """The reference's parameter pytree (a dict of numpy or jax arrays, with
+    stacked per-layer leaves) as an :class:`LMParams` on ``device``;
+    ``dtype`` (default: the arrays') converts."""
+    device = resolve_device(device)
+    unknown = set(params) - {"embed", "layers", "shared", "final_norm", "lm_head"}
+    if unknown:
+        raise not_yet_ported(f"reference parameters {sorted(unknown)} (a frontend)")
+    if "moe" in params["layers"]:
+        raise not_yet_ported("the moe family (models/moe.py)")
+
+    def tensors(tree):
+        return {k: _to_tensor(v, dtype, device) for k, v in tree.items()}
+
+    stacked = {name: tensors(sub) for name, sub in params["layers"].items()}
+    n_layers = next(iter(next(iter(stacked.values())).values())).shape[0]
+    layers = [nn.ModuleDict({name: param_dict({k: v[i].clone() for k, v in sub.items()})
+                             for name, sub in stacked.items()})
+              for i in range(n_layers)]
+    shared = None
+    if "shared" in params:
+        shared = nn.ModuleDict({name: param_dict(tensors(sub))
+                                for name, sub in params["shared"].items()})
+    opt = {k: _to_tensor(params[k], dtype, device) if k in params else None
+           for k in ("final_norm", "lm_head")}
+    return LMParams(_to_tensor(params["embed"], dtype, device), layers, shared,
+                    opt["final_norm"], opt["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence: prefill).
+# ---------------------------------------------------------------------------
+
+def _mask_pad_vocab(cfg, logits):
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < cfg.vocab, logits, -1e9)
+
+
+def _layer_apply(cfg, opts, shared, h, layer_params, idx):
+    """One layer (the reference's scanned body, MoE aux omitted)."""
+    if cfg.family in ("ssm", "hybrid"):
+        if (cfg.family == "hybrid" and cfg.shared_attn_every and shared is not None
+                and idx % cfg.shared_attn_every == 0):
+            h = h + attn_block(cfg, shared["attn"], h, opts)
+            h = h + mlp_block(cfg, shared["mlp"], h, opts)
+        return h + mamba_block(cfg, layer_params["mamba"], h, opts)
+    h = h + attn_block(cfg, layer_params["attn"], h, opts)
+    return h + mlp_block(cfg, layer_params["mlp"], h, opts)
+
+
+def _head(cfg, params, h):
+    h = apply_norm(cfg.norm, params.get("final_norm"), h)
+    return h, (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+
+
+def forward(
+    cfg: ArchConfig,
+    params: LMParams,
+    batch: Mapping[str, torch.Tensor],
+    opts: ModelOptions = ModelOptions(),
+    head_positions: str = "all",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) — or (B, 1, V) for head_positions='last',
+    the prefill case — and the MoE aux-loss scalar, 0 for these families)."""
+    _check_supported(cfg)
+    h = params["embed"][batch["tokens"]]
+    shared = params.get("shared")
+    for idx, layer in enumerate(params.layers):
+        h = _layer_apply(cfg, opts, shared, h, layer, idx)
+    h, head = _head(cfg, params, h)
+    if head_positions == "last":
+        h = h[:, -1:, :]
+    logits = _mask_pad_vocab(cfg, h @ head)
+    if opts.logits_f32:
+        logits = logits.float()
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, opts: ModelOptions = ModelOptions()):
+    raise not_yet_ported("loss_fn (training through the LM substrate)")
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step): one new token against a cache of length max_seq.
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+    """Zero caches in the reference's stacked layout (leading layer axis)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    hd = cfg.resolved_head_dim
+    cache: Dict[str, Any] = {}
+    if cfg.family in ("ssm", "hybrid"):
+        one = init_mamba_cache(cfg, batch, dtype, device)
+        cache["mamba"] = {k: v.new_zeros((cfg.n_layers,) + tuple(v.shape))
+                          for k, v in one.items()}
+        if cfg.family == "hybrid" and cfg.shared_attn_every:
+            n_inv = (cfg.n_layers + cfg.shared_attn_every - 1) // cfg.shared_attn_every
+            cache["shared_k"] = torch.zeros(n_inv, batch, cfg.n_kv_heads, max_seq, hd,
+                                            dtype=dtype, device=device)
+            cache["shared_v"] = torch.zeros_like(cache["shared_k"])
+    else:
+        cache["k"] = torch.zeros(cfg.n_layers, batch, cfg.n_kv_heads, max_seq, hd,
+                                 dtype=dtype, device=device)
+        cache["v"] = torch.zeros_like(cache["k"])
+    return cache
+
+
+def serve_step(
+    cfg: ArchConfig,
+    params: LMParams,
+    cache: Dict[str, Any],
+    tokens: torch.Tensor,  # (B,) current token ids
+    pos,  # int or 0-d integer tensor: index where this token sits
+    opts: ModelOptions = ModelOptions(),
+):
+    """Decode one token; returns (logits (B, V) float32, cache).
+
+    The caches are updated in place and the same dict is returned (the
+    reference returns new arrays)."""
+    _check_supported(cfg)
+    h = params["embed"][tokens[:, None]]  # (B, 1, D)
+    shared = params.get("shared")
+    if cfg.family in ("ssm", "hybrid"):
+        mc = cache["mamba"]
+        for idx, layer in enumerate(params.layers):
+            if (cfg.family == "hybrid" and cfg.shared_attn_every
+                    and idx % cfg.shared_attn_every == 0):
+                inv = idx // cfg.shared_attn_every
+                o, _, _ = attn_block_decode(cfg, shared["attn"], h,
+                                            cache["shared_k"][inv],
+                                            cache["shared_v"][inv], pos)
+                h = h + o
+                h = h + mlp_block(cfg, shared["mlp"], h, ModelOptions())
+            out, new = mamba_block_decode(cfg, layer["mamba"], h,
+                                          {k: v[idx] for k, v in mc.items()})
+            for k, v in new.items():
+                mc[k][idx].copy_(v)
+            h = h + out
+    else:
+        for idx, layer in enumerate(params.layers):
+            o, _, _ = attn_block_decode(cfg, layer["attn"], h, cache["k"][idx],
+                                        cache["v"][idx], pos)
+            h = h + o
+            h = h + mlp_block(cfg, layer["mlp"], h, opts)
+    h, head = _head(cfg, params, h)
+    logits = _mask_pad_vocab(cfg, h @ head)[:, 0].float()
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Step builders.
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOptions()):
+    raise not_yet_ported("make_train_step (training through the LM substrate)")
+
+
+def make_serve_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions()):
+    def step(params, cache, tokens, pos):
+        return serve_step(cfg, params, cache, tokens, pos, opts)
+
+    return step

@@ -7,9 +7,11 @@ conftest::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernels use explicitly rounded multiplies and adds, so they equal their
-twins bitwise (tolerance 0), in float32 and float64, on aligned, ragged and
-unaligned (offset view) inputs.
+The SDE-step kernels use explicitly rounded multiplies and adds, so they
+equal their twins bitwise (tolerance 0), in float32 and float64, on aligned,
+ragged and unaligned (offset view) inputs.  The LM kernels (flash attention,
+the SSD scan) sum in another order than their twins and are held at the
+reference's kernel-vs-oracle tolerances.
 """
 import copy
 
@@ -17,18 +19,24 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import PRNGKey, path_keys, prng, sdeint
 from repro_torch.core.williamson import EES25_2N, EES27_2N
-from repro_torch.kernels import (AXPY_CHAIN, INCREMENT_DIAG, INCREMENT_GENERAL, INCREMENT_PRE,
-                                 WILLIAMSON2N, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL,
-                                 WS_STAGE_PRE, build_kernels)
+from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, INCREMENT_DIAG, INCREMENT_GENERAL,
+                                 INCREMENT_PRE, SSD_SCAN, WILLIAMSON2N, WS_STAGE_DIAG,
+                                 WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL, WS_STAGE_PRE, build_kernels)
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.sde_step import ref as sref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
 from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, increment_general,
                                                    increment_pre, ws_stage_diag, ws_stage_diag_bwd,
                                                    ws_stage_general, ws_stage_pre)
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 from repro_torch.kernels.williamson2n.ref import williamson2n_ref
 from repro_torch.kernels.williamson2n.williamson2n import williamson2n
+from repro_torch.models import ModelOptions, forward, init_cache, init_params, serve_step
 from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
 from repro_torch.optim import adamw
 from repro_torch.serving import BucketKey, SDESampleConfig, SDESampleEngine
@@ -304,3 +312,119 @@ def test_dispatch_does_not_sync_with_the_host(cuda):
             path_keys(PRNGKey(11, device=cuda), 256)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# -- the LM kernels ---------------------------------------------------------------
+
+# (b, hq, hkv, s, d, causal, sm_scale): the reference's test shapes
+# (tests/test_kernels.py: MQA, GQA group 4, bidirectional, sm_scale 0.5),
+# zamba2-7b's shared attention, qwen3-1.7b's GQA and a ragged length.
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, None),
+    (2, 2, 2, 256, 64, False, None), (1, 4, 4, 384, 32, True, None),
+    (1, 16, 4, 256, 64, True, None), (1, 2, 2, 128, 64, True, 0.5),
+    (2, 32, 32, 2048, 112, True, None), (1, 16, 8, 2048, 128, True, None),
+    (2, 4, 2, 200, 112, True, None), (2, 4, 2, 200, 16, False, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,sm_scale", FLASH_CASES)
+def test_flash_attention_matches_twin(cuda, dtype, b, hq, hkv, s, d, causal, sm_scale):
+    gen = torch.Generator(device=cuda).manual_seed(s + hq + d)
+    q = torch.randn(b, hq, s, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    before = FLASH_ATTENTION.launches
+    got = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    assert FLASH_ATTENTION.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        # both round a float32 result to bfloat16: one bf16 ulp (<= 2^-7 of
+        # the value) apart at most, so held elementwise at 8e-3 |want| + 1e-3
+        # as well as at the reference's atol 3e-2
+        diff = (got.float() - want.float()).abs()
+        assert diff.max().item() <= 3e-2
+        assert (diff <= 8e-3 * want.float().abs() + 1e-3).all()
+
+
+def _ssd_inputs(b, l, h, dh, ds, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    x = draw(b, l, h, dh)
+    dt = torch.nn.functional.softplus(draw(b, l, h)) * 0.1
+    A = -torch.exp(draw(h))
+    return x, dt, A, draw(b, l, ds), draw(b, l, ds)
+
+
+# (b, l, h, dh, ds, chunk): the reference's test shapes, zamba2-7b's and
+# mamba2-130m's layers at 2048 tokens.
+SSD_CASES = [(2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 128), (2, 64, 4, 8, 16, 64),
+             (1, 512, 1, 32, 64, 64), (2, 2048, 112, 64, 64, 128),
+             (1, 2048, 24, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("b,l,h,dh,ds,chunk", SSD_CASES)
+def test_ssd_scan_matches_twin(cuda, b, l, h, dh, ds, chunk):
+    xs = _ssd_inputs(b, l, h, dh, ds, cuda, seed=l + h)
+    before = SSD_SCAN.launches
+    got = ssd_scan(*xs, chunk=chunk)
+    assert SSD_SCAN.launches == before + 1
+    want = ssd_chunked_ref(*xs, chunk=chunk)[0]
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+    if l <= 512:  # the sequential recurrence, at the reference's tolerance
+        torch.testing.assert_close(got, ssd_ref(*xs)[0], rtol=0, atol=5e-4)
+
+
+def test_ssd_scan_decay_extremes(cuda):
+    x, _, _, B, C = _ssd_inputs(1, 128, 2, 8, 16, cuda, seed=0)
+    dt = torch.full((1, 128, 2), 5.0, device=cuda)
+    A = torch.tensor([-8.0, -0.001], device=cuda)
+    y = ssd_scan(x, dt, A, B, C, chunk=64)
+    assert torch.isfinite(y).all()
+    twin = ssd_chunked_ref(x, dt, A, B, C, chunk=64)[0]
+    seq = ssd_ref(x, dt, A, B, C)[0]
+    scale = twin.abs().max().item()  # hundreds: float32 rounds at ~1e-6 of it
+    assert (y - twin).abs().max().item() <= 1e-5 * scale
+    # The reference's 5e-4 holds its float64 test arrays.  In float32 at
+    # |y| ~ 600 the two plain forms themselves part by more than that, so the
+    # kernel is held to the chunked twin at 5e-4 and to the recurrence at 5e-4
+    # beyond the twins' own spread.
+    spread = (twin - seq).abs().max().item()
+    assert spread > 5e-4
+    torch.testing.assert_close(y, twin, rtol=0, atol=5e-4)
+    torch.testing.assert_close(y, seq, rtol=0, atol=5e-4 + spread)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b"])
+def test_lm_forward_kernels_equal_plain(cuda, arch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke()
+    params = init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    with torch.no_grad():
+        before = (FLASH_ATTENTION.launches, SSD_SCAN.launches)
+        got, _ = forward(cfg, params, {"tokens": toks})
+        launched = (FLASH_ATTENTION.launches - before[0], SSD_SCAN.launches - before[1])
+        want, _ = forward(cfg, params, {"tokens": toks}, ModelOptions(use_flash="never"))
+    n_attn = {"hybrid": (cfg.n_layers + cfg.shared_attn_every - 1) // max(1, cfg.shared_attn_every),
+              "ssm": 0, "dense": cfg.n_layers}[cfg.family]
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    assert launched == (n_attn, n_ssd)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_lm_decode_matches_forward_on_the_card(cuda):
+    cfg = get_arch("zamba2-7b").smoke()
+    params = init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    with torch.no_grad():
+        full, _ = forward(cfg, params, {"tokens": toks})
+        cache = init_cache(cfg, 2, 32, device=cuda)
+        steps = [serve_step(cfg, params, cache, toks[:, i], i)[0] for i in range(32)]
+    torch.testing.assert_close(torch.stack(steps, dim=1), full, rtol=0, atol=2e-5)

@@ -1,0 +1,328 @@
+"""The port's LM substrate (inference path) against the JAX reference.
+
+Configs and their registry must equal the reference's field by field.  On
+the four smoke configs whose families the port has (``zamba2-7b`` hybrid,
+``mamba2-130m`` ssm, ``qwen3-1.7b`` and ``olmo-1b`` dense), the reference's
+weights are carried across with ``lm_params_from_jax`` and ``forward``,
+``serve_step`` and the decode ``Engine`` are held to the reference in
+float32 at the reference's decode-vs-forward tolerance (atol 2e-5).  The
+port's ``init_params`` is held to the reference's draws in a float32
+subprocess (x64 off, the reference's default).  What is not ported raises
+``NotYetPorted``.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import ModelOptions as JModelOptions
+from repro.models import forward as jforward
+from repro.models import init_cache as jinit_cache
+from repro.models import init_params as jinit_params
+from repro.models import make_serve_step as jmake_serve_step
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import ServeConfig as JServeConfig
+from repro_torch import configs
+from repro_torch.device import NotYetPorted
+from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import (LMParams, ModelOptions, ShardingPolicy, forward, init_cache,
+                                init_params, lm_params_from_jax, loss_fn, make_serve_step,
+                                make_train_step, serve_step)
+from repro_torch.serving import Engine, ServeConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b"]
+DERIVED = ["resolved_head_dim", "padded_vocab", "d_inner", "ssm_heads", "block_kind",
+           "supports_decode", "subquadratic"]
+
+
+# -- configs --------------------------------------------------------------------
+
+def test_registry_lists_the_reference_archs():
+    assert configs.list_archs() == jconfigs.list_archs()
+    assert [dataclasses.astuple(s) for s in configs.ALL_SHAPES] == \
+        [dataclasses.astuple(s) for s in jconfigs.ALL_SHAPES]
+
+
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_config_fields_and_derived_properties(arch):
+    for got, want in ((configs.get_arch(arch), jconfigs.get_arch(arch)),
+                      (configs.get_arch(arch).smoke(), jconfigs.get_arch(arch).smoke())):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        for name in DERIVED:
+            assert getattr(got, name) == getattr(want, name), name
+        assert got.param_count() == want.param_count()
+        assert got.active_param_count() == want.active_param_count()
+        for shape in jconfigs.ALL_SHAPES:
+            assert configs.cell_applicable(got, configs.get_shape(shape.name)) == \
+                jconfigs.cell_applicable(want, shape)
+    with pytest.raises(KeyError):
+        configs.get_arch("no-such-arch")
+
+
+# -- weights --------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def models():
+    """(cfg, reference params, port params) per smoke arch, from the
+    reference's ``init_params(PRNGKey(0))``."""
+    out = {}
+    for arch in ARCHS:
+        cfg = configs.get_arch(arch).smoke()
+        jparams = jax.jit(jinit_params, static_argnums=0)(jconfigs.get_arch(arch).smoke(),
+                                                          jax.random.PRNGKey(0))
+        out[arch] = (cfg, jparams, lm_params_from_jax(jparams, device="cpu"))
+    return out
+
+
+def _leaves(jparams):
+    """(port parameter name, numpy array) for every reference leaf, the
+    stacked layer leaves split per layer."""
+    out = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
+        keys = [p.key for p in path]
+        arr = np.asarray(leaf)
+        if keys[0] == "layers":
+            out += [(".".join(["layers", str(i)] + keys[1:]), arr[i]) for i in range(arr.shape[0])]
+        else:
+            out.append((".".join(keys), arr))
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_params_from_jax_round_trip(models, arch):
+    cfg, jparams, tparams = models[arch]
+    assert isinstance(tparams, LMParams)
+    named = dict(tparams.named_parameters())
+    leaves = _leaves(jparams)
+    assert sorted(named) == sorted(name for name, _ in leaves)
+    for name, arr in leaves:
+        assert named[name].dtype == torch.float32
+        np.testing.assert_array_equal(named[name].detach().numpy(), arr)
+    assert sum(p.numel() for p in named.values()) == sum(a.size for _, a in leaves)
+    bf16 = lm_params_from_jax(jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jparams),
+                              device="cpu")
+    assert bf16.embed.dtype == torch.bfloat16
+    torch.testing.assert_close(bf16.embed, tparams.embed.to(torch.bfloat16), rtol=0, atol=0)
+
+
+_F32_INIT = r"""
+import json
+import jax, numpy as np, torch
+from repro.configs import get_arch as jget_arch
+from repro.models import init_params as jinit_params
+from repro_torch.configs import get_arch
+from repro_torch.models import init_params
+assert not jax.config.jax_enable_x64
+out = {}
+for arch in %r:
+    jp = jax.jit(jinit_params, static_argnums=0)(jget_arch(arch).smoke(), jax.random.PRNGKey(0))
+    tp = dict(init_params(get_arch(arch).smoke(), 0, device="cpu").named_parameters())
+    worst, names = 0.0, []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        keys = [p.key for p in path]
+        arr = np.asarray(leaf)
+        pairs = ([(".".join(["layers", str(i)] + keys[1:]), arr[i]) for i in range(arr.shape[0])]
+                 if keys[0] == "layers" else [(".".join(keys), arr)])
+        for name, a in pairs:
+            t = tp[name].detach().numpy()
+            assert t.dtype == a.dtype and t.shape == a.shape, name
+            worst = max(worst, float(np.abs(t - a).max() / max(1e-30, np.abs(a).max())))
+            names.append(name)
+    out[arch] = dict(worst=worst, names=sorted(names), port=sorted(tp))
+print(json.dumps(out))
+""" % (ARCHS,)
+
+
+@pytest.fixture(scope="module")
+def float32_init():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    env.pop("JAX_ENABLE_X64", None)
+    proc = subprocess.run([sys.executable, "-c", _F32_INIT], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_draws_the_reference_weights(float32_init, arch):
+    r = float32_init[arch]
+    assert r["names"] == r["port"]
+    # threefry bits are exact; torch's and XLA's erfinv differ by a few ulp
+    # (~1e-5 relative in the far tails, tests/test_torch_prng.py), and
+    # linspace in A_log by an ulp
+    assert r["worst"] < 1e-5
+
+
+# -- forward and decode against the reference -----------------------------------
+
+def _tokens(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, size=(B, S))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("head_positions", ["all", "last"])
+def test_forward_matches_reference(models, arch, head_positions):
+    cfg, jparams, tparams = models[arch]
+    toks = _tokens(cfg, 2, 32, seed=1)
+    jopts = JModelOptions(attn_chunk=8, ssd_chunk=16)  # several q and SSD chunks
+    want, _ = jforward(jconfigs.get_arch(arch).smoke(), jparams, {"tokens": jnp.asarray(toks)},
+                       jopts, head_positions=head_positions)
+    with torch.no_grad():
+        got, aux = forward(cfg, tparams, {"tokens": torch.from_numpy(toks)},
+                           ModelOptions(attn_chunk=8, ssd_chunk=16),
+                           head_positions=head_positions)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "qwen3-1.7b"])
+@pytest.mark.parametrize("opt", ["interpret", "never"])
+def test_forward_options_match_reference(models, arch, opt):
+    cfg, jparams, tparams = models[arch]
+    toks = _tokens(cfg, 2, 16, seed=2)
+    kw = {"use_flash": opt}
+    want, _ = jforward(jconfigs.get_arch(arch).smoke(), jparams, {"tokens": jnp.asarray(toks)},
+                       JModelOptions(**kw))
+    with torch.no_grad():
+        got, _ = forward(cfg, tparams, {"tokens": torch.from_numpy(toks)}, ModelOptions(**kw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("impl", ["stub", "anything-else"])
+def test_attn_impl_other_than_real_raises_not_yet_ported(impl):
+    with pytest.raises(NotYetPorted, match="attn_impl"):
+        ModelOptions(attn_impl=impl)
+    assert ModelOptions(attn_impl="real").attn_impl == "real"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_step_matches_reference(models, arch):
+    cfg, jparams, tparams = models[arch]
+    jcfg = jconfigs.get_arch(arch).smoke()
+    B, S = 2, 16
+    toks = _tokens(cfg, B, S, seed=3)
+    jstep = jax.jit(jmake_serve_step(jcfg))
+    jcache = jinit_cache(jcfg, B, S)
+    cache = init_cache(cfg, B, S, device="cpu")
+    assert sorted(cache) == sorted(jcache)
+    for i in range(S):
+        want, jcache = jstep(jparams, jcache, jnp.asarray(toks[:, i]), jnp.int32(i))
+        with torch.no_grad():
+            got, cache = serve_step(cfg, tparams, cache, torch.from_numpy(toks[:, i]), i)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    flat = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    for path, leaf in flat:
+        node = cache
+        for p in path:
+            node = node[p.key]
+        np.testing.assert_allclose(node.float().numpy(), np.asarray(leaf, np.float32), atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_forward(models, arch):
+    """Token-by-token decode equals the full forward (the KV-cache/SSM-state
+    test of the reference, on the port alone)."""
+    cfg, _, tparams = models[arch]
+    B, S = 2, 16
+    toks = torch.from_numpy(_tokens(cfg, B, S, seed=4))
+    step = make_serve_step(cfg)
+    with torch.no_grad():
+        full, _ = forward(cfg, tparams, {"tokens": toks})
+        cache = init_cache(cfg, B, S, device="cpu")
+        outs = []
+        for i in range(S):
+            lg, cache = step(tparams, cache, toks[:, i], torch.tensor(i))
+            outs.append(lg)
+    torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=0, atol=2e-5)
+
+
+def _drain(engine_cls, config_cls, cfg, params, **kw):
+    eng = engine_cls(cfg, params, config_cls(slots=3, max_len=20, **kw))
+    prompts = [[5, 9, 2], [7], [3, 3, 3, 3, 3], [11, 4], [8, 8, 1, 6]]
+    for p in prompts:
+        eng.submit(p)
+    return eng.run()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "olmo-1b"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_engine_tokens_match_reference(models, arch, greedy):
+    cfg, jparams, tparams = models[arch]
+    kw = {} if greedy else {"greedy": False, "temperature": 0.7}
+    want = _drain(JEngine, JServeConfig, jconfigs.get_arch(arch).smoke(), jparams, **kw)
+    got = _drain(Engine, ServeConfig, cfg, tparams, **kw)
+    assert got == want
+    assert len(got) == 5
+
+
+def test_engine_runs_under_no_grad_with_trainable_weights(models):
+    cfg, _, tparams = models["zamba2-7b"]
+    assert all(p.requires_grad for p in tparams.parameters())
+    eng = Engine(cfg, tparams, ServeConfig(slots=2, max_len=6))
+    eng.submit([4, 5])
+    done = eng.run()
+    assert len(done[0]) == 6 and not any(t.requires_grad for t in eng.cache["mamba"].values())
+
+
+def test_launch_serve_on_cpu(capsys):
+    launch_serve.main(["--arch", "mamba2-130m", "--device", "cpu", "--requests", "3",
+                       "--max-len", "10"])
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+# -- the port's boundary --------------------------------------------------------
+
+def test_cpu_forward_launches_no_kernel(models):
+    cfg, _, tparams = models["zamba2-7b"]
+    before = (FLASH_ATTENTION.launches, SSD_SCAN.launches)
+    with torch.no_grad():
+        forward(cfg, tparams, {"tokens": torch.zeros(1, 8, dtype=torch.int64)})
+    assert (FLASH_ATTENTION.launches, SSD_SCAN.launches) == before
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b", "qwen2-vl-2b",
+                                  "hubert-xlarge"])
+def test_unported_families_and_frontends_raise(arch):
+    cfg = configs.get_arch(arch).smoke()
+    with pytest.raises(NotYetPorted):
+        init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotYetPorted):
+        init_cache(cfg, 1, 4, device="cpu")
+
+
+def test_training_and_sharding_raise_not_yet_ported(models):
+    cfg, _, tparams = models["qwen3-1.7b"]
+    with pytest.raises(NotYetPorted):
+        loss_fn(cfg, tparams, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    with pytest.raises(NotYetPorted):
+        make_train_step(cfg, None)
+    with pytest.raises(NotYetPorted):
+        ShardingPolicy(batch_axes=("data",))
+    with pytest.raises(NotYetPorted):
+        ShardingPolicy(model_axis="model")
+    with pytest.raises(NotYetPorted):
+        ModelOptions(cache_constraints={"k": None})
+    assert ModelOptions(remat=True).remat  # accepted: nothing to rematerialise
+
+
+def test_lm_modules_leave_jax_out():
+    code = ("import sys, repro_torch.models, repro_torch.configs, repro_torch.serving, "
+            "repro_torch.launch.serve; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'repro' or m.startswith('repro.')); "
+            "assert 'jax' not in sys.modules; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

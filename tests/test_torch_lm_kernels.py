@@ -1,0 +1,221 @@
+"""The LM kernels' plain twins against the reference, run as the reference's
+own tests run its Pallas kernels on the CPU (interpret mode), at the
+reference's test shapes and tolerances (``tests/test_kernels.py``: 2e-5
+float32 / 3e-2 bfloat16 for attention, 5e-4 for the SSD's y and 5e-5 for its
+state).
+
+On the CPU the flash-attention and SSD-scan wrappers are their twins; the
+CUDA kernels are held against the same twins on the card
+(``tests/test_torch_cuda.py`` and chip_smoke.py phase 3).  Inputs are numpy
+draws fed to both frameworks.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import flash_attention as jflash
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
+from repro.kernels.ssd_scan.ref import ssd_chunked_ref as jssd_chunked_ref
+from repro.kernels.ssd_scan.ref import ssd_ref as jssd_ref
+from repro.kernels.ssd_scan.ssd_scan import ssd_scan as jssd_scan
+from repro.models.attention import _chunked as j_chunked
+from repro.models.attention import decode_attention as jdecode_attention
+from repro_torch.device import NotYetPorted
+from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import _FlashAttention, attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan.ops import _SSDScan, ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.ssd_scan.ssd_scan import smem_bytes, ssd_scan
+from repro_torch.models.attention import _chunked, decode_attention
+
+
+def _qkv(b, hq, hk, sq, sk, d, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, sq, d)).astype(dtype),
+            rng.normal(size=(b, hk, sk, d)).astype(dtype),
+            rng.normal(size=(b, hk, sk, d)).astype(dtype))
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+# -- flash attention ------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "b,hq,hk,s,d,causal",
+    [
+        (2, 4, 2, 256, 64, True),
+        (1, 8, 1, 128, 128, True),   # MQA
+        (2, 2, 2, 256, 64, False),
+        (1, 4, 4, 384, 32, True),    # MHA, 3 kv blocks
+        (1, 16, 4, 256, 64, True),   # GQA group 4
+    ],
+)
+def test_attention_twin_matches_reference(b, hq, hk, s, d, causal):
+    q, k, v = _qkv(b, hq, hk, s, s, d, seed=s + hq)
+    got = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    kernel = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, interpret=True)
+    oracle = jattention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got, _np(kernel), atol=2e-5)
+    np.testing.assert_allclose(got, _np(oracle), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_twin_dtypes(dtype):
+    q, k, v = _qkv(1, 2, 2, 256, 256, 64, seed=20)
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x).astype(getattr(jnp, dtype)) for x in (q, k, v))
+    got = attention_ref(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype
+    want = jflash(jq, jk, jv, causal=True, interpret=True)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=tol)
+
+
+def test_attention_twin_sm_scale_and_ragged_length():
+    q, k, v = _qkv(1, 2, 2, 128, 128, 64, seed=40)
+    got = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=True, sm_scale=0.5)
+    want = jflash(*map(jnp.asarray, (q, k, v)), causal=True, sm_scale=0.5, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5)
+    # a length no 128-block divides (the TPU kernel refuses it; the twin and
+    # the CUDA kernel take it): against the reference's oracle
+    for causal in (True, False):
+        q, k, v = _qkv(2, 4, 2, 200, 200, 16, seed=41)
+        got = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal)
+        want = jattention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5)
+
+
+def test_causal_attention_needs_equal_lengths():
+    q, k, v = map(torch.from_numpy, _qkv(1, 2, 2, 64, 128, 16, seed=1))
+    for call in (lambda: attention_ref(q, k, v, causal=True),
+                 lambda: flash_attention(q, k, v, causal=True),
+                 lambda: attention(q, k, v, causal=True)):
+        with pytest.raises(ValueError, match="seq_q == seq_k"):
+            call()
+    # bidirectional attention takes any lengths, as the reference's oracle
+    got = attention_ref(q, k, v, causal=False)
+    want = jattention_ref(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy())), causal=False)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("use_kernel", ["auto", "never", "interpret"])
+def test_attention_dispatch_on_cpu_is_the_twin(use_kernel):
+    q, k, v = map(torch.from_numpy, _qkv(2, 4, 2, 64, 64, 16, seed=3))
+    before = FLASH_ATTENTION.launches
+    got = attention(q, k, v, causal=True, use_kernel=use_kernel)
+    assert FLASH_ATTENTION.launches == before
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=True), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "sq,chunk,hq,hk,causal",
+    [(64, 16, 4, 2, True), (48, 32, 4, 4, True),   # 48 % 32: the gcd fallback
+     (40, 512, 2, 1, False), (64, 64, 8, 2, True)],
+)
+def test_chunked_matches_reference(sq, chunk, hq, hk, causal):
+    q, k, v = _qkv(2, hq, hk, sq, sq, 16, seed=sq + chunk)
+    got = _chunked(*map(torch.from_numpy, (q, k, v)), causal=causal, sm_scale=0.25,
+                   chunk=chunk)
+    want = j_chunked(*map(jnp.asarray, (q, k, v)), causal=causal, sm_scale=0.25,
+                     chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15])
+def test_decode_attention_matches_reference(pos):
+    q, kc, vc = _qkv(2, 4, 2, 1, 16, 16, seed=pos)
+    got = decode_attention(*map(torch.from_numpy, (q, kc, vc)), pos)
+    want = jdecode_attention(*map(jnp.asarray, (q, kc, vc)), jnp.int32(pos))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5)
+    got_t = decode_attention(*map(torch.from_numpy, (q, kc, vc)), torch.tensor(pos))
+    torch.testing.assert_close(got_t, got, rtol=0, atol=0)
+
+
+# -- SSD scan -------------------------------------------------------------------
+
+def _ssd_inputs(b, l, h, dh, ds, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, l, h, dh)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.normal(size=(b, l, h)))) * 0.1).astype(np.float32)
+    A = (-np.exp(rng.normal(size=(h,)))).astype(np.float32)
+    B = rng.normal(size=(b, l, ds)).astype(np.float32)
+    C = rng.normal(size=(b, l, ds)).astype(np.float32)
+    return x, dt, A, B, C
+
+
+SSD_SHAPES = [
+    (2, 128, 3, 16, 32, 32),
+    (1, 256, 2, 64, 128, 128),
+    (2, 64, 4, 8, 16, 64),   # single chunk
+    (1, 512, 1, 32, 64, 64),
+]
+
+
+@pytest.mark.parametrize("b,l,h,dh,ds,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_twins_match_reference(b, l, h, dh, ds, chunk, with_state):
+    xs = _ssd_inputs(b, l, h, dh, ds, seed=l + h)
+    S0 = (np.random.default_rng(7).normal(size=(b, h, dh, ds)).astype(np.float32)
+          if with_state else None)
+    t = [torch.from_numpy(a) for a in xs]
+    j = [jnp.asarray(a) for a in xs]
+    tS0 = None if S0 is None else torch.from_numpy(S0)
+    jS0 = None if S0 is None else jnp.asarray(S0)
+    y_seq, S_seq = jssd_ref(*j, S0=jS0)
+    y_chk, S_chk = jssd_chunked_ref(*j, chunk=chunk, S0=jS0)
+    got_seq = ssd_ref(*t, S0=tS0)
+    got_chk = ssd_chunked_ref(*t, chunk=chunk, S0=tS0)
+    for (gy, gS), (wy, wS) in (((got_seq), (y_seq, S_seq)), ((got_chk), (y_chk, S_chk)),
+                               ((got_chk), (y_seq, S_seq))):
+        np.testing.assert_allclose(gy.numpy(), _np(wy), atol=5e-4)
+        np.testing.assert_allclose(gS.numpy(), _np(wS), atol=5e-5)
+    if S0 is None:  # the TPU kernel starts from a zero state and returns y
+        y_pal = jssd_scan(*j, chunk=chunk, interpret=True)
+        np.testing.assert_allclose(got_chk[0].numpy(), _np(y_pal), atol=5e-4)
+        np.testing.assert_allclose(ssd_scan(*t, chunk=chunk).numpy(), _np(y_pal), atol=5e-4)
+
+
+def test_ssd_decay_extremes():
+    """Strong decay (dt large) must not produce NaN/inf."""
+    b, l, h, dh, ds = 1, 128, 2, 8, 16
+    x, _, _, B, C = _ssd_inputs(b, l, h, dh, ds, seed=0)
+    dt = np.full((b, l, h), 5.0, np.float32)
+    A = np.array([-8.0, -0.001], np.float32)
+    t = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    y = ssd(*t, chunk=64)
+    assert torch.isfinite(y).all()
+    y_seq, _ = jssd_ref(*(jnp.asarray(a) for a in (x, dt, A, B, C)))
+    np.testing.assert_allclose(y.numpy(), _np(y_seq), atol=5e-4)
+
+
+@pytest.mark.parametrize("use_kernel", ["auto", "never", "interpret"])
+def test_ssd_dispatch_on_cpu_is_the_chunked_twin(use_kernel):
+    t = [torch.from_numpy(a) for a in _ssd_inputs(2, 64, 3, 8, 16, seed=5)]
+    before = SSD_SCAN.launches
+    got = ssd(*t, chunk=128, use_kernel=use_kernel)  # chunk clipped to l
+    assert SSD_SCAN.launches == before
+    torch.testing.assert_close(got, ssd_chunked_ref(*t, chunk=64)[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd(*t, chunk=48, use_kernel=use_kernel)
+
+
+def test_ssd_shared_memory_fits_the_served_shapes():
+    # zamba2-7b (dh 64, ds 64) and mamba2-130m (dh 64, ds 128) at chunk 128
+    assert smem_bytes(128, 64, 64) == 124672
+    assert smem_bytes(128, 64, 128) == 206592 <= 232448
+
+
+def test_kernel_backwards_raise_not_yet_ported():
+    q, k, v = (t.requires_grad_() for t in map(torch.from_numpy, _qkv(1, 2, 2, 16, 16, 8, 9)))
+    out = _FlashAttention.apply(q, k, v, True, None)
+    with pytest.raises(NotYetPorted, match="flash_attention"):
+        out.sum().backward()
+    t = [torch.from_numpy(a).requires_grad_() for a in _ssd_inputs(1, 16, 2, 4, 8, 1)]
+    y = _SSDScan.apply(*t, 16)
+    with pytest.raises(NotYetPorted, match="ssd_scan"):
+        y.sum().backward()
