@@ -21,10 +21,14 @@ of zamba2-7b at full width — and checks what comes out:
    unaligned view (the general-noise kernels at (N, d, m) = (65536, 16, 4),
    (65536, 16, 128) and (1001, 5, 3)); flash attention in float32 and bf16
    at the reference's test shapes, zamba2-7b's (2, 32, 32, 2048, 112),
-   qwen3-1.7b's (1, 16, 8, 2048, 128) and a ragged 200, and the SSD scan at
+   qwen3-1.7b's (1, 16, 8, 2048, 128), a ragged 200 and the 128-row tile's
+   edges, each case on the route it must take (bf16 with d % 8 == 0 on the
+   wgmma route, the rest on the SIMT route) and the wgmma route's
+   instructions counted in the built library's SASS, and the SSD scan at
    the reference's test shapes, its decay extremes, zamba2-7b's and
    mamba2-130m's layer at 2048 tokens; with each kernel's time, the twin's
-   time, its bound and, where one PyTorch call computes it, that call's time;
+   time, its bound and, where one PyTorch call computes it, that call's time
+   (L2 flushed and warm);
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
@@ -53,11 +57,14 @@ of zamba2-7b at full width — and checks what comes out:
 11. the LM prefill of zamba2-7b at full width: in float32 at 12 layers
    (B=2, S=256) the kernel path against the plain path, ``forward`` against
    token-by-token ``serve_step``, and the card against a CPU run of the
-   plain path (6 layers, B=1, S=128), each within 1e-4 of max|logit|; then
-   in bf16 at all 81 layers (``init_params(PRNGKey(0))``) one
-   ``head_positions="last"`` prefill of B=2 x 2048 tokens: launch counts
-   (14 ``flash_attention``, 81 ``ssd_scan``), peak memory, tokens/s, the
-   profile by kernel kind, and no host sync;
+   plain path (6 layers, B=1, S=128), each within 1e-4 of max|logit|; the
+   same 12 layers with bf16 weights, the kernel path (the wgmma route)
+   within twice the bf16 plain path's distance from the float32 plain path
+   plus 1e-3 of max|logit|; then in bf16 at all 81 layers
+   (``init_params(PRNGKey(0))``) one ``head_positions="last"`` prefill of
+   B=2 x 2048 tokens: launch counts (14 ``flash_attention``, all on the
+   wgmma route, 81 ``ssd_scan``), peak memory, tokens/s, the profile by
+   kernel kind, and no host sync;
 12. the decode ``Engine`` on those weights: 8 requests of 8-token prompts,
    greedy, ``slots=8, max_len=64``: tokens/s, ticks, finite logits, and the
    same tokens from a second drain on a new engine; one decode step's host
@@ -226,8 +233,11 @@ def _timed_row(name, label, timer, kernel, plain, library, symbol, bytes_moved,
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / peak * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    lib = ("no single PyTorch call" if library is None else
-           f"{library[0]} {library_ms * 1e3:.2f} us")
+    lib = "no single PyTorch call"
+    if library is not None:
+        library_warm = timer.ms(library[1], flush=False)
+        lib = (f"{library[0]} {library_ms * 1e3:.2f} us ({library_warm * 1e3:.2f} us "
+               f"warm)")
     print(f"  {name} {label}, device time: kernel {ms * 1e3:.2f} us with L2 "
           f"flushed ({ms_warm * 1e3:.2f} us warm), plain twin {plain_ms * 1e3:.2f}"
           f" us, {lib}; bound {bound_ms * 1e3:.2f} us ({bytes_moved} B at 3.35 "
@@ -396,6 +406,11 @@ FLASH_REF_SHAPES = ((2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, No
                     (1, 16, 4, 256, 64, True, None), (1, 2, 2, 128, 64, True, 0.5))
 FLASH_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None), (1, 16, 8, 2048, 128, True, None),
                    (2, 4, 2, 200, 112, True, None), (2, 4, 2, 200, 112, False, None))
+# The wgmma route's tile edges (one row, 127 and 129 against its 128-row
+# tiles), GQA group 8, and a bf16 head dim off TMA's 8-column rule (36,
+# the SIMT route).
+FLASH_EDGE_SHAPES = ((1, 8, 8, 1, 112, True, None), (2, 4, 1, 127, 112, True, None),
+                     (1, 8, 1, 129, 128, False, None), (2, 4, 2, 200, 36, True, None))
 # SSD shapes (b, l, h, dh, ds, chunk): the reference's tests, then
 # zamba2-7b's layer at 2048 tokens (timed) and mamba2-130m's.
 SSD_REF_SHAPES = ((2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 128),
@@ -420,12 +435,34 @@ def _ssd_inputs(torch, gen, shape):
             -torch.exp(draw(h)), draw(b, l, ds), draw(b, l, ds))
 
 
+def sass_counts(torch):
+    """Counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+    built flash-attention library's SASS; fails if either is 0 or
+    cuobjdump is missing."""
+    import shutil
+
+    from repro_torch.kernels import FLASH_ATTENTION
+    from repro_torch.kernels._build import _nvcc
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found beside nvcc or on PATH")
+    proc = subprocess.run([tool, "-sass", str(FLASH_ATTENTION.library_path())],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr.strip()}")
+    counts = {op: proc.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"  flash_attention library SASS (cuobjdump -sass): {counts}", flush=True)
+    check(all(counts.values()), f"the flash_attention library lacks wgmma or TMA "
+          f"instructions: {counts}")
+
+
 def lm_kernel_phase(torch, timer):
     """Phase 3, the LM kernels: flash attention and the SSD scan against
     their plain twins (at the reference's kernel-vs-oracle tolerances) at
     the reference's test shapes and the LM path's, timed at the main-path
     shape; returns their stats."""
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
+                                                                     flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
@@ -436,20 +473,31 @@ def lm_kernel_phase(torch, timer):
     # generator, so every other case keeps its inputs
     gen_lm32 = torch.Generator(device="cuda").manual_seed(4322)
     stats, worst = {}, 0.0
-    for shape in FLASH_REF_SHAPES + FLASH_LM_SHAPES:
+    routes = {"wgmma": 0, "simt": 0}
+    for shape in FLASH_REF_SHAPES + FLASH_LM_SHAPES + FLASH_EDGE_SHAPES:
         causal, scale = shape[5], shape[6]
-        dtypes = ((torch.float32, torch.bfloat16) if shape in FLASH_REF_SHAPES
-                  or shape[3] == 200 else (torch.bfloat16, torch.float32))
+        dtypes = ((torch.float32, torch.bfloat16) if shape not in FLASH_LM_SHAPES[:2]
+                  else (torch.bfloat16, torch.float32))
         for dtype in dtypes:
             own = dtype == torch.float32 and shape in FLASH_LM_SHAPES[:2]
             q, k, v = _flash_inputs(torch, gen_lm32 if own else gen, shape, dtype)
+            before = dict(ROUTE_LAUNCHES)
             got = flash_attention(q, k, v, causal=causal, sm_scale=scale)
+            took = [r for r in ROUTE_LAUNCHES if ROUTE_LAUNCHES[r] != before[r]]
+            for r in took:
+                routes[r] += ROUTE_LAUNCHES[r] - before[r]
+            expected = ("wgmma" if dtype == torch.bfloat16 and shape[4] % 8 == 0
+                        else "simt")
+            check(took == [expected] and route(dtype, shape[4]) == expected,
+                  f"flash_attention {shape} {dtype} took the routes {took}, not "
+                  f"{expected}")
             want = attention_ref(q, k, v, causal=causal, sm_scale=scale)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             err = diff.max().item()
             msg = (f"  flash_attention {str(dtype)[6:]} (b,hq,hkv,s,d)={shape[:5]} "
-                   f"causal={causal} sm_scale={scale}: max_abs_err={err:.3e}")
+                   f"causal={causal} sm_scale={scale}, {expected} route: "
+                   f"max_abs_err={err:.3e}")
             if dtype == torch.float32:  # the reference's kernel-vs-oracle atol
                 ok = err <= 2e-5
                 msg += " (tolerance 2e-5)"
@@ -467,20 +515,34 @@ def lm_kernel_phase(torch, timer):
             check(ok, f"flash_attention {shape} {dtype} disagrees with its twin")
             worst = max(worst, err)
             del q, k, v, got, want, diff
+    print(f"  flash_attention launches by route over these cases: {routes}; every "
+          f"bf16 case with d % 8 == 0 took the wgmma route", flush=True)
+    sass_counts(torch)
     rows = []
-    for shape in FLASH_LM_SHAPES[:2]:
+    # bf16 at both LM shapes (the wgmma route), then float32 at zamba2-7b's
+    # (the SIMT route, bound at the float32 FMA rate: TF32 would change it)
+    for shape, dtype in ((FLASH_LM_SHAPES[0], torch.bfloat16),
+                         (FLASH_LM_SHAPES[1], torch.bfloat16),
+                         (FLASH_LM_SHAPES[0], torch.float32)):
         b, hq, hkv, s, d, _, _ = shape
-        q, k, v = _flash_inputs(torch, gen, shape, torch.bfloat16)
+        q, k, v = _flash_inputs(torch, gen, shape, dtype)
         # causal: row t attends to t + 1 keys; QK^T and PV, 2 flops a MAC
         ops = 4 * b * hq * d * s * (s + 1) / 2
+        bf16 = dtype == torch.bfloat16
         rows.append(_timed_row(
-            "flash_attention", f"bf16 (b,hq,hkv,s,d)={shape[:5]}", timer,
+            "flash_attention", f"{str(dtype)[6:]} {route(dtype, d)} route "
+            f"(b,hq,hkv,s,d)={shape[:5]}", timer,
             lambda: flash_attention(q, k, v, causal=True),
             lambda: attention_ref(q, k, v, causal=True),
             ("scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
              lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
-            "flash_attention_kernel", 2 * (2 * q.numel() + 2 * k.numel()), ops,
-            BF16_FLOPS, "bf16 tensor-core", worst))
+            "flash_attention_kernel", q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            ops, BF16_FLOPS if bf16 else FP32_FLOPS,
+            "bf16 tensor-core" if bf16 else "float32 FMA", worst))
+        if route(dtype, d) == "wgmma" and d < 128:
+            print(f"  (the wgmma route pads d = {d} to 128 columns: {128 / d:.3f}x the "
+                  f"bound's products, and splits P into two bf16 parts: P.V twice)",
+                  flush=True)
         del q, k, v
     stats["flash_attention"] = rows[0]
 
@@ -1299,6 +1361,7 @@ def lm_float32_phase(torch):
               f"{launched[1]} launches) vs plain path: {kp:.3e} of max|logit|="
               f"{plain.abs().max().item():.4g} (tolerance 1e-4)", flush=True)
         check(kp <= 1e-4, "the kernel path disagrees with the plain path")
+        lm_bf16_check(torch, cfg, toks, plain)
 
         cache = init_cache(cfg, B, S, device="cuda")
         start = time.perf_counter()
@@ -1330,12 +1393,50 @@ def lm_float32_phase(torch):
     torch.cuda.empty_cache()
 
 
+def lm_bf16_check(torch, cfg, toks, ref):
+    """Phase 11a, bf16: the same 12 layers and tokens with the same draws in
+    bf16 (the bf16 config: matrices rounded to bf16, the SSM's A, D and dt
+    bias kept in float32), through the kernels (flash_attention's wgmma
+    route) and through the plain path, each against the float32 plain path
+    ``ref``: the kernel path's distance may be at most twice the plain
+    path's plus 1e-3 of max|logit|."""
+    import dataclasses
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.models import ModelOptions, forward, init_params
+
+    low = init_params(dataclasses.replace(cfg, dtype="bfloat16"),
+                      prng.PRNGKey(0, device="cuda"), device="cuda")
+    ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+    kern, _ = forward(cfg, low, {"tokens": toks})
+    torch.cuda.synchronize()
+    routes = dict(ROUTE_LAUNCHES)
+    plain, _ = forward(cfg, low, {"tokens": toks}, ModelOptions(use_flash="never"))
+    scale = ref.abs().max().item()
+    d_kern = (kern.float() - ref).abs().max().item()
+    d_plain = (plain.float() - ref).abs().max().item()
+    limit = 2 * d_plain + 1e-3 * scale
+    print(f"  bf16 weights, same {cfg.n_layers} layers and tokens: kernel path "
+          f"(flash_attention routes {routes}) vs the float32 plain path "
+          f"{d_kern:.4g}, bf16 plain path vs it {d_plain:.4g} (max|logit| "
+          f"{scale:.4g}; the kernel path's limit 2 x {d_plain:.4g} + 1e-3 x "
+          f"max|logit| = {limit:.4g})", flush=True)
+    check(routes == {"wgmma": 2, "simt": 0},
+          f"the bf16 forward's attention took the routes {routes}")
+    check(bool(torch.isfinite(kern).all()), "the bf16 kernel path's logits are not finite")
+    check(d_kern <= limit, "the bf16 kernel path is further from the float32 "
+          "plain path than the bf16 plain path allows")
+    del low, kern, plain
+
+
 def lm_prefill_phase(torch, timer):
     """Phase 11b: zamba2-7b in bf16 at full width and depth: prefill of
     B=2 x 2048 tokens through the kernels; returns (params, launches)."""
     from repro_torch.configs import get_arch
     from repro_torch.core import prng
     from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+    from repro_torch.kernels.flash_attention.flash_attention import ROUTE_LAUNCHES
     from repro_torch.models import forward, init_params
 
     cfg = get_arch("zamba2-7b")
@@ -1359,10 +1460,12 @@ def lm_prefill_phase(torch, timer):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         FLASH_ATTENTION.launches = SSD_SCAN.launches = 0
+        ROUTE_LAUNCHES.update(wgmma=0, simt=0)
         logits = prefill()
         torch.cuda.synchronize()
         launches = {"flash_attention": FLASH_ATTENTION.launches,
                     "ssd_scan": SSD_SCAN.launches}
+        routes = dict(ROUTE_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         check(logits.shape == (B, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
               "the bf16 prefill's logits are not finite of shape (B, 1, V)")
@@ -1373,6 +1476,9 @@ def lm_prefill_phase(torch, timer):
               f"weights and inputs)", flush=True)
         check(launches == {"flash_attention": n_inv, "ssd_scan": cfg.n_layers},
               f"the prefill's kernel launches are {launches}")
+        print(f"  flash_attention launches by route: {routes}", flush=True)
+        check(routes == {"wgmma": n_inv, "simt": 0},
+              f"the prefill's attention took the routes {routes}, not wgmma only")
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()

@@ -6,16 +6,48 @@
 //
 //     o[b, h] = softmax(sm_scale * q[b, h] k[b, h / group]^T  (+ causal mask)) v[b, h / group]
 //
-// q is (b, hq, sq, d), k and v (b, hkv, sk, d), contiguous, float32 or
-// bfloat16; o is (b, hq, sq, d) in q's type; everything inside is float32.
+// q is (b, hq, sq, d), k and v (b, hkv, sk, d), contiguous; o is
+// (b, hq, sq, d) in q's type.  Two routes, chosen by the Python wrapper from
+// the dtype and d alone:
 //
 // Bound: operations.  At the LM path's shape (b 2, 32 heads, s 2048, d 112,
 // bf16, causal) the work is 4*b*h*s^2*d/2 = 60 GFLOP against 117 MB of q, k,
-// v and o: ~510 flops per byte, above the card's balance point, so the bound
-// is the tensor cores' bf16 rate (61 us).  This kernel runs the products on
-// the float32 FMA units and sits well above that bound; a wgmma/TMA
-// pipeline is later work.  What its design does:
+// v and o: ~510 flops per byte, above the card's balance point (~295), so
+// the bound is the tensor cores' bf16 rate (61 us).
 //
+// 1. flash_attention_kernel_wgmma (bf16, d % 8 == 0, d <= 128): tensor
+//    cores fed by TMA.  What its design does about the bound:
+//  * one block per (128-row q tile, q head, batch row), grid (b * hq,
+//    q tiles) with the q tiles walked last-first, so the causal tiles with
+//    the most KV tiles start first and the short ones fill the tail;
+//  * three warpgroups: one producer warp issues every load through TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle, mbarrier completion); two
+//    consumer warpgroups own 64 q rows each; setmaxnreg moves registers
+//    from the producer's warpgroup (40) to the consumers (232);
+//  * shared memory holds the q tile and a ring of two K/V stages (K and V
+//    with their own "full" barriers, one "empty" barrier per stage released
+//    by both consumers): 160 KB;
+//  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//    accumulating in float32 registers; the online softmax runs in those
+//    registers (row max and sum over the 4 lanes that share a row, 2^x
+//    on the SFU of scores pre-scaled by sm_scale * log2 e); O += P V is wgmma with P
+//    from registers and V from shared memory (MN-major, transposed B);
+//  * P is split into bf16 hi + lo parts, each multiplied by V (V is exact
+//    in bf16): a single bf16 P (2^-9 relative) misses the elementwise bf16
+//    bound against the float32 twin at rows that see a few keys, the split
+//    keeps P to ~2^-17 at 1.5x the tensor-core work;
+//  * head dims under 128 are padded to 128 by TMA's zero fill (columns
+//    d..127 of every box read as 0): zeros in Q and K leave S exact, and
+//    the extra output columns are never stored.  At d = 112 that is 128/112
+//    of the bound's work;
+//  * rows past sk are zero-filled too and their scores masked to -inf (a
+//    zero score is not an excluded key); under `causal` (sq == sk) the walk
+//    stops at the q tile's diagonal tile, the only one masked; rows past sq
+//    are not stored; rows whose softmax sum is 0 divide by 1.
+//
+// 2. flash_attention_kernel (float32, and bf16 with another d): the
+//    products on the float32 FMA units out of shared memory, well above the
+//    bound (a TF32 product would change the float32 function):
 //  * one block per (64-row q tile, q head, batch); the q tile stays in
 //    shared memory while the block walks the KV sequence in tiles of 32 rows
 //    (K and V tiles in shared memory, converted to float32 on load), keeping
@@ -33,6 +65,7 @@
 //    sk are masked to -1e30 as the causal ones are (the TPU kernel needs
 //    the lengths to divide its blocks);
 //  * rows whose softmax sum is 0 divide by 1, as the TPU kernel's do.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -232,6 +265,425 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// Route 1: wgmma on TMA-fed tiles (bf16, d % 8 == 0, d <= 128).
+
+constexpr int kWgThreads = 384;            // producer warpgroup + 2 consumers
+constexpr int kWgBlockQ = 128;             // q rows per block, 64 per consumer
+constexpr int kWgBlockK = 128;             // KV rows per tile
+constexpr int kWgStages = 2;               // K/V ring depth
+constexpr int kAtomCols = 64;              // bf16 columns of a 128-byte swizzle atom
+constexpr int kAtoms = kMaxD / kAtomCols;  // head dim padded to 128
+constexpr int kQBytes = kAtoms * kWgBlockQ * 128;
+constexpr int kTileBytes = kAtoms * kWgBlockK * 128;  // one K or V tile
+constexpr int kOffK = kQBytes;
+constexpr int kOffV = kOffK + kWgStages * kTileBytes;
+constexpr int kOffBar = kOffV + kWgStages * kTileBytes;
+constexpr int kNumBars = 1 + 3 * kWgStages;  // q full; K full, V full, empty per stage
+// + 1024: the tiles start on a 1024-byte boundary (the swizzle's period)
+constexpr int kWgSmemBytes = kOffBar + 8 * kNumBars + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A barrier that has
+// not completed after ~10 s of SM clock (a fault in the pipeline) traps
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// One TMA box of a (d, s, b * h) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma that owns them.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC64 ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define REGS64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, float32) (+)= A (64 x 16, K-major in shared memory) *
+// B (16 x 128, K-major in shared memory); d is overwritten when !accumulate.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, float32) += A (64 x 16 bf16, the accumulator fragment layout
+// packed in 4 registers) * B (16 x 128, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x on the SFU; results below 2^-126 flush to 0 (weights that small are
+// far below what the bf16 output resolves).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Splits (x0, x1) into a bf16 pair and the bf16 pair of what it missed.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x0 - back.x, x1 - back.y);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ o, int hq, int hkv,
+                             int sq, int sk, int d, float scale_log2,
+                             int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + kOffK;
+  const uint32_t v_s = base + kOffV;
+  const uint32_t q_full = base + kOffBar;
+  const uint32_t k_full = q_full + 8;                  // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kWgStages;      // + 8 * stage
+  const uint32_t empty = v_full + 8 * kWgStages;       // + 8 * stage
+
+  const int bh = blockIdx.x;  // batch row * hq + q head
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBlockQ;
+  // Causal (sq == sk): the last key this q tile sees is q0 + kWgBlockQ - 1.
+  const int kv_end = causal ? min(sk, q0 + kWgBlockQ) : sk;
+  const int n_tiles = (kv_end + kWgBlockK - 1) / kWgBlockK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kQBytes);
+      for (int a = 0; a < kAtoms; ++a)
+        tma_load(q_s + a * kWgBlockQ * 128, &tm_q, q_full, a * kAtomCols, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kWgStages;
+        if (t >= kWgStages) mbar_wait(empty + 8 * s, ((t / kWgStages) - 1) & 1);
+        const uint32_t off = s * kTileBytes;
+        mbar_expect_tx(k_full + 8 * s, kTileBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load(k_s + off + a * kWgBlockK * 128, &tm_k, k_full + 8 * s,
+                   a * kAtomCols, t * kWgBlockK, kv_bh);
+        mbar_expect_tx(v_full + 8 * s, kTileBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load(v_s + off + a * kWgBlockK * 128, &tm_v, v_full + 8 * s,
+                   a * kAtomCols, t * kWgBlockK, kv_bh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // consumer warpgroup: q rows q0 + 64 cw ...
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    // This thread's rows of the accumulator fragments: r0 and r0 + 8; its
+    // columns 8 j + c0 and 8 j + c0 + 1 for j < 16.
+    const int r0 = q0 + 64 * cw + 16 * (tid / 32) + lane / 4;
+    const int c0 = 2 * (lane % 4);
+
+    float acc_s[64], acc_o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_s[i] = acc_o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint32_t q_rows = q_s + cw * 64 * 128;
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kWgStages;
+      const uint32_t parity = (t / kWgStages) & 1;
+      const uint32_t off = s * kTileBytes;
+
+      // S = Q K^T over the padded head dim: 2 atoms x 4 steps of 16.
+      mbar_wait(k_full + 8 * s, parity);
+      wgmma_fence();
+      fence_acc(acc_s);
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a)
+#pragma unroll
+        for (int kk = 0; kk < kAtomCols / 16; ++kk)
+          wgmma_ss(acc_s,
+                   sw128_desc(q_rows + a * kWgBlockQ * 128 + kk * 32, 16, 1024),
+                   sw128_desc(k_s + off + a * kWgBlockK * 128 + kk * 32, 16, 1024),
+                   a + kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(acc_s);
+
+      // Online softmax in base 2.
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc_s[i] *= scale_log2;
+      if (t == n_tiles - 1) {  // only the last tile holds masked keys
+        const int k0 = t * kWgBlockK;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 8 * (e / 2);
+            const int col = k0 + 8 * j + c0 + (e % 2);
+            if (col >= sk || (causal && col > row)) acc_s[4 * j + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], acc_s[4 * j + e]);
+      float alpha[2], shift[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        shift[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no key yet
+        alpha[r] = exp2_ftz(m[r] - shift[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];  // this thread's part of the row sum
+      }
+      uint32_t p_hi[8][4], p_lo[8][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const float p0 = exp2_ftz(acc_s[4 * j + e] - shift[e / 2]);
+          const float p1 = exp2_ftz(acc_s[4 * j + e + 1] - shift[e / 2]);
+          l[e / 2] += p0 + p1;
+          // The fragment of S columns 16 kk .. 16 kk + 15 is the A operand
+          // of step kk: registers {row r0 | r0 + 8} x {cols +0 | +8}.
+          split_bf16(p0, p1, p_hi[j / 2][(j % 2) * 2 + e / 2],
+                     p_lo[j / 2][(j % 2) * 2 + e / 2]);
+        }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc_o[4 * j] *= alpha[0];
+        acc_o[4 * j + 1] *= alpha[0];
+        acc_o[4 * j + 2] *= alpha[1];
+        acc_o[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V, P's hi and lo parts in turn, 8 steps of 16 keys each.
+      mbar_wait(v_full + 8 * s, parity);
+      wgmma_fence();
+      fence_acc(acc_o);
+#pragma unroll
+      for (int kk = 0; kk < kWgBlockK / 16; ++kk)
+        wgmma_rs(acc_o, p_hi[kk],
+                 sw128_desc(v_s + off + kk * 16 * 128, kWgBlockK * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < kWgBlockK / 16; ++kk)
+        wgmma_rs(acc_o, p_lo[kk],
+                 sw128_desc(v_s + off + kk * 16 * 128, kWgBlockK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(acc_o);
+      if (tid == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    float li[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      li[r] = l[r] == 0.f ? 1.f : l[r];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= sq) continue;
+      __nv_bfloat16* orow = o + (static_cast<int64_t>(bh) * sq + row) * d;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + c0;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+              acc_o[4 * j + 2 * r] / li[r], acc_o[4 * j + 2 * r + 1] / li[r]);
+      }
+    }
+  }
+}
+
+#undef ACC8
+#undef ACC64
+#undef REGS64
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library needs
+// no link against the driver.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (d, s, b * h) view of a contiguous (b, h, s, d) bf16 tensor, read in
+// boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; boxes
+// past d or s read zeros.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh,
+              int s, int d, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kAtomCols),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
+                 int hq, int hkv, int sq, int sk, int d, double sm_scale,
+                 int causal, void* stream) {
+  if (d < 8 || d > kMaxD || d % 8 != 0 || hkv < 1 || hq % hkv != 0 || sq < 1 ||
+      sk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);  // TMA's alignment
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(encode, &tm_q, q, b * hq, sq, d, kWgBlockQ) ||
+      !make_map(encode, &tm_k, k, b * hkv, sk, d, kWgBlockK) ||
+      !make_map(encode, &tm_v, v, b * hkv, sk, d, kWgBlockK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWgSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(b * hq, (sq + kWgBlockQ - 1) / kWgBlockQ);
+  const double log2e = 1.4426950408889634;
+  flash_attention_kernel_wgmma<<<grid, kWgThreads, kWgSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), hq, hkv, sq, sk, d,
+      static_cast<float>(sm_scale * log2e), causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
@@ -248,6 +700,15 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale,
                                causal, stream);
+}
+
+extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
+                                          const void* v, void* o, int b, int hq,
+                                          int hkv, int sq, int sk, int d,
+                                          double sm_scale, int causal,
+                                          void* stream) {
+  return launch_wgmma(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale, causal,
+                      stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

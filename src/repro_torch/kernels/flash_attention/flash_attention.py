@@ -1,11 +1,18 @@
 """Causal/bidirectional GQA flash attention for Hopper (port of
 ``repro.kernels.flash_attention.flash_attention``).
 
-One CUDA source, ``csrc/flash_attention.cu``, built by nvcc for ``sm_90a``:
-an online-softmax pass over KV tiles in shared memory, float32 inside,
-float32 or bfloat16 in and out.  On a CPU tensor :func:`flash_attention` is
-its plain twin (:mod:`.ref`); on a CUDA tensor it launches the kernel or
-raises.  ``KERNEL.launches`` counts the launches.
+One CUDA source, ``csrc/flash_attention.cu``, built by nvcc for ``sm_90a``,
+with two routes chosen by :func:`route` from the dtype and head dim alone:
+
+* ``"wgmma"`` — bf16 with ``d % 8 == 0`` (TMA's 16-byte row stride) and
+  ``d <= 128``: a producer warp feeds a ring of K/V tiles through TMA and two
+  consumer warpgroups run both products on the tensor cores (``wgmma``);
+* ``"simt"`` — float32, and bf16 with any other d: an online-softmax pass on
+  the float32 FMA units (a TF32 product would change the float32 function).
+
+On a CPU tensor :func:`flash_attention` is its plain twin (:mod:`.ref`); on a
+CUDA tensor it launches the route's kernel or raises.  ``KERNEL.launches``
+counts the launches, ``ROUTE_LAUNCHES`` splits them by route.
 """
 from __future__ import annotations
 
@@ -17,15 +24,47 @@ import torch
 from .._build import CudaKernel, pointer, stream_handle
 from .ref import attention_ref, check_causal_shapes
 
-__all__ = ["KERNEL", "MAX_HEAD_DIM", "flash_attention"]
+__all__ = ["KERNEL", "MAX_HEAD_DIM", "ROUTE_LAUNCHES", "flash_attention", "route",
+           "wgmma_smem_bytes"]
 
 _I = ctypes.c_int
 _ARGS = [ctypes.c_void_p] * 4 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
+_ENTRY = {"simt": {torch.float32: "flash_attention_f32",
+                   torch.bfloat16: "flash_attention_bf16"},
+          "wgmma": {torch.bfloat16: "flash_attention_bf16_wgmma"}}
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
-                    {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS})
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+                    {fn: _ARGS for fns in _ENTRY.values() for fn in fns.values()})
+#: Launches by route, counted beside ``KERNEL.launches``.
+ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 #: Largest head dimension the kernel takes (kMaxD in the source).
 MAX_HEAD_DIM = 128
+# The wgmma route's tiles (kWgBlockQ, kWgBlockK, kWgStages in the source).
+_BLOCK_Q, _BLOCK_K, _STAGES = 128, 128, 2
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with ``d % 8 == 0``
+    and ``d <= 128``, ``"simt"`` otherwise."""
+    return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= MAX_HEAD_DIM
+            else "simt")
+
+
+def wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the wgmma route at head dim ``d`` (its
+    ``kWgSmemBytes``): the q tile and the K/V ring, each row padded to 128
+    bf16 columns (two 128-byte swizzle atoms), the mbarriers, and 1024
+    bytes to align the tiles to the swizzle's period."""
+    if route(torch.bfloat16, d) != "wgmma":
+        raise ValueError(f"head dim {d} does not take the wgmma route")
+    row = 2 * MAX_HEAD_DIM
+    n_barriers = 1 + 3 * _STAGES
+    return _BLOCK_Q * row + 2 * _STAGES * _BLOCK_K * row + 8 * n_barriers + 1024
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at a 16-byte aligned address, as TMA reads it (a contiguous view
+    at an odd offset is copied)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
@@ -45,7 +84,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} KV heads")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
-    if q.dtype not in _SUFFIX:
+    if q.dtype not in _ENTRY["simt"]:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:
@@ -56,8 +95,14 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if sk == 0:  # no key: every softmax sum is 0, divided by 1
+        return out.zero_()
+    path = route(q.dtype, d)
+    if path == "wgmma":
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     with torch.cuda.device(q.device):
-        KERNEL.launch(f"flash_attention_{_SUFFIX[q.dtype]}", pointer(q),
-                      pointer(k), pointer(v), pointer(out), b, hq, hkv, sq, sk,
-                      d, float(sm_scale), int(bool(causal)), stream_handle(q))
+        KERNEL.launch(_ENTRY[path][q.dtype], pointer(q), pointer(k), pointer(v),
+                      pointer(out), b, hq, hkv, sq, sk, d, float(sm_scale),
+                      int(bool(causal)), stream_handle(q))
+    ROUTE_LAUNCHES[path] += 1
     return out

@@ -25,7 +25,8 @@ from repro_torch.core.williamson import EES25_2N, EES27_2N
 from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, INCREMENT_DIAG, INCREMENT_GENERAL,
                                  INCREMENT_PRE, SSD_SCAN, WILLIAMSON2N, WS_STAGE_DIAG,
                                  WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL, WS_STAGE_PRE, build_kernels)
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
+                                                                 flash_attention, route)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.sde_step import ref as sref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
@@ -318,13 +319,21 @@ def test_dispatch_does_not_sync_with_the_host(cuda):
 
 # (b, hq, hkv, s, d, causal, sm_scale): the reference's test shapes
 # (tests/test_kernels.py: MQA, GQA group 4, bidirectional, sm_scale 0.5),
-# zamba2-7b's shared attention, qwen3-1.7b's GQA and a ragged length.
+# zamba2-7b's shared attention, qwen3-1.7b's GQA and a ragged length; then
+# the edges of the wgmma route's 128-row tiles (s = 1, 64, 127, 129, 200)
+# at zamba2-7b's and qwen3's head dims, GQA groups 1, 2, 4 and 8, causal
+# and bidirectional; and a head dim off TMA's 8-column rule (36: bf16 on the
+# SIMT route).
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, None),
     (2, 2, 2, 256, 64, False, None), (1, 4, 4, 384, 32, True, None),
     (1, 16, 4, 256, 64, True, None), (1, 2, 2, 128, 64, True, 0.5),
     (2, 32, 32, 2048, 112, True, None), (1, 16, 8, 2048, 128, True, None),
     (2, 4, 2, 200, 112, True, None), (2, 4, 2, 200, 16, False, None),
+] + [(2, 8, 8 // group, s, d, causal, None)
+     for s in (1, 64, 127, 129, 200) for d in (112, 128)
+     for group, causal in ((1, True), (2, False), (4, True), (8, False))] + [
+    (2, 4, 2, 200, 36, True, None),
 ]
 
 
@@ -335,8 +344,13 @@ def test_flash_attention_matches_twin(cuda, dtype, b, hq, hkv, s, d, causal, sm_
     q = torch.randn(b, hq, s, d, generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn(b, hkv, s, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
     before = FLASH_ATTENTION.launches
+    routes = dict(ROUTE_LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     assert FLASH_ATTENTION.launches == before + 1
+    took = "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+    assert route(dtype, d) == took
+    routes[took] += 1
+    assert ROUTE_LAUNCHES == routes
     want = attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:

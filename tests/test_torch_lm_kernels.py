@@ -21,9 +21,12 @@ from repro.kernels.ssd_scan.ref import ssd_ref as jssd_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan as jssd_scan
 from repro.models.attention import _chunked as j_chunked
 from repro.models.attention import decode_attention as jdecode_attention
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.device import NotYetPorted
 from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (MAX_HEAD_DIM, ROUTE_LAUNCHES,
+                                                                 flash_attention, route,
+                                                                 wgmma_smem_bytes)
 from repro_torch.kernels.flash_attention.ops import _FlashAttention, attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan.ops import _SSDScan, ssd
@@ -109,6 +112,48 @@ def test_attention_dispatch_on_cpu_is_the_twin(use_kernel):
     before = FLASH_ATTENTION.launches
     got = attention(q, k, v, causal=True, use_kernel=use_kernel)
     assert FLASH_ATTENTION.launches == before
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=True), rtol=0, atol=0)
+
+
+# Every configuration that runs attention, with its head dim.
+ATTENTION_ARCHS = [a for a in list_archs() if get_arch(a).n_heads > 0]
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_flash_route_at_every_config_head_dim(arch):
+    d = get_arch(arch).resolved_head_dim
+    assert d % 8 == 0 and d <= MAX_HEAD_DIM
+    assert route(torch.bfloat16, d) == "wgmma"   # the bf16 models: tensor cores
+    assert route(torch.float32, d) == "simt"     # float32 stays in float32
+
+
+@pytest.mark.parametrize("d,want", [(8, "wgmma"), (16, "wgmma"), (64, "wgmma"),
+                                    (120, "wgmma"), (128, "wgmma"), (1, "simt"),
+                                    (36, "simt"), (100, "simt"), (127, "simt"),
+                                    (136, "simt")])
+def test_flash_route_by_head_dim(d, want):
+    """wgmma for bf16 with d % 8 == 0 (TMA's 16-byte row stride) and d <= 128;
+    the SIMT kernel otherwise, and for every float32 call."""
+    assert route(torch.bfloat16, d) == want
+    assert route(torch.float32, d) == "simt"
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_wgmma_shared_memory_fits_every_config_head_dim(arch):
+    # the q tile (128 rows) and two K/V stages (128 rows each), each row
+    # padded to 128 bf16 columns, 7 mbarriers and the 1024-byte alignment
+    d = get_arch(arch).resolved_head_dim
+    assert wgmma_smem_bytes(d) == 128 * 256 + 2 * 2 * 128 * 256 + 7 * 8 + 1024 == 164920
+    assert wgmma_smem_bytes(d) <= 232448
+    with pytest.raises(ValueError, match="wgmma"):
+        wgmma_smem_bytes(36)
+
+
+def test_flash_on_cpu_counts_no_route():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, 4, 2, 64, 64, 112, 4))
+    before = dict(ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, causal=True)
+    assert ROUTE_LAUNCHES == before
     torch.testing.assert_close(got, attention_ref(q, k, v, causal=True), rtol=0, atol=0)
 
 
