@@ -26,7 +26,8 @@ of zamba2-7b at full width — and checks what comes out:
    wgmma route, the rest on the SIMT route) and the wgmma route's
    instructions counted in the built library's SASS, and the SSD scan at
    the reference's test shapes, its decay extremes, zamba2-7b's and
-   mamba2-130m's layer at 2048 tokens; with each kernel's time, the twin's
+   mamba2-130m's layer at 2048 tokens, its TF32 ``mma.sync`` instructions
+   counted in its library's SASS; with each kernel's time, the twin's
    time, its bound and, where one PyTorch call computes it, that call's time
    (L2 flushed and warm);
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
@@ -84,6 +85,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -435,25 +437,24 @@ def _ssd_inputs(torch, gen, shape):
             -torch.exp(draw(h)), draw(b, l, ds), draw(b, l, ds))
 
 
-def sass_counts(torch):
-    """Counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
-    built flash-attention library's SASS; fails if either is 0 or
-    cuobjdump is missing."""
+def sass_counts(kernel, ops):
+    """Counts the instructions ``ops`` in a built kernel library's SASS
+    (``cuobjdump -sass``); fails if any is 0 or cuobjdump is missing."""
     import shutil
 
-    from repro_torch.kernels import FLASH_ATTENTION
     from repro_torch.kernels._build import _nvcc
 
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
     check(tool is not None, "cuobjdump not found beside nvcc or on PATH")
-    proc = subprocess.run([tool, "-sass", str(FLASH_ATTENTION.library_path())],
+    proc = subprocess.run([tool, "-sass", str(kernel.library_path())],
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr.strip()}")
-    counts = {op: proc.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
-    print(f"  flash_attention library SASS (cuobjdump -sass): {counts}", flush=True)
-    check(all(counts.values()), f"the flash_attention library lacks wgmma or TMA "
-          f"instructions: {counts}")
+    counts = {op: proc.stdout.count(op) for op in ops}
+    print(f"  {kernel.name} library SASS (cuobjdump -sass): {counts}", flush=True)
+    check(all(counts.values()), f"the {kernel.name} library lacks some of {ops}: "
+          f"{counts}")
+    return proc.stdout
 
 
 def lm_kernel_phase(torch, timer):
@@ -461,6 +462,7 @@ def lm_kernel_phase(torch, timer):
     their plain twins (at the reference's kernel-vs-oracle tolerances) at
     the reference's test shapes and the LM path's, timed at the main-path
     shape; returns their stats."""
+    from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
     from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
                                                                      flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -517,7 +519,7 @@ def lm_kernel_phase(torch, timer):
             del q, k, v, got, want, diff
     print(f"  flash_attention launches by route over these cases: {routes}; every "
           f"bf16 case with d % 8 == 0 took the wgmma route", flush=True)
-    sass_counts(torch)
+    sass_counts(FLASH_ATTENTION, ("HGMMA", "UTMALDG"))  # wgmma, TMA loads
     rows = []
     # bf16 at both LM shapes (the wgmma route), then float32 at zamba2-7b's
     # (the SIMT route, bound at the float32 FMA rate: TF32 would change it)
@@ -602,12 +604,27 @@ def lm_kernel_phase(torch, timer):
     # (the heads share B and C); 2 flops a MAC.
     ops = 2 * (b * nc * h * (tri * dh + 2 * L * dh * ds) + b * nc * tri * ds)
     bytes_moved = 4 * (2 * xs[0].numel() + xs[1].numel() + h + 2 * xs[3].numel())
+    # the mma.sync TF32 products of the three launches, float32-exact by a
+    # hi + lo split of both operands (three passes)
+    variants = sorted(set(re.findall(r"HMMA\.[\w.]+", sass_counts(SSD_SCAN, ("HMMA",)))))
+    print(f"  ssd_scan HMMA variants: {variants}", flush=True)
+    check(any("TF32" in v for v in variants), "the ssd_scan library has no TF32 HMMA")
+    # The kernel's products are float32-exact in three TF32 tensor-core
+    # passes, so the least time for this work is at a third of the TF32
+    # rate (below the float32 FMA rate's, printed beside it); its three
+    # launches (state, pass, chunk) are timed together.
     stats["ssd_scan"] = _timed_row(
         "ssd_scan", f"float32 (b,l,h,dh,ds,chunk)={SSD_LM_SHAPES[0]}", timer,
         lambda: ssd_scan(*xs, chunk=L), lambda: ssd_chunked_ref(*xs, chunk=L),
-        None, "ssd_scan_kernel", bytes_moved, ops, FP32_FLOPS, "float32 FMA", worst)
-    print(f"  (the same work at the TF32 tensor-core rate, which would change "
-          f"the function: {ops / TF32_FLOPS * 1e6:.2f} us)", flush=True)
+        None, "ssd_scan_kernel", bytes_moved, 3 * ops, TF32_FLOPS,
+        "TF32 tensor-core (3 passes of the hi + lo split)", worst)
+    print(f"  (the same work at the float32 FMA rate: {ops / FP32_FLOPS * 1e6:.2f} us; "
+          f"one TF32 pass, which would change the function: "
+          f"{ops / TF32_FLOPS * 1e6:.2f} us)", flush=True)
+    for name, fn in (("state", "ssd_scan_kernel_state"), ("pass", "ssd_scan_kernel_pass"),
+                     ("chunk", "ssd_scan_kernel_chunk")):
+        print(f"  ssd_scan launch {name}: {timer.ms(lambda: ssd_scan(*xs, chunk=L), fn) * 1e3:.2f}"
+              f" us with L2 flushed", flush=True)
     return stats
 
 

@@ -22,6 +22,7 @@ from .registry import (canonical_spec, get_solver, list_solvers, parse_solver_sp
 from .sdeint import path_keys, sdeint, sdeint_ticks
 from .solvers import (VALID_NOISE, ButcherSolver, LowStorageSolver, MCFSolver, Milstein,
                       ReversibleHeun, SDETerm, SRKAdditive, ees25_solver, ees27_solver)
+from .tableaux import ees25, ees25_tableau, ees27_tableau, euler, heun, midpoint, rk3, rk4
 from .williamson import EES25_2N, EES27_2N, bazavov_residuals, butcher_from_2n, ees25_2n
 
 __all__ = [
@@ -56,6 +57,14 @@ __all__ = [
     "SRKAdditive",
     "ees25_solver",
     "ees27_solver",
+    "ees25",
+    "ees25_tableau",
+    "ees27_tableau",
+    "euler",
+    "heun",
+    "midpoint",
+    "rk3",
+    "rk4",
     "EES25_2N",
     "EES27_2N",
     "ees25_2n",

@@ -1,8 +1,9 @@
 """Butcher tableaux for explicit Runge-Kutta schemes (port of
 ``repro.core.tableaux``, the tableaux the solver registry needs).
 
-A copy of the reference's definitions and its ``stability_poly`` (the
-reference module is not imported: its package pulls in jax).  The
+A copy of the reference's definitions and its analysis helpers
+``stability_poly`` and ``order_residuals`` (the reference module is not
+imported: its package pulls in jax).  The
 EES(n, m; x) schemes are explicit RK methods of order n whose composition
 ``Phi_{-h} o Phi_h`` recovers the initial condition up to order m.
 EES(2,5;x) is the 3-stage family of Proposition 2.1 (canonical x = 1/10);
@@ -18,6 +19,7 @@ import numpy as np
 
 __all__ = [
     "Tableau",
+    "ees25",
     "ees25_tableau",
     "ees27_tableau",
     "euler",
@@ -27,6 +29,7 @@ __all__ = [
     "rk3",
     "rk4",
     "stability_poly",
+    "order_residuals",
 ]
 
 
@@ -51,6 +54,15 @@ class Tableau:
     def stages(self) -> int:
         return len(self.b)
 
+    def a_np(self) -> np.ndarray:
+        return np.array(self.a, dtype=np.float64)
+
+    def b_np(self) -> np.ndarray:
+        return np.array(self.b, dtype=np.float64)
+
+    def c_np(self) -> np.ndarray:
+        return np.array(self.c, dtype=np.float64)
+
 
 def _tab(name, a, b, order, sym_order=None) -> Tableau:
     a = tuple(tuple(float(x) for x in row) for row in a)
@@ -73,6 +85,11 @@ def ees25_tableau(x: float = 0.1) -> Tableau:
     b = (xf, Fraction(1, 2), Fraction(1, 2) - xf)
     a = ((0, 0, 0), (a21, 0, 0), (a31, a32, 0))
     return _tab(f"EES(2,5;{float(x):g})", a, b, order=2, sym_order=5)
+
+
+#: Canonical EES(2,5) = EES(2,5; 1/10): a21 = 1/3, a31 = -5/48, a32 = 15/16,
+#: b = (1/10, 1/2, 2/5), c = (0, 1/3, 5/6).
+ees25 = ees25_tableau(0.1)
 
 
 def ees27_tableau() -> Tableau:
@@ -111,11 +128,29 @@ def stability_poly(tab: Tableau) -> np.ndarray:
     """Coefficients (ascending) of the linear stability polynomial R(rho):
     ``R(rho) = 1 + sum_k (b^T A^k 1) rho^{k+1}``.  EES(2,5;x) yields
     ``1 + rho + rho^2/2 + rho^3/8`` independently of x (Theorem 2.2)."""
-    A = np.array(tab.a, dtype=np.float64)
-    b = np.array(tab.b, dtype=np.float64)
+    A, b = tab.a_np(), tab.b_np()
     coeffs = [1.0]
     vec = np.ones(tab.stages)
     for _ in range(tab.stages):
         coeffs.append(float(b @ vec))
         vec = A @ vec
     return np.array(coeffs)
+
+
+def order_residuals(tab: Tableau, up_to: int = 3) -> dict:
+    """Residuals of the rooted-tree order conditions up to order ``up_to`` (<=4)."""
+    A, b, c = tab.a_np(), tab.b_np(), tab.c_np()
+    res = {}
+    if up_to >= 1:
+        res["t1"] = abs(b.sum() - 1.0)
+    if up_to >= 2:
+        res["t2"] = abs(b @ c - 0.5)
+    if up_to >= 3:
+        res["t31"] = abs(b @ c**2 - 1.0 / 3.0)
+        res["t32"] = abs(b @ (A @ c) - 1.0 / 6.0)
+    if up_to >= 4:
+        res["t41"] = abs(b @ c**3 - 0.25)
+        res["t42"] = abs((b * c) @ (A @ c) - 1.0 / 8.0)
+        res["t43"] = abs(b @ (A @ c**2) - 1.0 / 12.0)
+        res["t44"] = abs(b @ (A @ A @ c) - 1.0 / 24.0)
+    return res

@@ -1,11 +1,18 @@
 """Chunked Mamba2 SSD scan for Hopper (port of
 ``repro.kernels.ssd_scan.ssd_scan``).
 
-One CUDA source, ``csrc/ssd_scan.cu``, built by nvcc for ``sm_90a``: one
-block per (head, batch row) walking the chunks in order with the (dh, ds)
-state in shared memory; float32 in and out.  On a CPU tensor
-:func:`ssd_scan` is its plain twin (``ssd_chunked_ref``); on a CUDA tensor
-it launches the kernel or raises.  ``KERNEL.launches`` counts the launches.
+One CUDA source, ``csrc/ssd_scan.cu``, built by nvcc for ``sm_90a``, run as
+three launches behind one C entry: ``ssd_scan_kernel_state`` (each chunk's
+state increment and decay, one block per (chunk, batch row, group of heads)
+with B loaded once for the group), ``ssd_scan_kernel_pass`` (the chunk-to-
+chunk state recurrence, elementwise over (b, h, dh, ds)) and
+``ssd_scan_kernel_chunk`` (y of each chunk, with C.B^T formed once per
+group of heads).  Every product runs on the tensor cores in TF32 with a
+hi + lo split of both operands, which keeps it to float32 accuracy.
+float32 in and out; the wrapper allocates the chunk states and decays.
+On a CPU tensor :func:`ssd_scan` is its plain twin (``ssd_chunked_ref``);
+on a CUDA tensor it launches the kernels or raises.  ``KERNEL.launches``
+counts calls of the C entry (one per SSM layer), not the three launches.
 """
 from __future__ import annotations
 
@@ -19,18 +26,35 @@ from .ref import ssd_chunked_ref
 __all__ = ["KERNEL", "ssd_scan", "smem_bytes"]
 
 _I = ctypes.c_int
-KERNEL = CudaKernel("ssd_scan", "ssd_scan.cu",
-                    {"ssd_scan_f32": [ctypes.c_void_p] * 6 + [_I] * 6
-                     + [ctypes.c_void_p]})
-_ROW_TILE = 16  # kRowTile in the source
+_ARGS = [ctypes.c_void_p] * 8 + [_I] * 6 + [ctypes.c_void_p]
+KERNEL = CudaKernel("ssd_scan", "ssd_scan.cu", {"ssd_scan_f32": _ARGS})
 _MAX_SMEM = 232448  # the shared memory one Hopper block may use
+_SMEM_PER_SM = 233472  # an SM's, 1024 bytes of it reserved per block
+_MAX_G, _WARPS = 8, 8  # kMaxG, kWarps in the source
 
 
-def smem_bytes(chunk: int, dh: int, ds: int) -> int:
-    """The kernel's dynamic shared memory (its ``layout`` in the source)."""
-    odd = ds + 1 if ds % 2 == 0 else ds
-    return 4 * (chunk * dh + chunk * odd + chunk * ds + dh * odd
-                + _ROW_TILE * chunk + 2 * chunk)
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def smem_bytes(chunk: int, dh: int, ds: int) -> dict:
+    """Dynamic shared memory of the two kernels that use it
+    (``state_floats``/``chunk_floats`` with ``state_nbuf``/``chunk_nbuf`` in
+    the source): every extent padded to 32, rows strided 4 or 8 floats past
+    that; a head's x (and S_in) double-buffered where the state kernel
+    still fits twice on an SM and the chunk kernel once."""
+    L, dhp, dsp = _pad32(chunk), _pad32(dh), _pad32(ds)
+
+    def state(nbuf):
+        return 4 * (L * (dsp + 8) + nbuf * L * (dhp + 8) + _MAX_G * L)
+
+    def chunk_(nbuf):
+        b, buf = L * (dsp + 4), L * (dhp + 8) + dhp * (dsp + 4)
+        return 4 * (L * (dsp + 4) + L * (L + 4) + 2 * _MAX_G * L + _WARPS * 2 * L
+                    + (buf if nbuf == 2 else 0) + max(buf, b))
+
+    return {"state": state(2) if 2 * (state(2) + 1024) <= _SMEM_PER_SM else state(1),
+            "chunk": chunk_(2) if chunk_(2) <= _MAX_SMEM else chunk_(1)}
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
@@ -54,16 +78,28 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
             raise TypeError(f"ssd_scan takes float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError("ssd_scan operands must share one CUDA device")
-    if smem_bytes(chunk, dh, ds) > _MAX_SMEM:
-        raise ValueError(f"chunk {chunk} with dh {dh}, ds {ds} needs "
-                         f"{smem_bytes(chunk, dh, ds)} bytes of shared memory, "
-                         f"more than a block has ({_MAX_SMEM})")
+    need = max(smem_bytes(chunk, dh, ds).values())
+    if need > _MAX_SMEM:
+        raise ValueError(f"chunk {chunk} with dh {dh}, ds {ds} needs {need} bytes "
+                         f"of shared memory, more than a block has ({_MAX_SMEM})")
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        KERNEL.launch("ssd_scan_f32", pointer(x), pointer(dt), pointer(A),
-                      pointer(B), pointer(C), pointer(y), b, l, h, dh, ds, chunk,
-                      stream_handle(x))
+        launch(KERNEL, x, dt, A, B, C, y, chunk)
     return y
+
+
+def launch(kernel, x, dt, A, B, C, y, chunk: int) -> None:
+    """Launches ``kernel``'s ``ssd_scan_f32`` on checked, contiguous operands
+    with its scratch: the chunk states (b, nc, h, dh, ds), increments and
+    then in place the state entering each chunk, and each chunk's decay
+    exp(cum_L)."""
+    b, l, h, dh = x.shape
+    ds = B.shape[-1]
+    states = x.new_empty(b, l // chunk, h, dh, ds)
+    decays = x.new_empty(b, l // chunk, h)
+    kernel.launch("ssd_scan_f32", pointer(x), pointer(dt), pointer(A), pointer(B),
+                  pointer(C), pointer(y), pointer(states), pointer(decays), b, l, h,
+                  dh, ds, chunk, stream_handle(x))

@@ -1,0 +1,74 @@
+"""The public names of ``repro_torch.core`` against ``repro.core``, and the
+port's tableaux helpers against the reference's (float64, exact).
+
+Every Euclidean name the reference's core exports is exported by the port.
+The names still to be ported are listed here with the queue item that
+brings them: adaptive grids on a Virtual Brownian Tree (A12) and the
+manifold solvers (A15).
+"""
+import numpy as np
+import pytest
+
+import repro.core as jcore
+import repro_torch.core as tcore
+from repro.core import tableaux as jtab
+from repro_torch.core import tableaux as ttab
+
+WAITING = {
+    "A12": {"AdaptiveResult", "RealizedGrid", "VirtualBrownianTree",
+            "integrate_adaptive", "realize_grid", "virtual_brownian_tree"},
+    "A15": {"CFLowStorageSolver", "CrouchGrossman2", "Euclidean",
+            "GeoEulerMaruyama", "Group", "ManifoldSDETerm", "Product", "RKMK2",
+            "SO3", "SOn", "SphereAction", "Torus", "cfees25_solver",
+            "cfees27_solver"},
+}
+TABLEAUX = ["euler", "heun", "midpoint", "rk3", "rk4", "ees25", "ees27_tableau"]
+
+
+def _tableau(module, name):
+    obj = getattr(module, name)
+    return obj() if callable(obj) else obj
+
+
+def test_core_exports_every_euclidean_name_of_the_reference():
+    waiting = set().union(*WAITING.values())
+    missing = set(jcore.__all__) - set(tcore.__all__)
+    assert missing == waiting
+    for name in set(jcore.__all__) - waiting:
+        assert hasattr(tcore, name), name
+
+
+def test_the_waiting_names_are_not_exported_yet():
+    for names in WAITING.values():
+        assert not names & set(tcore.__all__)
+
+
+def test_tableaux_import_from_core():
+    from repro_torch.core import (ees25, ees25_tableau, ees27_tableau, euler,  # noqa: F401
+                                  heun, midpoint, rk3, rk4)
+    assert ees25 == ees25_tableau(0.1)
+
+
+@pytest.mark.parametrize("name", TABLEAUX)
+def test_tableau_arrays_equal_the_reference(name):
+    got, want = _tableau(ttab, name), _tableau(jtab, name)
+    for attr in ("a_np", "b_np", "c_np"):
+        g, w = getattr(got, attr)(), getattr(want, attr)()
+        assert g.dtype == w.dtype == np.float64
+        np.testing.assert_array_equal(g, w)
+    assert (got.name, got.order, got.sym_order) == (want.name, want.order, want.sym_order)
+
+
+@pytest.mark.parametrize("up_to", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", TABLEAUX)
+def test_order_residuals_equal_the_reference(name, up_to):
+    got = ttab.order_residuals(_tableau(ttab, name), up_to)
+    want = jtab.order_residuals(_tableau(jtab, name), up_to)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key] == want[key], key
+
+
+def test_ees25_order_two_conditions_hold():
+    res = ttab.order_residuals(ttab.ees25, up_to=2)
+    assert max(res.values()) < 1e-15

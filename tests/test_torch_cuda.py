@@ -374,10 +374,11 @@ def _ssd_inputs(b, l, h, dh, ds, device, seed):
 
 
 # (b, l, h, dh, ds, chunk): the reference's test shapes, zamba2-7b's and
-# mamba2-130m's layers at 2048 tokens.
+# mamba2-130m's layers at 2048 tokens, then widths off the kernel's 32-wide
+# tiles (zero-padded) and rows of 7 and 5 floats (4-byte copies).
 SSD_CASES = [(2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 128), (2, 64, 4, 8, 16, 64),
              (1, 512, 1, 32, 64, 64), (2, 2048, 112, 64, 64, 128),
-             (1, 2048, 24, 64, 128, 128)]
+             (1, 2048, 24, 64, 128, 128), (1, 96, 5, 20, 12, 96), (1, 64, 3, 7, 5, 16)]
 
 
 @pytest.mark.parametrize("b,l,h,dh,ds,chunk", SSD_CASES)

@@ -336,9 +336,11 @@ def test_kernels_listed():
 
 
 def test_kernel_sources_and_build_names():
-    # The SDE-step kernels stream their operands (bytes bound them); the LM
-    # kernels (attention, the SSD scan) are bound by their operations.
-    op_bound = {"flash_attention", "ssd_scan"}
+    # The SDE-step kernels stream their operands (bytes bound them), and so,
+    # by a hair, does the SSD scan on TF32 tensor cores (its three-pass
+    # products take 69 us against 71 us of bytes at zamba2-7b's layer);
+    # attention is bound by its operations.
+    op_bound = {"flash_attention"}
     for k in KERNELS:
         assert k.source.exists()
         text = k.source.read_text()

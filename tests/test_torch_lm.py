@@ -1,8 +1,10 @@
 """The port's LM substrate (inference path) against the JAX reference.
 
 Configs and their registry must equal the reference's field by field.  On
-the four smoke configs whose families the port has (``zamba2-7b`` hybrid,
-``mamba2-130m`` ssm, ``qwen3-1.7b`` and ``olmo-1b`` dense), the reference's
+the six smoke configs whose families the port has (``zamba2-7b`` hybrid,
+``mamba2-130m`` ssm, ``qwen3-1.7b``, ``olmo-1b``, ``qwen1.5-32b`` and
+``yi-9b`` dense; qwen1.5-32b also with random nonzero q/k/v biases, which
+the reference's ``init_params`` draws as zeros), the reference's
 weights are carried across with ``lm_params_from_jax`` and ``forward``,
 ``serve_step`` and the decode ``Engine`` are held to the reference in
 float32 at the reference's decode-vs-forward tolerance (atol 2e-5).  The
@@ -40,7 +42,7 @@ from repro_torch.models import (LMParams, ModelOptions, ShardingPolicy, forward,
 from repro_torch.serving import Engine, ServeConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b"]
+ARCHS = ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b", "qwen1.5-32b", "yi-9b"]
 DERIVED = ["resolved_head_dim", "padded_vocab", "d_inner", "ssm_heads", "block_kind",
            "supports_decode", "subquadratic"]
 
@@ -184,6 +186,50 @@ def test_forward_matches_reference(models, arch, head_positions):
     assert got.shape == want.shape and got.dtype == torch.float32
     assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def biased_qwen():
+    """qwen1.5-32b's smoke weights with random nonzero q/k/v biases (the
+    ``qkv_bias`` path), in both packages."""
+    cfg = configs.get_arch("qwen1.5-32b").smoke()
+    jparams = jax.jit(jinit_params, static_argnums=0)(jconfigs.get_arch("qwen1.5-32b").smoke(),
+                                                      jax.random.PRNGKey(0))
+    rng = np.random.default_rng(7)
+    attn = dict(jparams["layers"]["attn"])
+    for name in ("bq", "bk", "bv"):
+        attn[name] = jnp.asarray(rng.normal(size=attn[name].shape).astype(np.float32) * 0.5)
+    jparams = dict(jparams, layers=dict(jparams["layers"], attn=attn))
+    return cfg, jparams, lm_params_from_jax(jparams, device="cpu")
+
+
+@pytest.mark.parametrize("head_positions", ["all", "last"])
+def test_forward_with_qkv_biases_matches_reference(biased_qwen, head_positions):
+    cfg, jparams, tparams = biased_qwen
+    assert cfg.qkv_bias
+    assert float(dict(tparams.named_parameters())["layers.0.attn.bq"].detach().abs().min()) > 0
+    toks = _tokens(cfg, 2, 32, seed=5)
+    want, _ = jforward(jconfigs.get_arch("qwen1.5-32b").smoke(), jparams,
+                       {"tokens": jnp.asarray(toks)}, JModelOptions(attn_chunk=8),
+                       head_positions=head_positions)
+    with torch.no_grad():
+        got, _ = forward(cfg, tparams, {"tokens": torch.from_numpy(toks)},
+                         ModelOptions(attn_chunk=8), head_positions=head_positions)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_serve_step_with_qkv_biases_matches_reference(biased_qwen):
+    cfg, jparams, tparams = biased_qwen
+    jcfg = jconfigs.get_arch("qwen1.5-32b").smoke()
+    B, S = 2, 16
+    toks = _tokens(cfg, B, S, seed=6)
+    jstep = jax.jit(jmake_serve_step(jcfg))
+    jcache, cache = jinit_cache(jcfg, B, S), init_cache(cfg, B, S, device="cpu")
+    for i in range(S):
+        want, jcache = jstep(jparams, jcache, jnp.asarray(toks[:, i]), jnp.int32(i))
+        with torch.no_grad():
+            got, cache = serve_step(cfg, tparams, cache, torch.from_numpy(toks[:, i]), i)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "qwen3-1.7b"])

@@ -250,9 +250,116 @@ def test_ssd_dispatch_on_cpu_is_the_chunked_twin(use_kernel):
 
 
 def test_ssd_shared_memory_fits_the_served_shapes():
-    # zamba2-7b (dh 64, ds 64) and mamba2-130m (dh 64, ds 128) at chunk 128
-    assert smem_bytes(128, 64, 64) == 124672
-    assert smem_bytes(128, 64, 128) == 206592 <= 232448
+    # zamba2-7b (dh 64, ds 64) and mamba2-130m (dh 64, ds 128) at chunk 128:
+    # the state kernel holds B and x of a head, the chunk kernel C, C.B^T and
+    # x and S_in of a head (B while C.B^T is formed); zamba2-7b's x (and
+    # S_in) double-buffered across heads, mamba2-130m's single
+    assert smem_bytes(128, 64, 64) == {"state": 114688, "chunk": 227328}
+    assert smem_bytes(128, 64, 128) == {"state": 110592, "chunk": 222208}
+    for dh, ds in ((64, 64), (64, 128)):
+        got = smem_bytes(128, dh, ds)
+        assert got["chunk"] <= 232448  # a block's most
+        assert 2 * (got["state"] + 1024) <= 233472  # two state blocks an SM
+
+
+# -- the CUDA kernel's TF32 hi + lo split, emulated ------------------------------
+
+def _tf32(a):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as the kernel rounds its operands' parts (cvt.rna's rounding)."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split(a, b):
+    """a @ b as the kernel's mma.sync passes form it: both operands split
+    into TF32 hi + lo parts, lo.hi + hi.lo + hi.hi accumulated in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_single(a, b):
+    """a @ b as a single TF32 pass would form it."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_kernel(x, dt, A, B, C, chunk, mm):
+    """y of csrc/ssd_scan.cu in plain float32 torch, in its three launches'
+    order, every product through ``mm``: (1) each chunk's increment
+    (w dt x)^T B and decay, (2) the state pass, (3) C.B^T, M = C.B^T *
+    exp(cum_t - cum_s) at s <= t, y = M (dt x) + exp(cum_t) C S_in^T."""
+    b, l, h, dh = x.shape
+    ds, nc = B.shape[-1], l // chunk
+    xr = x.reshape(b, nc, chunk, h, dh)
+    dtr = dt.reshape(b, nc, chunk, h)
+    Br, Cr = B.reshape(b, nc, chunk, ds), C.reshape(b, nc, chunk, ds)
+    cum = torch.cumsum(A * dtr, dim=2)  # (b, nc, L, h)
+    dx = dtr[..., None] * xr  # (b, nc, L, h, dh)
+    w = torch.exp(cum[:, :, -1:, :] - cum)
+    inc = mm((dx * w[..., None]).permute(0, 1, 3, 4, 2), Br[:, :, None])  # (b,nc,h,dh,ds)
+    decay = torch.exp(cum[:, :, -1, :])
+    S, S_in = torch.zeros_like(inc[:, 0]), []
+    for n in range(nc):
+        S_in.append(S)
+        S = decay[:, n, :, None, None] * S + inc[:, n]
+    S_in = torch.stack(S_in, dim=1)
+    CB = mm(Cr, Br.transpose(-1, -2))  # (b, nc, t, s)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool).tril()[None, None, :, :, None]
+    seg = torch.where(mask, cum[:, :, :, None, :] - cum[:, :, None, :, :], -torch.inf)
+    M = (CB[..., None] * torch.exp(seg)).permute(0, 1, 4, 2, 3)  # (b, nc, h, t, s)
+    y_intra = mm(M, dx.permute(0, 1, 3, 2, 4))  # (b, nc, h, t, dh)
+    y_inter = mm(Cr[:, :, None], S_in.transpose(-1, -2))
+    y = y_intra + torch.exp(cum).permute(0, 1, 3, 2)[..., None] * y_inter
+    return y.permute(0, 1, 3, 2, 4).reshape(b, l, h, dh)
+
+
+def _split_case(case):
+    if case == "decay-extremes":  # chip_smoke.py's: dt 5, A (-8, -0.001)
+        x, _, _, B, C = _ssd_inputs(1, 128, 2, 8, 16, seed=0)
+        dt = np.full((1, 128, 2), 5.0, np.float32)
+        return (x, dt, np.array([-8.0, -0.001], np.float32), B, C), 64
+    b, l, h, dh, ds, chunk = case  # the LM widths, depth cut to 4 chunks
+    return _ssd_inputs(b, l, h, dh, ds, seed=11), chunk
+
+
+SPLIT_CASES = [(2, 512, 4, 64, 64, 128), (1, 512, 3, 64, 128, 128), "decay-extremes"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_ssd_tf32_split_holds_the_kernel_bound(case):
+    """The kernel's products, emulated with the hi + lo TF32 split, stay
+    within chip_smoke.py's 1e-5 of max|y| of the float64 chunked twin."""
+    xs, chunk = _split_case(case)
+    want = ssd_chunked_ref(*(torch.from_numpy(a).double() for a in xs), chunk=chunk)[0]
+    got = _emulated_kernel(*map(torch.from_numpy, xs), chunk, _mm_split)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    scale = want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_ssd_single_tf32_pass_misses_the_kernel_bound(case):
+    """The witness for the split: one TF32 pass per product (about three
+    digits) misses 1e-5 of max|y|, so it would change the float32 function."""
+    xs, chunk = _split_case(case)
+    want = ssd_chunked_ref(*(torch.from_numpy(a).double() for a in xs), chunk=chunk)[0]
+    got = _emulated_kernel(*map(torch.from_numpy, xs), chunk, _mm_single)
+    scale = want.abs().max().item()
+    assert (got.double() - want).abs().max().item() > 1e-5 * scale
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    a = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11, -1.0 - 2.0 ** -11,
+                      1.0 + 2.0 ** -12, -3.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -1.0 - 2.0 ** -10, 1.0, -3.0],
+                        dtype=torch.float32)
+    torch.testing.assert_close(_tf32(a), want, rtol=0, atol=0)
+    r = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi = _tf32(r)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((r - hi).abs() <= r.abs() * 2.0 ** -11).all()
+    lo = _tf32(r - hi)
+    assert ((r.double() - hi.double() - lo.double()).abs() <= r.abs().double() * 2.0 ** -21).all()
 
 
 def test_kernel_backwards_raise_not_yet_ported():
