@@ -29,7 +29,11 @@ of zamba2-7b at full width — and checks what comes out:
    mamba2-130m's layer at 2048 tokens, its TF32 ``mma.sync`` instructions
    counted in its library's SASS; with each kernel's time, the twin's
    time, its bound and, where one PyTorch call computes it, that call's time
-   (L2 flushed and warm);
+   (L2 flushed and warm); ``axpy_chain`` at every chain length it has a
+   kernel for (1..8) and at 9 and 17 (split into launches), bitwise;
+   ``increment_pre`` and ``axpy_chain`` also timed at the Table-1 batch
+   (4,096 elements) and at 16,777,216, and their wrappers' host us per call
+   beside ``torch.add``'s at 4,096;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
@@ -38,8 +42,9 @@ of zamba2-7b at full width — and checks what comes out:
 6. the serving path's launch counts;
 7. Table 1 on the card: the four ``:use_kernels=True`` solvers trained for
    the reference's 60 epochs at 256 paths, after their first epochs are
-   held against the plain path on the card and on the CPU; one step of
-   each under ``torch.cuda.set_sync_debug_mode("error")``;
+   held against the plain path on the card and on the CPU; the
+   ``axpy_chain`` launches by chain length; one step of each under
+   ``torch.cuda.set_sync_debug_mode("error")``;
 8. one EES(2,5) training step at 65,536 paths under the reversible and the
    full adjoint, 8 and 64 steps: peak device memory, and the profile of one
    reversible step;
@@ -103,6 +108,11 @@ SERVE_SLOTS = 65536
 D_OBS, D_Z, WIDTH = 1, 16, 32  # benchmarks/table1_ou.py widths
 RAGGED = 1_000_003
 TRAIN_ELEMS = 256 * D_Z        # one Table-1 training batch (benchmarks/table1_ou.py)
+LARGE_ELEMS = 1 << 24          # three 64 MiB float32 streams, past the 50 MB L2
+# axpy_chain's chain lengths held bitwise: each one a kernel is built for
+# (1..8), and two the wrapper splits into consecutive launches.
+CHAIN_LENGTHS = tuple(range(1, 9)) + (9, 17)
+CHAIN_COEFFS = tuple((-1) ** k * (k + 1) / 7 for k in range(CHAIN_LENGTHS[-1]))
 CHECK_EPOCHS = 3              # Table-1 epochs held against the plain path
 # General-noise kernel shapes (rows, d, m): the served state with the
 # reference benchmark's 4 channels, the TPU kernel's lane-aligned m = 128,
@@ -260,9 +270,11 @@ def kernel_phase(torch, timer):
     warm, beside its plain twin, its bound and, where one PyTorch call
     computes the same function, that call (timed here, used nowhere in the
     port)."""
+    from repro_torch.benchmarks.stream_variants import host_us_per_call
     from repro_torch.core.williamson import EES25_2N
     from repro_torch.kernels.sde_step import ref as sref
-    from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag,
+    from repro_torch.kernels.sde_step.sde_step import (AXPY_CHAIN, MAX_INCS, axpy_chain,
+                                                       increment_diag,
                                                        increment_general, increment_pre,
                                                        ws_stage_diag, ws_stage_diag_bwd,
                                                        ws_stage_general, ws_stage_pre)
@@ -285,9 +297,14 @@ def kernel_phase(torch, timer):
                               _flat_inputs(torch, gen, n_in, TRAIN_ELEMS)))
         return shapes
 
-    def timed_flat(n_in, streams, ops):
-        return [(f"served n={served}", _flat_inputs(torch, gen, n_in, served),
-                 streams * served * 4, ops * served)]
+    def timed_flat(n_in, streams, ops, sizes=(served,)):
+        """The timed float32 shapes, the served one first (the record's):
+        inputs, bytes moved and flops."""
+        labels = {served: "served", TRAIN_ELEMS: "training", LARGE_ELEMS: "large"}
+        return [(f"{labels[n]} n={n}", _flat_inputs(torch, gen, n_in, n),
+                 streams * n * 4, ops * n) for n in sizes]
+
+    stream_sizes = (served, TRAIN_ELEMS, LARGE_ELEMS)
 
     def general(n_state, n_out, update_ops):
         """Shapes of a general-noise kernel: (65536, 16, 4), (65536, 16, 128)
@@ -333,14 +350,14 @@ def kernel_phase(torch, timer):
             plain=lambda x: (sref.increment_diag_ref(*x, h),), library=None),
         "axpy_chain": dict(
             symbol="axpy_chain_kernel", shapes=flat(2, train=True), exact=True,
-            timed=timed_flat(2, 3, 2),
+            timed=timed_flat(2, 3, 2, stream_sizes),
             kernel=lambda x: (axpy_chain(x[0], x[1:], [0.5]),),
             plain=lambda x: (sref.axpy_chain_ref(x[0], x[1:], [0.5]),),
             library=("torch.add(y, inc, alpha=c)",
                      lambda x: torch.add(x[0], x[1], alpha=0.5))),
         "increment_pre": dict(
             symbol="increment_pre_kernel", shapes=flat(2), exact=True,
-            timed=timed_flat(2, 3, 2),
+            timed=timed_flat(2, 3, 2, stream_sizes),
             kernel=lambda x: (increment_pre(*x, h),),
             plain=lambda x: (sref.increment_pre_ref(*x, h),),
             library=("torch.add(w, f, alpha=h)",
@@ -396,6 +413,34 @@ def kernel_phase(torch, timer):
                 max(worst.values())))
             del xs
         stats[name] = rows[0]
+
+    # axpy_chain at every chain length it has a kernel for and at two the
+    # wrapper splits into launches of at most MAX_INCS increments, bitwise.
+    for dtype in (torch.float32, torch.float64):
+        for label, make in flat(CHAIN_LENGTHS[-1] + 1, train=True):
+            xs = make(dtype)
+            launched = []
+            for s in CHAIN_LENGTHS:
+                before = AXPY_CHAIN.launches
+                got = axpy_chain(xs[0], xs[1:s + 1], CHAIN_COEFFS[:s])
+                launched.append(AXPY_CHAIN.launches - before)
+                want = sref.axpy_chain_ref(xs[0], xs[1:s + 1], CHAIN_COEFFS[:s])
+                check(torch.equal(got, want) and launched[-1] == -(-s // MAX_INCS),
+                      f"axpy_chain {dtype} {label} s={s} disagrees with its plain "
+                      f"twin or took {launched[-1]} launches")
+            print(f"  axpy_chain {str(dtype)[6:]} {label}: bitwise equal to the twin "
+                  f"at s = {', '.join(map(str, CHAIN_LENGTHS))} (launches "
+                  f"{launched})", flush=True)
+            del xs
+
+    # Host cost of a call at the Table-1 size, beside torch.add's.
+    y, inc = _flat_inputs(torch, gen, 2, TRAIN_ELEMS)(torch.float32)
+    host = {"axpy_chain": host_us_per_call(lambda: axpy_chain(y, [inc], [0.5])),
+            "increment_pre": host_us_per_call(lambda: increment_pre(y, inc, h)),
+            "torch.add": host_us_per_call(lambda: torch.add(y, inc, alpha=0.5))}
+    print(f"  host us per call at n={TRAIN_ELEMS} (back to back, median of 5 "
+          f"rounds of 2000): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()),
+          flush=True)
     return stats
 
 
@@ -831,7 +876,7 @@ def table1_phase(torch):
     """Phase 7: Table 1 on the card (repro_torch.benchmarks.table1_ou)."""
     from repro_torch.benchmarks import table1_ou as t1
     from repro_torch.core import prng
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import AXPY_CHAIN, KERNELS
     from repro_torch.nsde import init_lsde
 
     target = t1.target_paths()
@@ -873,6 +918,7 @@ def table1_phase(torch):
     # launch counts zeroed just before and read just after.
     for kern in KERNELS:
         kern.launches = 0
+    by_entry = dict(AXPY_CHAIN.entry_launches)
     rows = {}
     for name, spec, n_steps in t1.solvers():
         before = {kern.name: kern.launches for kern in KERNELS}
@@ -887,6 +933,13 @@ def table1_phase(torch):
               f"host wall clock), guard skipped {r.skipped} updates; kernel "
               f"launches per step {per_step}", flush=True)
     launches = {kern.name: kern.launches for kern in KERNELS}
+    by_s = {fn[len("axpy_chain_"):]: n - by_entry.get(fn, 0)
+            for fn, n in sorted(AXPY_CHAIN.entry_launches.items())
+            if n > by_entry.get(fn, 0)}
+    print(f"  axpy_chain launches of the 60-epoch runs by chain length: {by_s} "
+          f"(total {launches['axpy_chain']})", flush=True)
+    check(sum(by_s.values()) == launches["axpy_chain"],
+          "axpy_chain's launches by chain length do not add up")
     check(all(np.isfinite(rows["EES(2,5)"].losses)),
           "EES(2,5) training went non-finite")
 

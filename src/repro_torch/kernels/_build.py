@@ -12,6 +12,7 @@ module, and a machine without ``nvcc`` never reaches a build.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import hashlib
@@ -26,13 +27,18 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "build_all", "cuda_operands", "pointer",
+__all__ = ["CudaKernel", "build_all", "cuda_operands", "is_current", "pointer",
            "stream_handle", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The current stream's handle by device index (what Triton and inductor
+# launch on) and the current device's index, read without the Python
+# wrappers around them; absent from CPU builds of torch.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def _nvcc() -> str:
@@ -56,6 +62,8 @@ class CudaKernel:
     (every exported function returns a ``cudaError_t`` as int).  ``launches``
     is incremented by the Python wrapper each time it launches the kernel,
     and nowhere else; callers reset it to count the launches of one run.
+    ``entry_launches`` counts the same launches by exported function (a
+    kernel's specialisations, its routes); callers read it by difference.
     """
 
     def __init__(self, name: str, source: str,
@@ -64,8 +72,10 @@ class CudaKernel:
         self.source = CSRC_DIR / source
         self.functions = dict(functions)
         self.launches = 0
+        self.entry_launches = collections.Counter()
         self.build_log = ""
         self._lib = None
+        self._bound = {}
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
@@ -112,13 +122,16 @@ class CudaKernel:
 
     def launch(self, fn: str, *args) -> None:
         """Call the C launcher ``fn``, raise on a CUDA error, count the launch."""
-        lib = self.lib()
-        code = getattr(lib, fn)(*args)
+        func = self._bound.get(fn)
+        if func is None:
+            func = self._bound.setdefault(fn, getattr(self.lib(), fn))
+        code = func(*args)
         if code != 0:
-            msg = lib.repro_cuda_error_string(code).decode()
+            msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
                                f"(cudaError {code})")
         self.launches += 1
+        self.entry_launches[fn] += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:
@@ -132,9 +145,19 @@ def build_all(kernels: Iterable[CudaKernel]) -> float:
     return time.perf_counter() - start
 
 
-def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device, as a ctypes handle."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as the integer handle
+    a ``c_void_p`` argument takes (read without building a ``Stream``)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.device.index)
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def is_current(t: torch.Tensor) -> bool:
+    """Whether ``t``'s CUDA device is the current one, so a launch on it
+    needs no ``torch.cuda.device`` switch."""
+    current = _CURRENT_DEVICE() if _CURRENT_DEVICE else torch.cuda.current_device()
+    return t.get_device() == current
 
 
 def pointer(t: torch.Tensor) -> ctypes.c_void_p:
@@ -146,14 +169,15 @@ def cuda_operands(ref: torch.Tensor, *others: torch.Tensor, shapes=None):
     dense: same CUDA device, same float dtype, and broadcastable to ``ref``'s
     shape, or to ``shapes[i]`` for operand ``i`` (``ref`` is operand 0) when
     ``shapes`` is given.  Broadcast operands are materialized."""
-    if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernel takes float32 or float64, got {ref.dtype}")
+    dtype, index = ref.dtype, ref.get_device()
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel takes float32 or float64, got {dtype}")
     out = []
     for i, t in enumerate((ref,) + others):
-        if t.device != ref.device:
+        if t.get_device() != index:  # -1 off CUDA
             raise ValueError(f"operands on {t.device} and {ref.device}")
-        if t.dtype != ref.dtype:
-            raise TypeError(f"operand dtype {t.dtype} != {ref.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"operand dtype {t.dtype} != {dtype}")
         shape = ref.shape if shapes is None else torch.Size(shapes[i])
         if t.shape != shape:
             t = t.expand(shape)

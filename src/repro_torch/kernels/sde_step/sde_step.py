@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from .._build import CudaKernel, cuda_operands, pointer, stream_handle
+from .._build import CudaKernel, cuda_operands, is_current, pointer, stream_handle
 from . import ref as _ref
 
 __all__ = ["WS_STAGE_DIAG", "WS_STAGE_DIAG_BWD", "INCREMENT_DIAG",
@@ -57,27 +57,28 @@ WS_STAGE_DIAG = _kernel("ws_stage_diag", [_P] * 7 + [_N] + [_D] * 3 + [_P])
 WS_STAGE_DIAG_BWD = _kernel("ws_stage_diag_bwd",
                             [_P] * 8 + [_N] + [_D] * 3 + [_P])
 INCREMENT_DIAG = _kernel("increment_diag", [_P] * 4 + [_N, _D, _P])
-AXPY_CHAIN = _kernel("axpy_chain", [_P, ctypes.POINTER(_P),
-                                    ctypes.POINTER(_D), ctypes.c_int, _P, _N,
-                                    _P])
+#: Increments one axpy_chain launch takes (kMaxIncs in csrc/axpy_chain.cu).
+MAX_INCS = 8
+# One entry per dtype and chain length s: (y, out, n, stream, incs, coeffs).
+AXPY_CHAIN = CudaKernel("axpy_chain", "axpy_chain.cu", {
+    f"axpy_chain_{sfx}_s{s}": [_P, _P, _N, _P] + [_P] * s + [_D] * s
+    for sfx in ("f32", "f64") for s in range(1, MAX_INCS + 1)})
 INCREMENT_PRE = _kernel("increment_pre", [_P] * 3 + [_N, _D, _P])
 WS_STAGE_PRE = _kernel("ws_stage_pre", [_P] * 6 + [_N] + [_D] * 3 + [_P])
 INCREMENT_GENERAL = _kernel("increment_general",
                             [_P] * 4 + [_N, _I, _I, _D, _P])
 WS_STAGE_GENERAL = _kernel("ws_stage_general",
                            [_P] * 7 + [_N, _I, _I] + [_D] * 3 + [_P])
-#: Increments one axpy_chain launch takes (kMaxIncs in csrc/axpy_chain.cu).
-MAX_INCS = 8
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _on_cuda(name: str, x: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one (the plain twin runs)."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {x.device}")
-    return True
+    return False
 
 
 def ws_stage_diag(delta, y, f, g, dW, h: float, *, a: float, b: float):
@@ -134,43 +135,47 @@ def increment_diag(f, g, dW, h: float):
 
 def axpy_chain(y, incs, coeffs):
     """``y + sum_i coeffs[i]*incs[i]`` shaped like ``y``, accumulated left to
-    right; ``incs`` is a sequence of tensors, ``coeffs`` of floats."""
+    right; ``incs`` is a sequence of tensors, ``coeffs`` of floats.  On CUDA
+    a chain of ``s <= MAX_INCS`` increments is one launch of the kernel built
+    for its ``s`` (entry ``axpy_chain_<dtype>_s<s>``); a longer chain is
+    consecutive launches of at most ``MAX_INCS`` increments, in order, each
+    taking the last one's output as its ``y``."""
     if len(incs) != len(coeffs):
         raise ValueError(f"{len(incs)} increments for {len(coeffs)} "
                          "coefficients")
     if not _on_cuda("axpy_chain", y):
         return _ref.axpy_chain_ref(y, incs, coeffs)
+    if len(incs) > MAX_INCS:
+        head = axpy_chain(y, incs[:MAX_INCS], coeffs[:MAX_INCS])
+        return axpy_chain(head, incs[MAX_INCS:], coeffs[MAX_INCS:])
+    if not is_current(y):
+        with torch.cuda.device(y.device):
+            return axpy_chain(y, incs, coeffs)
     y, *incs = cuda_operands(y, *incs)
     n = y.numel()
     if n == 0 or not incs:
         return y.clone()
-    fn = f"axpy_chain_{_SUFFIX[y.dtype]}"
-    acc = y
-    with torch.cuda.device(y.device):
-        for lo in range(0, len(incs), MAX_INCS):
-            part, cs = incs[lo:lo + MAX_INCS], coeffs[lo:lo + MAX_INCS]
-            out = torch.empty_like(y)
-            AXPY_CHAIN.launch(fn, pointer(acc),
-                              (_P * len(part))(*[t.data_ptr() for t in part]),
-                              (_D * len(cs))(*map(float, cs)), len(part),
-                              pointer(out), n, stream_handle(y))
-            acc = out
-    return acc
+    out = torch.empty_like(y)
+    AXPY_CHAIN.launch(f"axpy_chain_{_SUFFIX[y.dtype]}_s{len(incs)}", y.data_ptr(),
+                      out.data_ptr(), n, stream_handle(y),
+                      *[t.data_ptr() for t in incs], *map(float, coeffs))
+    return out
 
 
 def increment_pre(f, w, h: float):
     """``k = f*h + w`` shaped like ``f`` (``w`` is the prediffused ``g*dW``)."""
     if not _on_cuda("increment_pre", f):
         return _ref.increment_pre_ref(f, w, h)
+    if not is_current(f):
+        with torch.cuda.device(f.device):
+            return increment_pre(f, w, h)
     f, w = cuda_operands(f, w)
     out = torch.empty_like(f)
     n = f.numel()
     if n == 0:
         return out
-    with torch.cuda.device(f.device):
-        INCREMENT_PRE.launch(f"increment_pre_{_SUFFIX[f.dtype]}", pointer(f),
-                             pointer(w), pointer(out), n, float(h),
-                             stream_handle(f))
+    INCREMENT_PRE.launch(f"increment_pre_{_SUFFIX[f.dtype]}", f.data_ptr(),
+                         w.data_ptr(), out.data_ptr(), n, float(h), stream_handle(f))
     return out
 
 

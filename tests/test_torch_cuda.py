@@ -13,6 +13,7 @@ ragged and unaligned (offset view) inputs.  The LM kernels (flash attention,
 the SSD scan) sum in another order than their twins and are held at the
 reference's kernel-vs-oracle tolerances.
 """
+import collections
 import copy
 
 import numpy as np
@@ -30,7 +31,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.sde_step import ref as sref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
-from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, increment_general,
+from repro_torch.kernels.sde_step.sde_step import (MAX_INCS, axpy_chain, increment_diag,
+                                                   increment_general,
                                                    increment_pre, ws_stage_diag, ws_stage_diag_bwd,
                                                    ws_stage_general, ws_stage_pre)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
@@ -126,6 +128,47 @@ def test_prediffused_kernels_equal_twins(cuda, dtype, n, offset):
         assert kernel.launches == before + 1
         for g, w in zip(got, twin()):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+CHAIN_COEFFS = tuple((-1) ** k * (k + 1) / 7 for k in range(17))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1 << 20, 0), (1_000_003, 0), (4099, 1)])
+def test_axpy_chain_every_length_equals_twin(cuda, dtype, n, offset):
+    # Every chain length a kernel is built for, and two chains the wrapper
+    # splits into consecutive launches: bitwise, through the entries the
+    # wrapper's plan names.
+    gen = torch.Generator(device=cuda).manual_seed(n + 3)
+    xs = [torch.randn(n + offset, generator=gen, device=cuda, dtype=dtype)[offset:]
+          for _ in range(18)]
+    sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    for s in list(range(1, MAX_INCS + 1)) + [9, 17]:
+        before = AXPY_CHAIN.launches
+        entries = dict(AXPY_CHAIN.entry_launches)
+        got = axpy_chain(xs[0], xs[1:s + 1], CHAIN_COEFFS[:s])
+        sizes = [min(MAX_INCS, s - lo) for lo in range(0, s, MAX_INCS)]
+        assert AXPY_CHAIN.launches == before + len(sizes)
+        for fn, count in collections.Counter(f"axpy_chain_{sfx}_s{k}" for k in sizes).items():
+            assert AXPY_CHAIN.entry_launches[fn] - entries.get(fn, 0) == count
+        torch.testing.assert_close(
+            got, sref.axpy_chain_ref(xs[0], xs[1:s + 1], CHAIN_COEFFS[:s]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stream_kernels_on_mixed_alignment(cuda, dtype):
+    # One operand at an odd offset takes the whole launch to one-element
+    # vectors; the results stay the twins'.
+    n = (1 << 16) + 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(n, generator=gen, device=cuda, dtype=dtype)
+    b = torch.randn(n + 1, generator=gen, device=cuda, dtype=dtype)[1:]
+    for f, w in ((a, b), (b, a)):
+        torch.testing.assert_close(increment_pre(f, w, 0.25),
+                                   sref.increment_pre_ref(f, w, 0.25), rtol=0, atol=0)
+        torch.testing.assert_close(axpy_chain(f, [w, a], [0.5, -0.25]),
+                                   sref.axpy_chain_ref(f, [w, a], [0.5, -0.25]),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

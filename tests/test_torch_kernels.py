@@ -17,6 +17,8 @@ from repro.kernels.sde_step import ops as jops
 from repro.kernels.sde_step import ref as jref
 from repro.kernels.sde_step import sde_step as jsk
 from repro.kernels.williamson2n.ops import williamson2n_update as jw2n
+from repro_torch.benchmarks.stream_variants import VARIANTS
+from repro_torch.benchmarks.stream_variants import _edit as _edit_source
 from repro_torch.core.williamson import EES25_2N, EES27_2N
 from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, INCREMENT_DIAG, INCREMENT_GENERAL,
                                  INCREMENT_PRE, KERNELS, SSD_SCAN, WILLIAMSON2N, WS_STAGE_DIAG,
@@ -24,7 +26,9 @@ from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, INCREMENT_DIAG, IN
 from repro_torch.kernels.sde_step import ops as tops
 from repro_torch.kernels.sde_step import ref as tref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
-from repro_torch.kernels.sde_step.sde_step import (axpy_chain, increment_diag, increment_general,
+from repro_torch.kernels.sde_step import sde_step as sde_step_module
+from repro_torch.kernels.sde_step.sde_step import (MAX_INCS, axpy_chain, increment_diag,
+                                                   increment_general,
                                                    increment_pre, ws_stage_diag, ws_stage_diag_bwd,
                                                    ws_stage_general, ws_stage_pre)
 from repro_torch.kernels.williamson2n.ops import williamson2n_update
@@ -380,7 +384,9 @@ def test_increment_matches_reference(dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(33,), (4, 5, 7)])
 @pytest.mark.parametrize("coeffs", [(0.5,), (1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6),
-                                    tuple(0.1 * i for i in range(1, 11))])
+                                    tuple(0.1 * i for i in range(1, 11))]
+                         + [tuple((-1) ** k * (k + 1) / 7 for k in range(s))
+                            for s in (2, 3, 5, 6, 7, 8, 9)])
 def test_axpy_chain_matches_reference(dtype, shape, coeffs):
     xs = _inputs(1 + len(coeffs), shape, dtype, seed=12)
     jy, jincs = jnp.asarray(xs[0]), jnp.stack([jnp.asarray(x) for x in xs[1:]])
@@ -393,6 +399,52 @@ def test_axpy_chain_matches_reference(dtype, shape, coeffs):
     assert torch.equal(got, plain)
     _near(got.numpy(), jref.axpy_chain_ref(jy, jincs, coeffs), dtype)
     _near(got.numpy(), jops.fused_axpy_chain(jy, jincs, coeffs, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("s", [1, 2, 7, 8, 9, 16, 17, 25])
+def test_axpy_chain_launch_plan(monkeypatch, s):
+    # The wrapper's host side, without a card: one launch per chunk of at
+    # most MAX_INCS increments, in order, each through the entry built for
+    # its chunk's length and starting from the last launch's output (what
+    # keeps a long chain's accumulation order).
+    calls = []
+    monkeypatch.setattr(sde_step_module, "_on_cuda", lambda name, x: True)
+    monkeypatch.setattr(sde_step_module, "is_current", lambda t: True)
+    monkeypatch.setattr(sde_step_module, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(sde_step_module, "cuda_operands", lambda *ts: list(ts))
+    monkeypatch.setattr(AXPY_CHAIN, "launch", lambda fn, *args: calls.append((fn, args)))
+    y = torch.zeros(8)
+    incs = [torch.full((8,), float(i)) for i in range(s)]
+    coeffs = [0.1 * (i + 1) for i in range(s)]
+    got = axpy_chain(y, incs, coeffs)
+    sizes = [min(MAX_INCS, s - lo) for lo in range(0, s, MAX_INCS)]
+    assert [fn for fn, _ in calls] == [f"axpy_chain_f32_s{k}" for k in sizes]
+    acc, lo = y.data_ptr(), 0
+    for (fn, (y_ptr, out_ptr, n, _, *rest)), k in zip(calls, sizes):
+        assert (y_ptr, n) == (acc, 8)
+        assert rest == [t.data_ptr() for t in incs[lo:lo + k]] + coeffs[lo:lo + k]
+        assert len(AXPY_CHAIN.functions[fn]) == 4 + 2 * k  # y, out, n, stream, incs, coeffs
+        acc, lo = out_ptr, lo + k
+    assert got.data_ptr() == acc
+
+
+def test_axpy_chain_entries_match_the_source():
+    import re
+    text = AXPY_CHAIN.source.read_text()
+    assert f"constexpr int kMaxIncs = {MAX_INCS};" in text
+    built = {int(k) for k in re.findall(r"^REPRO_AXPY_ENTRIES\((\d+)\)$", text, re.M)}
+    assert built == set(range(1, MAX_INCS + 1))
+    assert set(AXPY_CHAIN.functions) == {f"axpy_chain_{sfx}_s{k}" for sfx in ("f32", "f64")
+                                         for k in built}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_stream_variants_edit_the_committed_header(variant):
+    # Each design variant of the stream benchmark is one edit of the
+    # committed csrc/stream.cuh; an edit that no longer applies raises.
+    text = (AXPY_CHAIN.source.parent / "stream.cuh").read_text()
+    edited = _edit_source(text, VARIANTS[variant], variant)
+    assert (edited == text) == (variant == "committed")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
