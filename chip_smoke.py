@@ -22,9 +22,11 @@ of zamba2-7b at full width — and checks what comes out:
    (65536, 16, 128) and (1001, 5, 3)); flash attention in float32 and bf16
    at the reference's test shapes, zamba2-7b's (2, 32, 32, 2048, 112),
    qwen3-1.7b's (1, 16, 8, 2048, 128), a ragged 200 and the 128-row tile's
-   edges, each case on the route it must take (bf16 with d % 8 == 0 on the
-   wgmma route, the rest on the SIMT route) and the wgmma route's
-   instructions counted in the built library's SASS, and the SSD scan at
+   edges, each case on the route it must take (float32 on the mma_tf32
+   route, bf16 with d % 8 == 0 on the wgmma route, other bf16 on the SIMT
+   route) and the tensor-core routes' instructions counted in the built
+   library's SASS (float32 timed at both LM shapes beside SDPA in float32,
+   whose kernel is named from the profiler), and the SSD scan at
    the reference's test shapes, its decay extremes, zamba2-7b's and
    mamba2-130m's layer at 2048 tokens, its TF32 ``mma.sync`` instructions
    counted in its library's SASS; with each kernel's time, the twin's
@@ -61,7 +63,8 @@ of zamba2-7b at full width — and checks what comes out:
    adjoint through EES(2,5) and Reversible Heun (1e-5 of the plain route);
    one step of each under ``set_sync_debug_mode("error")``;
 11. the LM prefill of zamba2-7b at full width: in float32 at 12 layers
-   (B=2, S=256) the kernel path against the plain path, ``forward`` against
+   (B=2, S=256) the kernel path (2 ``flash_attention`` launches, both on the
+   mma_tf32 route) against the plain path, ``forward`` against
    token-by-token ``serve_step``, and the card against a CPU run of the
    plain path (6 layers, B=1, S=128), each within 1e-4 of max|logit|; the
    same 12 layers with bf16 weights, the kernel path (the wgmma route)
@@ -454,10 +457,12 @@ FLASH_REF_SHAPES = ((2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, No
 FLASH_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None), (1, 16, 8, 2048, 128, True, None),
                    (2, 4, 2, 200, 112, True, None), (2, 4, 2, 200, 112, False, None))
 # The wgmma route's tile edges (one row, 127 and 129 against its 128-row
-# tiles), GQA group 8, and a bf16 head dim off TMA's 8-column rule (36,
-# the SIMT route).
+# tiles), GQA group 8, a bf16 head dim off TMA's 8-column rule (36, the
+# SIMT route), and odd head dims whose float32 rows are not 16-byte
+# multiples (the mma_tf32 route's 4-byte copies).
 FLASH_EDGE_SHAPES = ((1, 8, 8, 1, 112, True, None), (2, 4, 1, 127, 112, True, None),
-                     (1, 8, 1, 129, 128, False, None), (2, 4, 2, 200, 36, True, None))
+                     (1, 8, 1, 129, 128, False, None), (2, 4, 2, 200, 36, True, None),
+                     (1, 4, 2, 130, 1, True, None), (2, 4, 2, 129, 127, False, None))
 # SSD shapes (b, l, h, dh, ds, chunk): the reference's tests, then
 # zamba2-7b's layer at 2048 tokens (timed) and mamba2-130m's.
 SSD_REF_SHAPES = ((2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 128),
@@ -520,7 +525,7 @@ def lm_kernel_phase(torch, timer):
     # generator, so every other case keeps its inputs
     gen_lm32 = torch.Generator(device="cuda").manual_seed(4322)
     stats, worst = {}, 0.0
-    routes = {"wgmma": 0, "simt": 0}
+    routes = dict.fromkeys(ROUTE_LAUNCHES, 0)
     for shape in FLASH_REF_SHAPES + FLASH_LM_SHAPES + FLASH_EDGE_SHAPES:
         causal, scale = shape[5], shape[6]
         dtypes = ((torch.float32, torch.bfloat16) if shape not in FLASH_LM_SHAPES[:2]
@@ -533,8 +538,8 @@ def lm_kernel_phase(torch, timer):
             took = [r for r in ROUTE_LAUNCHES if ROUTE_LAUNCHES[r] != before[r]]
             for r in took:
                 routes[r] += ROUTE_LAUNCHES[r] - before[r]
-            expected = ("wgmma" if dtype == torch.bfloat16 and shape[4] % 8 == 0
-                        else "simt")
+            expected = ("mma_tf32" if dtype == torch.float32
+                        else "wgmma" if shape[4] % 8 == 0 else "simt")
             check(took == [expected] and route(dtype, shape[4]) == expected,
                   f"flash_attention {shape} {dtype} took the routes {took}, not "
                   f"{expected}")
@@ -563,32 +568,44 @@ def lm_kernel_phase(torch, timer):
             worst = max(worst, err)
             del q, k, v, got, want, diff
     print(f"  flash_attention launches by route over these cases: {routes}; every "
-          f"bf16 case with d % 8 == 0 took the wgmma route", flush=True)
-    sass_counts(FLASH_ATTENTION, ("HGMMA", "UTMALDG"))  # wgmma, TMA loads
+          f"float32 case took the mma_tf32 route, every bf16 case with d % 8 == 0 "
+          f"the wgmma route", flush=True)
+    # wgmma, TMA loads, and the mma.sync TF32 products of the hi + lo split
+    sass_counts(FLASH_ATTENTION, ("HGMMA", "UTMALDG", "HMMA.1688.F32.TF32"))
     rows = []
-    # bf16 at both LM shapes (the wgmma route), then float32 at zamba2-7b's
-    # (the SIMT route, bound at the float32 FMA rate: TF32 would change it)
+    # bf16 (the wgmma route) and float32 (the mma_tf32 route) at both LM
+    # shapes.  The float32 products are float32-exact in three TF32
+    # tensor-core passes, so their least time is at a third of the TF32 rate
+    # (the float32 FMA rate's printed beside it).
     for shape, dtype in ((FLASH_LM_SHAPES[0], torch.bfloat16),
                          (FLASH_LM_SHAPES[1], torch.bfloat16),
-                         (FLASH_LM_SHAPES[0], torch.float32)):
+                         (FLASH_LM_SHAPES[0], torch.float32),
+                         (FLASH_LM_SHAPES[1], torch.float32)):
         b, hq, hkv, s, d, _, _ = shape
         q, k, v = _flash_inputs(torch, gen, shape, dtype)
         # causal: row t attends to t + 1 keys; QK^T and PV, 2 flops a MAC
         ops = 4 * b * hq * d * s * (s + 1) / 2
         bf16 = dtype == torch.bfloat16
+        library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
         rows.append(_timed_row(
             "flash_attention", f"{str(dtype)[6:]} {route(dtype, d)} route "
             f"(b,hq,hkv,s,d)={shape[:5]}", timer,
             lambda: flash_attention(q, k, v, causal=True),
             lambda: attention_ref(q, k, v, causal=True),
-            ("scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+            ("scaled_dot_product_attention(is_causal=True, enable_gqa=True)", library),
             "flash_attention_kernel", q.element_size() * (2 * q.numel() + 2 * k.numel()),
-            ops, BF16_FLOPS if bf16 else FP32_FLOPS,
-            "bf16 tensor-core" if bf16 else "float32 FMA", worst))
+            ops if bf16 else 3 * ops, BF16_FLOPS if bf16 else TF32_FLOPS,
+            "bf16 tensor-core" if bf16 else "TF32 tensor-core (3 passes of the hi + lo "
+            "split)", worst))
         if route(dtype, d) == "wgmma" and d < 128:
             print(f"  (the wgmma route pads d = {d} to 128 columns: {128 / d:.3f}x the "
                   f"bound's products, and splits P into two bf16 parts: P.V twice)",
+                  flush=True)
+        if not bf16:
+            names = sorted(timer.kernels_us(library, reps=3, flush=False))
+            print(f"  (the same work at the float32 FMA rate: {ops / FP32_FLOPS * 1e6:.2f}"
+                  f" us; one TF32 pass, which would change the function: "
+                  f"{ops / TF32_FLOPS * 1e6:.2f} us; SDPA's float32 kernels: {names})",
                   flush=True)
         del q, k, v
     stats["flash_attention"] = rows[0]
@@ -1401,6 +1418,7 @@ def lm_float32_phase(torch):
     from repro_torch.configs import get_arch
     from repro_torch.core import prng
     from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+    from repro_torch.kernels.flash_attention.flash_attention import ROUTE_LAUNCHES
     from repro_torch.models import (LMParams, ModelOptions, forward, init_cache,
                                     init_params, serve_step)
 
@@ -1418,17 +1436,22 @@ def lm_float32_phase(torch):
     toks = _lm_tokens(torch, cfg, B, S, seed=11)
     with torch.no_grad():
         FLASH_ATTENTION.launches = SSD_SCAN.launches = 0
+        ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
         kern, _ = forward(cfg, params, {"tokens": toks})
         torch.cuda.synchronize()
         launched = (FLASH_ATTENTION.launches, SSD_SCAN.launches)
+        routes = dict(ROUTE_LAUNCHES)
         plain, _ = forward(cfg, params, {"tokens": toks}, ModelOptions(use_flash="never"))
         kp = _rel_to_max(torch, kern, plain)
         check(launched == (2, LM_CHECK_LAYERS), f"the float32 forward launched "
               f"(flash_attention, ssd_scan) = {launched}, not (2, {LM_CHECK_LAYERS})")
+        check(routes == {"wgmma": 0, "mma_tf32": 2, "simt": 0},
+              f"the float32 forward's attention took the routes {routes}")
         check(kern.shape == (B, S, cfg.vocab) and bool(torch.isfinite(kern).all()),
               "the float32 forward's logits are not finite of shape (B, S, V)")
-        print(f"  B={B} S={S}: kernel path (flash_attention {launched[0]}, ssd_scan "
-              f"{launched[1]} launches) vs plain path: {kp:.3e} of max|logit|="
+        print(f"  B={B} S={S}: kernel path (flash_attention {launched[0]} launches, "
+              f"by route {routes}; ssd_scan {launched[1]}) vs plain path: {kp:.3e} of "
+              f"max|logit|="
               f"{plain.abs().max().item():.4g} (tolerance 1e-4)", flush=True)
         check(kp <= 1e-4, "the kernel path disagrees with the plain path")
         lm_bf16_check(torch, cfg, toks, plain)
@@ -1478,7 +1501,7 @@ def lm_bf16_check(torch, cfg, toks, ref):
 
     low = init_params(dataclasses.replace(cfg, dtype="bfloat16"),
                       prng.PRNGKey(0, device="cuda"), device="cuda")
-    ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+    ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
     kern, _ = forward(cfg, low, {"tokens": toks})
     torch.cuda.synchronize()
     routes = dict(ROUTE_LAUNCHES)
@@ -1492,7 +1515,7 @@ def lm_bf16_check(torch, cfg, toks, ref):
           f"{d_kern:.4g}, bf16 plain path vs it {d_plain:.4g} (max|logit| "
           f"{scale:.4g}; the kernel path's limit 2 x {d_plain:.4g} + 1e-3 x "
           f"max|logit| = {limit:.4g})", flush=True)
-    check(routes == {"wgmma": 2, "simt": 0},
+    check(routes == {"wgmma": 2, "mma_tf32": 0, "simt": 0},
           f"the bf16 forward's attention took the routes {routes}")
     check(bool(torch.isfinite(kern).all()), "the bf16 kernel path's logits are not finite")
     check(d_kern <= limit, "the bf16 kernel path is further from the float32 "
@@ -1530,7 +1553,7 @@ def lm_prefill_phase(torch, timer):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         FLASH_ATTENTION.launches = SSD_SCAN.launches = 0
-        ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
         logits = prefill()
         torch.cuda.synchronize()
         launches = {"flash_attention": FLASH_ATTENTION.launches,
@@ -1547,7 +1570,7 @@ def lm_prefill_phase(torch, timer):
         check(launches == {"flash_attention": n_inv, "ssd_scan": cfg.n_layers},
               f"the prefill's kernel launches are {launches}")
         print(f"  flash_attention launches by route: {routes}", flush=True)
-        check(routes == {"wgmma": n_inv, "simt": 0},
+        check(routes == {"wgmma": n_inv, "mma_tf32": 0, "simt": 0},
               f"the prefill's attention took the routes {routes}, not wgmma only")
         walls = []
         for _ in range(3):

@@ -32,14 +32,20 @@ hundreds), which phase 3 and the card's tests hold to 5e-4.  Then ``mma_sync_pea
 ``mma.sync.m16n8k8`` in TF32 alone (8 warps an SM, 8 independent sums a
 warp), the ceiling of the route the kernel's products take.  Shapes:
 zamba2-7b's layer (2, 2048, 112, 64, 64, 128) and mamba2-130m's (1, 2048,
-24, 64, 128, 128).  Needs ``nvcc`` and a card::
+24, 64, 128, 128).  With ``--baseline ROOT`` the kernel of another checkout
+(e.g. the parent commit's unpacked tree) is timed as one more variant, and
+its output at each shape held bitwise to the committed kernel's.  Each
+variant edits ``ssd_scan.cu`` with ``tf32_split.cuh`` inlined.  Needs
+``nvcc`` and a card::
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.ssd_variants
+    PYTHONPATH=src python -m repro_torch.benchmarks.ssd_variants [--baseline ROOT]
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -47,6 +53,7 @@ from ..kernels._build import BUILD_DIR, CSRC_DIR, CudaKernel, build_all, stream_
 from ..kernels.ssd_scan.ref import ssd_chunked_ref
 from ..kernels.ssd_scan.ssd_scan import _ARGS, launch
 from .flash_variants import _times_us
+from .stream_variants import _edit, _inline
 
 __all__ = ["VARIANTS", "SHAPES", "run"]
 
@@ -107,21 +114,26 @@ extern "C" const char* repro_cuda_error_string(int code) {
 """
 
 
-def _kernels():
+def edited_source(name: str) -> str:
+    """The committed ``ssd_scan.cu``, ``tf32_split.cuh`` inlined, with
+    ``name``'s edits applied."""
+    source = _inline((CSRC_DIR / "ssd_scan.cu").read_text(),
+                     {"tf32_split.cuh": (CSRC_DIR / "tf32_split.cuh").read_text()})
+    return _edit(source, VARIANTS[name], f"variant {name}")
+
+
+def _kernels(baseline=None):
     """One CudaKernel per variant (its source written under the build dir),
-    and the mma.sync peak kernel."""
-    source = (CSRC_DIR / "ssd_scan.cu").read_text()
+    the baseline's when given, and the mma.sync peak kernel."""
     (BUILD_DIR / "variants").mkdir(parents=True, exist_ok=True)
     kernels = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old!r} is not in the source")
-            text = text.replace(old, new)
+    for name in VARIANTS:
         path = BUILD_DIR / "variants" / f"ssd_scan_{name}.cu"
-        path.write_text(text)
+        path.write_text(edited_source(name))
         kernels[name] = CudaKernel(f"ssd_{name}", path, {"ssd_scan_f32": _ARGS})
+    if baseline is not None:
+        path = Path(baseline).resolve() / "src" / "repro_torch" / "csrc" / "ssd_scan.cu"
+        kernels["baseline"] = CudaKernel("ssd_baseline", path, {"ssd_scan_f32": _ARGS})
     path = BUILD_DIR / "variants" / "mma_sync_peak.cu"
     path.write_text(_PEAK_SOURCE)
     peak_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -178,13 +190,13 @@ def _peak_tflops(peak) -> float:
     return flops / (start.elapsed_time(end) * 1e-3) / 1e12
 
 
-def run() -> None:
+def run(baseline=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ssd_variants times the CUDA kernel: no card here")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {card.stdout.strip()}", flush=True)
-    kernels, peak = _kernels()
+    kernels, peak = _kernels(baseline)
     print(f"built {len(kernels) + 1} libraries in "
           f"{build_all(list(kernels.values()) + [peak]):.2f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -202,13 +214,18 @@ def run() -> None:
             fn = lambda: launch(kernels[name], *xs, y, chunk)  # noqa: E731
             fn()
             times[name] += _times_us(fn, flush_buf, flush=True)
+        outs = {}
         for name, kernel in kernels.items():
             launch(kernel, *xs, y, chunk)
+            outs[name] = y.clone()
             err = ((y - want).abs().max() / want.abs().max()).item()
             parts = _launch_us(lambda: launch(kernel, *xs, y, chunk))
             med = sorted(times[name])[len(times[name]) // 2]
             print(f"{name},{shape},{err:.3e},{med:.2f},"
                   + ",".join(f"{parts[p]:.2f}" for p in _LAUNCHES), flush=True)
+        if "baseline" in outs:
+            print(f"baseline,{shape},bitwise equal to committed: "
+                  f"{torch.equal(outs['baseline'], outs['committed'])}", flush=True)
     print("variant,decay extremes: max |kernel - twin| over 20 draws", flush=True)
     for name, kernel in kernels.items():
         print(f"{name},{_extremes_err(kernel):.3e}", flush=True)
@@ -216,4 +233,7 @@ def run() -> None:
 
 
 if __name__ == "__main__":
-    run()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="root of another checkout whose ssd_scan.cu "
+                        "is timed beside these and held bitwise to the committed one")
+    run(parser.parse_args().baseline)

@@ -7,13 +7,17 @@
 //     o[b, h] = softmax(sm_scale * q[b, h] k[b, h / group]^T  (+ causal mask)) v[b, h / group]
 //
 // q is (b, hq, sq, d), k and v (b, hkv, sk, d), contiguous; o is
-// (b, hq, sq, d) in q's type.  Two routes, chosen by the Python wrapper from
-// the dtype and d alone:
+// (b, hq, sq, d) in q's type.  Three routes, chosen by the Python wrapper
+// from the dtype and d alone.
 //
 // Bound: operations.  At the LM path's shape (b 2, 32 heads, s 2048, d 112,
-// bf16, causal) the work is 4*b*h*s^2*d/2 = 60 GFLOP against 117 MB of q, k,
-// v and o: ~510 flops per byte, above the card's balance point (~295), so
-// the bound is the tensor cores' bf16 rate (61 us).
+// causal) the work is 4*b*h*d*s(s+1)/2 = 6.016e10 flop against 117 MB of q,
+// k, v and o in bf16 (235 MB in float32): ~510 (~255) flops per byte, above
+// the card's balance point, so the bound is the rate of the products: 61 us
+// on the bf16 tensor cores, and in float32 364.6 us for three TF32
+// tensor-core passes at 495 TFLOP/s (681.3 us at the 264.9 TFLOP/s that
+// mma.sync alone reaches on the card), against 897.89 us on the float32 FMA
+// units (67 TFLOP/s).
 //
 // 1. flash_attention_kernel_wgmma (bf16, d % 8 == 0, d <= 128): tensor
 //    cores fed by TMA.  What its design does about the bound:
@@ -45,9 +49,42 @@
 //    stops at the q tile's diagonal tile, the only one masked; rows past sq
 //    are not stored; rows whose softmax sum is 0 divide by 1.
 //
-// 2. flash_attention_kernel (float32, and bf16 with another d): the
-//    products on the float32 FMA units out of shared memory, well above the
-//    bound (a TF32 product would change the float32 function):
+// 2. flash_attention_kernel_tf32 (float32, d <= 128): both products on the
+//    TF32 tensor cores as mma.sync.m16n8k8, float32-exact by the hi + lo
+//    split of tf32_split.cuh (each operand split into TF32 parts, a.b formed
+//    as a_lo b_hi + a_hi b_lo + a_hi b_hi: three passes; one pass misses the
+//    float32 tolerance ~50x).  What its design does about the bound:
+//  * one block per (128-row q tile, q head, batch row), 8 warps of 16 q
+//    rows, one block an SM, grid ordered as route 1's (the longest causal
+//    walks first); under `causal` a warp skips the KV tiles past its own
+//    last row;
+//  * K/V tiles of 64 rows come into shared memory through cp.async in a
+//    ring of two stages, so the next tile's copy runs under this tile's
+//    products; one barrier a tile; with the q tile, 202 KB at d = 128;
+//  * the q tile stays in shared memory (Q's fragments in registers push
+//    d = 112 and 128 past 255 registers into spills); every operand is
+//    split as its fragment is read, its hi part rounded to TF32 and its lo
+//    part left for the tensor cores to truncate (two integer operations
+//    fewer a value than rounding it: the splits, not the products, are
+//    most of the instructions);
+//  * the sum over the head dim (S) and over the keys (P V) takes the A
+//    layout's columns t and t + 4 as columns 2t and 2t + 1 of each 8-wide
+//    step: K's fragment is then one 64-bit load, and P's A fragment is S's
+//    accumulator fragment as it stands (no shuffle, no shared memory);
+//  * row strides of 8 (mod 32) floats for K and Q and 4 (mod 8) for V keep
+//    every fragment load free of bank conflicts;
+//  * S keeps its a_hi b_hi products in a sum apart from the small ones (the
+//    tensor cores truncate each sum they form); the online softmax runs in
+//    S's registers as in route 1 (row max and sum over 4 lanes, 2^x on the
+//    SFU); O is one sum of the three passes;
+//  * d is padded to a multiple of 16 (one instantiation each) with zeros in
+//    shared memory; rows past sk are zero-filled and their scores masked to
+//    -inf with the causal ones; rows past sq are not stored; rows whose
+//    softmax sum is 0 divide by 1; rows whose byte stride is not a multiple
+//    of 16 (odd d) and unaligned views take 4-byte copies.
+//
+// 3. flash_attention_kernel (bf16 with another d): the products on the
+//    float32 FMA units out of shared memory, well above the bound:
 //  * one block per (64-row q tile, q head, batch); the q tile stays in
 //    shared memory while the block walks the KV sequence in tiles of 32 rows
 //    (K and V tiles in shared memory, converted to float32 on load), keeping
@@ -71,7 +108,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_split.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// Route 3: the float32 FMA units (bf16 with d % 8 != 0).
 
 constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;               // q rows per block
@@ -82,17 +124,11 @@ constexpr int kCols = kBlockK / 16;       // score columns per thread
 constexpr int kOutCols = kMaxD / 16;      // output columns per thread
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+__device__ __forceinline__ __nv_bfloat16 from_float(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch casts
 }
 
@@ -240,7 +276,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) oh[static_cast<int64_t>(row) * d + c] = from_float<T>(acc[i][j] / li);
+      if (c < d) oh[static_cast<int64_t>(row) * d + c] = from_float(acc[i][j] / li);
     }
   }
 }
@@ -684,14 +720,299 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Route 2: TF32 mma.sync, float32-exact by the hi + lo split (float32).
+
+constexpr int kTfWarps = 8;
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int kTfBlockQ = 16 * kTfWarps;      // q rows per block, 16 a warp
+constexpr int kTfBlocksPerSM = 8 / kTfWarps;  // 8 warps an SM
+constexpr int kTfBlockK = 64;                 // KV rows per tile
+constexpr int kTfStages = 2;                  // K/V ring depth
+constexpr bool kTfQInRegs = false;  // Q's raw fragments in registers, else the q tile
+                                    // in shared memory
+
+// Row strides (floats) of the shared tiles at the padded head dim dp (a
+// multiple of 16): K's and Q's are 8 (mod 32), so the 64-bit fragment loads
+// of a half-warp (rows g, columns 2t and 2t + 1) hit 32 different banks;
+// V's are 4 (mod 8), so the 32-bit loads of a warp (rows 2t or 2t + 1,
+// column g) do.  Mirrored by tf32_smem_bytes in flash_attention.py.
+__host__ __device__ constexpr int tf_ldk(int dp) { return dp % 32 == 0 ? dp + 8 : dp + 24; }
+__host__ __device__ constexpr int tf_ldv(int dp) { return dp + 4; }
+__host__ __device__ constexpr int tf_smem_bytes(int dp) {
+  return 4 * (kTfStages * kTfBlockK * (tf_ldk(dp) + tf_ldv(dp)) +
+              (kTfQInRegs ? 0 : kTfBlockQ * tf_ldk(dp)));
+}
+
+// Fragments as split_lo_truncated splits them (the lo parts unrounded).
+__device__ __forceinline__ void set_a(FragA& f, const float (&v)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_lo_truncated(v[i], f.hi[i], f.lo[i]);
+}
+__device__ __forceinline__ void set_b(FragB& f, float v0, float v1) {
+  split_lo_truncated(v0, f.hi[0], f.lo[0]);
+  split_lo_truncated(v1, f.hi[1], f.lo[1]);
+}
+
+// Starts copying rows [row0, row0 + kRows) of an (n, d) row-major float32
+// matrix into shared memory (row stride ld), zero in rows past n and in
+// columns d..kDp-1: 16-byte copies when `vec` (d % 4 == 0 and 16-byte
+// aligned rows), else 4-byte ones.
+template <int kRows, int kDp>
+__device__ __forceinline__ void tf_load_tile(float* dst, int ld, const float* __restrict__ src,
+                                             int row0, int n, int d, bool vec) {
+  if (vec) {
+    constexpr int kPer = kDp / 4;
+#pragma unroll
+    for (int e = threadIdx.x; e < kRows * kPer; e += kTfThreads) {
+      const int r = e / kPer, c = (e % kPer) * 4;
+      const bool valid = row0 + r < n && c < d;
+      cp_async(dst + r * ld + c, valid ? src + static_cast<int64_t>(row0 + r) * d + c : src,
+               16, valid);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < kRows * kDp; e += kTfThreads) {
+      const int r = e / kDp, c = e % kDp;
+      const bool valid = row0 + r < n && c < d;
+      cp_async(dst + r * ld + c, valid ? src + static_cast<int64_t>(row0 + r) * d + c : src,
+               4, valid);
+    }
+  }
+}
+
+template <int kDp>
+__global__ void __launch_bounds__(kTfThreads, kTfBlocksPerSM)
+flash_attention_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int hq,
+                            int hkv, int sq, int sk, int d, float scale_log2, int causal,
+                            int vec) {
+  constexpr int kNd = kDp / 8;        // 8-column steps of the head dim
+  constexpr int kNs = kTfBlockK / 8;  // 8-key steps of a KV tile
+  constexpr int ldk = tf_ldk(kDp), ldv = tf_ldv(kDp);
+  extern __shared__ __align__(16) float smem_tf[];
+  float* ks = smem_tf;                           // stages x kTfBlockK x ldk
+  float* vs = ks + kTfStages * kTfBlockK * ldk;  // stages x kTfBlockK x ldv
+  float* qs = vs + kTfStages * kTfBlockK * ldv;  // kTfBlockQ x ldk, unless kTfQInRegs
+
+  const int bh = blockIdx.x;  // batch row * hq + q head
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTfBlockQ;
+  const float* qh = q + static_cast<int64_t>(bh) * sq * d;
+  const float* kh = k + static_cast<int64_t>(kv_bh) * sk * d;
+  const float* vh = v + static_cast<int64_t>(kv_bh) * sk * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + 16 * warp;  // this warp's rows: this thread's are w0 + g, w0 + g + 8
+  // Causal (sq == sk): the last key this q tile sees is q0 + kTfBlockQ - 1,
+  // the last one this warp sees w0 + 15; a warp past sq sees none.
+  const int kv_end = causal ? min(sk, q0 + kTfBlockQ) : sk;
+  const int n_tiles = (kv_end + kTfBlockK - 1) / kTfBlockK;
+  const int warp_end = w0 >= sq ? 0 : causal ? min(sk, w0 + 16) : sk;
+
+  auto load_kv = [&](int tile) {
+    const int s = tile % kTfStages;
+    tf_load_tile<kTfBlockK, kDp>(ks + s * kTfBlockK * ldk, ldk, kh, tile * kTfBlockK, sk, d,
+                                 vec);
+    tf_load_tile<kTfBlockK, kDp>(vs + s * kTfBlockK * ldv, ldv, vh, tile * kTfBlockK, sk, d,
+                                 vec);
+  };
+  if constexpr (!kTfQInRegs) tf_load_tile<kTfBlockQ, kDp>(qs, ldk, qh, q0, sq, d, vec);
+#pragma unroll
+  for (int s = 0; s < kTfStages - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    cp_async_commit();
+  }
+
+  // S sums over the head dim and P V over the keys in any order, so the A
+  // layout's columns t and t + 4 are taken as columns 2t and 2t + 1 of each
+  // 8-wide step: Q's A fragment of step kk is rows (g, g + 8) x columns
+  // 8 kk + 2t + (0, 1), K's B fragment one 64-bit load.
+  float qf[kTfQInRegs ? kNd : 1][4];
+  if constexpr (kTfQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < kNd; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = w0 + g + 8 * (e & 1), col = 8 * kk + 2 * t + (e >> 1);
+        qf[kk][e] = row < sq && col < d ? qh[static_cast<int64_t>(row) * d + col] : 0.f;
+      }
+  }
+  auto q_frag = [&](int kk, FragA& fa) {
+    if constexpr (kTfQInRegs) {
+      set_a(fa, qf[kk]);
+    } else {
+      const float* r = qs + (16 * warp + g) * ldk + 8 * kk + 2 * t;
+      const float2 a = *reinterpret_cast<const float2*>(r);
+      const float2 b = *reinterpret_cast<const float2*>(r + 8 * ldk);
+      const float vals[4] = {a.x, b.x, a.y, b.y};
+      set_a(fa, vals);
+    }
+  };
+
+  float acc[kNd][4] = {};  // O unnormalised: tile j holds columns 8j + 2t, 8j + 2t + 1
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kTfStages - 2>();
+    __syncthreads();  // this tile is in; every warp is done with the last one
+    if (tile + kTfStages - 1 < n_tiles) load_kv(tile + kTfStages - 1);
+    cp_async_commit();
+    const int k0 = tile * kTfBlockK;
+    if (k0 >= warp_end) continue;
+    const float* kt = ks + (tile % kTfStages) * kTfBlockK * ldk;
+    const float* vt = vs + (tile % kTfStages) * kTfBlockK * ldv;
+
+    // S = Q K^T, the a_hi b_hi products in sb, the others in ss.
+    float sb[kNs][4] = {}, ss[kNs][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kNd; ++kk) {
+      FragA fa;
+      q_frag(kk, fa);
+      FragB fb[kNs];
+#pragma unroll
+      for (int j = 0; j < kNs; ++j) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(kt + (8 * j + g) * ldk + 8 * kk + 2 * t);
+        set_b(fb[j], kv.x, kv.y);
+      }
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int j = 0; j < kNs; ++j) mma_part(sb[j], ss[j], fa, fb[j], part);
+    }
+
+    // Online softmax in base 2 on rows g and g + 8 (e / 2); only a tile
+    // past sk or across this warp's diagonal holds masked keys.
+    const bool edge = k0 + kTfBlockK > sk || (causal && k0 + kTfBlockK - 1 > w0);
+#pragma unroll
+    for (int j = 0; j < kNs; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (sb[j][e] + ss[j][e]) * scale_log2;
+        if (edge) {
+          const int row = w0 + g + 8 * (e / 2), col = k0 + 8 * j + 2 * t + (e % 2);
+          if (col >= sk || (causal && col > row)) x = -INFINITY;
+        }
+        sb[j][e] = x;
+      }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kNs; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sb[j][e]);
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      shift[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no key yet
+      alpha[r] = exp2_ftz(m[r] - shift[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];  // this thread's part of the row sum
+    }
+#pragma unroll
+    for (int j = 0; j < kNs; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sb[j][e] = exp2_ftz(sb[j][e] - shift[e / 2]);
+        l[e / 2] += sb[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V.  P's A fragment of key step kk is S's sum fragment of
+    // column tile kk: (g, 2t) (g + 8, 2t) (g, 2t + 1) (g + 8, 2t + 1), i.e.
+    // keys 2t and 2t + 1 in the A layout's columns t and t + 4, so V's B
+    // fragment is rows 2t and 2t + 1 of the step at column g.
+#pragma unroll
+    for (int kk = 0; kk < kNs; ++kk) {
+      FragA pa;
+      const float pv[4] = {sb[kk][0], sb[kk][2], sb[kk][1], sb[kk][3]};
+      set_a(pa, pv);
+      const float* v0 = vt + (8 * kk + 2 * t) * ldv + g;
+#pragma unroll
+      for (int j = 0; j < kNd; ++j) {
+        FragB vb;
+        set_b(vb, v0[8 * j], v0[ldv + 8 * j]);
+#pragma unroll
+        for (int part = 0; part < 3; ++part) mma_part(acc[j], acc[j], pa, vb, part);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float li = l[r] == 0.f ? 1.f : l[r];
+    const int row = w0 + g + 8 * r;
+    if (row >= sq) continue;
+    float* orow = o + (static_cast<int64_t>(bh) * sq + row) * d;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float x0 = acc[j][2 * r] / li, x1 = acc[j][2 * r + 1] / li;
+      if (d % 2 == 0) {
+        if (col < d) *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+      } else {
+        if (col < d) orow[col] = x0;
+        if (col + 1 < d) orow[col + 1] = x1;
+      }
+    }
+  }
+}
+
+template <int kDp>
+int launch_tf32_dp(const float* q, const float* k, const float* v, float* o, int b, int hq,
+                   int hkv, int sq, int sk, int d, float scale_log2, int causal, int vec,
+                   cudaStream_t stream) {
+  constexpr int bytes = tf_smem_bytes(kDp);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel_tf32<kDp>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(b * hq, (sq + kTfBlockQ - 1) / kTfBlockQ);
+  flash_attention_kernel_tf32<kDp><<<grid, kTfThreads, bytes, stream>>>(
+      q, k, v, o, hq, hkv, sq, sk, d, scale_log2, causal, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                int hkv, int sq, int sk, int d, double sm_scale, int causal, void* stream) {
+  if (d < 1 || d > kMaxD || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                 reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const float scale_log2 = static_cast<float>(sm_scale * 1.4426950408889634);
+  const auto args = [&](auto launcher) {
+    return launcher(static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(o), b, hq, hkv, sq, sk,
+                    d, scale_log2, causal, vec, static_cast<cudaStream_t>(stream));
+  };
+  switch ((d + 15) / 16) {  // the head dim padded to a multiple of 16
+    case 1: return args(launch_tf32_dp<16>);
+    case 2: return args(launch_tf32_dp<32>);
+    case 3: return args(launch_tf32_dp<48>);
+    case 4: return args(launch_tf32_dp<64>);
+    case 5: return args(launch_tf32_dp<80>);
+    case 6: return args(launch_tf32_dp<96>);
+    case 7: return args(launch_tf32_dp<112>);
+    default: return args(launch_tf32_dp<128>);
+  }
+}
+
 }  // namespace
 
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, int b, int hq, int hkv, int sq,
-                                   int sk, int d, double sm_scale, int causal,
-                                   void* stream) {
-  return launch<float>(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale, causal,
-                       stream);
+extern "C" int flash_attention_f32_tf32(const void* q, const void* k,
+                                        const void* v, void* o, int b, int hq,
+                                        int hkv, int sq, int sk, int d,
+                                        double sm_scale, int causal, void* stream) {
+  return launch_tf32(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale, causal,
+                     stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,

@@ -2,13 +2,17 @@
 ``repro.kernels.flash_attention.flash_attention``).
 
 One CUDA source, ``csrc/flash_attention.cu``, built by nvcc for ``sm_90a``,
-with two routes chosen by :func:`route` from the dtype and head dim alone:
+with three routes chosen by :func:`route` from the dtype and head dim alone:
 
 * ``"wgmma"`` — bf16 with ``d % 8 == 0`` (TMA's 16-byte row stride) and
   ``d <= 128``: a producer warp feeds a ring of K/V tiles through TMA and two
   consumer warpgroups run both products on the tensor cores (``wgmma``);
-* ``"simt"`` — float32, and bf16 with any other d: an online-softmax pass on
-  the float32 FMA units (a TF32 product would change the float32 function).
+* ``"mma_tf32"`` — float32: both products on the TF32 tensor cores
+  (``mma.sync``), float32-exact by splitting each operand into TF32 hi + lo
+  parts (three passes; a single TF32 pass would change the float32
+  function), K/V tiles fed by a ``cp.async`` ring;
+* ``"simt"`` — bf16 with any other d: an online-softmax pass on the float32
+  FMA units.
 
 On a CPU tensor :func:`flash_attention` is its plain twin (:mod:`.ref`); on a
 CUDA tensor it launches the route's kernel or raises.  ``KERNEL.launches``
@@ -25,26 +29,30 @@ from .._build import CudaKernel, pointer, stream_handle
 from .ref import attention_ref, check_causal_shapes
 
 __all__ = ["KERNEL", "MAX_HEAD_DIM", "ROUTE_LAUNCHES", "flash_attention", "route",
-           "wgmma_smem_bytes"]
+           "tf32_smem_bytes", "wgmma_smem_bytes"]
 
 _I = ctypes.c_int
 _ARGS = [ctypes.c_void_p] * 4 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
-_ENTRY = {"simt": {torch.float32: "flash_attention_f32",
-                   torch.bfloat16: "flash_attention_bf16"},
-          "wgmma": {torch.bfloat16: "flash_attention_bf16_wgmma"}}
+_ENTRY = {"wgmma": {torch.bfloat16: "flash_attention_bf16_wgmma"},
+          "mma_tf32": {torch.float32: "flash_attention_f32_tf32"},
+          "simt": {torch.bfloat16: "flash_attention_bf16"}}
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
                     {fn: _ARGS for fns in _ENTRY.values() for fn in fns.values()})
 #: Launches by route, counted beside ``KERNEL.launches``.
-ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "mma_tf32": 0, "simt": 0}
 #: Largest head dimension the kernel takes (kMaxD in the source).
 MAX_HEAD_DIM = 128
 # The wgmma route's tiles (kWgBlockQ, kWgBlockK, kWgStages in the source).
 _BLOCK_Q, _BLOCK_K, _STAGES = 128, 128, 2
+# The mma_tf32 route's tiles (kTfBlockQ, kTfBlockK, kTfStages, kTfQInRegs).
+_TF_BLOCK_Q, _TF_BLOCK_K, _TF_STAGES, _TF_Q_IN_REGS = 128, 64, 2, False
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with ``d % 8 == 0``
-    and ``d <= 128``, ``"simt"`` otherwise."""
+    """The kernel a CUDA call takes: ``"mma_tf32"`` for float32, ``"wgmma"``
+    for bf16 with ``d % 8 == 0`` and ``d <= 128``, ``"simt"`` for other bf16."""
+    if dtype == torch.float32:
+        return "mma_tf32"
     return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= MAX_HEAD_DIM
             else "simt")
 
@@ -59,6 +67,19 @@ def wgmma_smem_bytes(d: int) -> int:
     row = 2 * MAX_HEAD_DIM
     n_barriers = 1 + 3 * _STAGES
     return _BLOCK_Q * row + 2 * _STAGES * _BLOCK_K * row + 8 * n_barriers + 1024
+
+
+def tf32_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the mma_tf32 route at head dim ``d`` (its
+    ``tf_smem_bytes``): the K/V ring and the q tile, d padded to a multiple
+    of 16 and rows strided 8 (mod 32) floats for K and Q, 4 (mod 8) for V."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    dp = -(-d // 16) * 16
+    ldk = dp + 8 if dp % 32 == 0 else dp + 24
+    ldv = dp + 4
+    q_tile = 0 if _TF_Q_IN_REGS else _TF_BLOCK_Q * ldk
+    return 4 * (_TF_STAGES * _TF_BLOCK_K * (ldk + ldv) + q_tile)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -84,7 +105,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} KV heads")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
-    if q.dtype not in _ENTRY["simt"]:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:

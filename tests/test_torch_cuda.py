@@ -366,7 +366,7 @@ def test_dispatch_does_not_sync_with_the_host(cuda):
 # the edges of the wgmma route's 128-row tiles (s = 1, 64, 127, 129, 200)
 # at zamba2-7b's and qwen3's head dims, GQA groups 1, 2, 4 and 8, causal
 # and bidirectional; and a head dim off TMA's 8-column rule (36: bf16 on the
-# SIMT route).
+# SIMT route; float32 takes the mma_tf32 route at every d).
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, None),
     (2, 2, 2, 256, 64, False, None), (1, 4, 4, 384, 32, True, None),
@@ -390,7 +390,8 @@ def test_flash_attention_matches_twin(cuda, dtype, b, hq, hkv, s, d, causal, sm_
     routes = dict(ROUTE_LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     assert FLASH_ATTENTION.launches == before + 1
-    took = "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+    took = ("mma_tf32" if dtype == torch.float32
+            else "wgmma" if d % 8 == 0 else "simt")
     assert route(dtype, d) == took
     routes[took] += 1
     assert ROUTE_LAUNCHES == routes
@@ -405,6 +406,28 @@ def test_flash_attention_matches_twin(cuda, dtype, b, hq, hkv, s, d, causal, sm_
         diff = (got.float() - want.float()).abs()
         assert diff.max().item() <= 3e-2
         assert (diff <= 8e-3 * want.float().abs() + 1e-3).all()
+
+
+@pytest.mark.parametrize("d,offset", [(1, 0), (127, 0), (100, 0), (36, 1), (112, 1)])
+def test_flash_attention_float32_odd_rows_and_offset_views(cuda, d, offset):
+    """The mma_tf32 route's 4-byte copies: rows whose byte stride is not a
+    multiple of 16 (odd d) and views one float past an aligned address."""
+    gen = torch.Generator(device=cuda).manual_seed(d + offset)
+    b, hq, hkv, s = 2, 4, 2, 129
+
+    def draw(h):
+        flat = torch.randn(b * h * s * d + offset, generator=gen, device=cuda)
+        return flat[offset:].view(b, h, s, d)
+
+    q, k, v = draw(hq), draw(hkv), draw(hkv)
+    assert (q.data_ptr() % 16 != 0) == (offset == 1)
+    for causal in (True, False):
+        routes = dict(ROUTE_LAUNCHES)
+        got = flash_attention(q, k, v, causal=causal)
+        routes["mma_tf32"] += 1
+        assert ROUTE_LAUNCHES == routes
+        torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal), rtol=0,
+                                   atol=2e-5)
 
 
 def _ssd_inputs(b, l, h, dh, ds, device, seed):

@@ -9,6 +9,9 @@ CUDA kernels are held against the same twins on the card
 (``tests/test_torch_cuda.py`` and chip_smoke.py phase 3).  Inputs are numpy
 draws fed to both frameworks.
 """
+import functools
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +24,13 @@ from repro.kernels.ssd_scan.ref import ssd_ref as jssd_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan as jssd_scan
 from repro.models.attention import _chunked as j_chunked
 from repro.models.attention import decode_attention as jdecode_attention
+from repro_torch.benchmarks import flash_variants, ssd_variants
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.device import NotYetPorted
 from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
-from repro_torch.kernels.flash_attention.flash_attention import (MAX_HEAD_DIM, ROUTE_LAUNCHES,
-                                                                 flash_attention, route,
+from repro_torch.kernels.flash_attention.flash_attention import (_ENTRY, MAX_HEAD_DIM,
+                                                                 ROUTE_LAUNCHES, flash_attention,
+                                                                 route, tf32_smem_bytes,
                                                                  wgmma_smem_bytes)
 from repro_torch.kernels.flash_attention.ops import _FlashAttention, attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -123,8 +128,8 @@ ATTENTION_ARCHS = [a for a in list_archs() if get_arch(a).n_heads > 0]
 def test_flash_route_at_every_config_head_dim(arch):
     d = get_arch(arch).resolved_head_dim
     assert d % 8 == 0 and d <= MAX_HEAD_DIM
-    assert route(torch.bfloat16, d) == "wgmma"   # the bf16 models: tensor cores
-    assert route(torch.float32, d) == "simt"     # float32 stays in float32
+    assert route(torch.bfloat16, d) == "wgmma"     # the bf16 models: tensor cores
+    assert route(torch.float32, d) == "mma_tf32"   # float32-exact TF32 tensor cores
 
 
 @pytest.mark.parametrize("d,want", [(8, "wgmma"), (16, "wgmma"), (64, "wgmma"),
@@ -132,10 +137,13 @@ def test_flash_route_at_every_config_head_dim(arch):
                                     (36, "simt"), (100, "simt"), (127, "simt"),
                                     (136, "simt")])
 def test_flash_route_by_head_dim(d, want):
-    """wgmma for bf16 with d % 8 == 0 (TMA's 16-byte row stride) and d <= 128;
-    the SIMT kernel otherwise, and for every float32 call."""
+    """wgmma for bf16 with d % 8 == 0 (TMA's 16-byte row stride) and d <= 128,
+    the SIMT kernel for other bf16; every float32 call takes mma_tf32 (the
+    wrapper refuses d > 128 before any route), and no float32 entry of the
+    SIMT kernel is left to reach."""
     assert route(torch.bfloat16, d) == want
-    assert route(torch.float32, d) == "simt"
+    assert route(torch.float32, d) == "mma_tf32"
+    assert set(_ENTRY["simt"]) == {torch.bfloat16}
 
 
 @pytest.mark.parametrize("arch", ATTENTION_ARCHS)
@@ -147,6 +155,25 @@ def test_wgmma_shared_memory_fits_every_config_head_dim(arch):
     assert wgmma_smem_bytes(d) <= 232448
     with pytest.raises(ValueError, match="wgmma"):
         wgmma_smem_bytes(36)
+
+
+@pytest.mark.parametrize("d", sorted({1, 36, 100, 127}
+                                     | {get_arch(a).resolved_head_dim for a in ATTENTION_ARCHS}))
+def test_tf32_shared_memory_fits_a_block_an_sm(d):
+    # the K/V ring (two stages of 64 rows) and the 128-row q tile, d padded
+    # to a multiple of 16 and rows strided 8 (mod 32) floats for K and Q, 4
+    # (mod 8) for V.  The design wants one block of 8 warps an SM: its bytes
+    # within a block's most, and with the 1 KB the SM reserves for it
+    # within the SM's 228 KB.
+    dp = -(-d // 16) * 16
+    ldk, ldv = dp + (8 if dp % 32 == 0 else 24), dp + 4
+    assert ldk % 32 == 8 and ldv % 8 == 4
+    assert tf32_smem_bytes(d) == 4 * (2 * 64 * (ldk + ldv) + 128 * ldk)
+    assert tf32_smem_bytes(d) <= 232448
+    assert tf32_smem_bytes(d) + 1024 <= 233472
+    assert tf32_smem_bytes(128) == 206848
+    with pytest.raises(ValueError, match="head dim"):
+        tf32_smem_bytes(129)
 
 
 def test_flash_on_cpu_counts_no_route():
@@ -278,6 +305,20 @@ def _mm_split(a, b):
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _tf32_trunc(a):
+    """float32 truncated to TF32, as the tensor cores read an operand."""
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split_lo_truncated(a, b):
+    """a @ b as flash_attention's mma_tf32 route forms it: hi parts rounded
+    to TF32 as in ``_mm_split``, lo parts left unrounded for the tensor
+    cores, which truncate them."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 def _mm_single(a, b):
     """a @ b as a single TF32 pass would form it."""
     return _tf32(a) @ _tf32(b)
@@ -371,3 +412,96 @@ def test_kernel_backwards_raise_not_yet_ported():
     y = _SSDScan.apply(*t, 16)
     with pytest.raises(NotYetPorted, match="ssd_scan"):
         y.sum().backward()
+
+
+# -- the flash-attention mma_tf32 route's hi + lo split, emulated ---------------
+
+def _emulated_flash(q, k, v, causal, mm, block_k=64):
+    """O of csrc/flash_attention.cu's mma_tf32 route in plain float32 torch:
+    per KV tile of the kernel's 64 keys, S = Q K^T through ``mm``, scaled by
+    sm_scale log2 e (rounded to float32 as the launcher rounds it) and
+    masked; the online softmax in base 2 (a row with no key yet shifts by
+    0); O += P V through ``mm``; O / l with l == 0 read as 1."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    scale = torch.tensor(1.4426950408889634 / math.sqrt(d), dtype=torch.float32)
+    m = torch.full((b, hq, s), -torch.inf)
+    l, acc = torch.zeros(b, hq, s), torch.zeros(b, hq, s, d)
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, k.shape[2], block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        x = mm(q, kt.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            x = torch.where(cols > rows, -torch.inf, x)
+        mx = torch.maximum(m, x.amax(-1))
+        shift = torch.where(mx == -torch.inf, 0.0, mx)
+        alpha = torch.exp2(m - shift)
+        p = torch.exp2(x - shift[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm(p, vt)
+        m = mx
+    return acc / torch.where(l == 0, 1.0, l)[..., None]
+
+
+# The reference's kernel-test shapes (b, hq, hk, s, d, causal), then
+# zamba2-7b's head dim (112) and qwen3-1.7b's (128, GQA 2), depth cut.
+FLASH_SPLIT_CASES = [(2, 4, 2, 256, 64, True), (1, 8, 1, 128, 128, True),
+                     (2, 2, 2, 256, 64, False), (1, 4, 4, 384, 32, True),
+                     (1, 16, 4, 256, 64, True), (1, 8, 2, 256, 112, True),
+                     (1, 16, 8, 256, 128, True)]
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_split_case(case):
+    """Numpy inputs and the reference's float32 kernel (interpret mode) on them."""
+    b, hq, hk, s, d, causal = case
+    q, k, v = _qkv(b, hq, hk, s, s, d, seed=s + hq + d)
+    want = _np(jflash(*map(jnp.asarray, (q, k, v)), causal=causal, interpret=True))
+    return (q, k, v), want
+
+
+@pytest.mark.parametrize("case", FLASH_SPLIT_CASES, ids=str)
+def test_flash_tf32_split_holds_the_reference_tolerance(case):
+    """The mma_tf32 route's products, emulated with the hi + lo TF32 split of
+    Q, K, P and V (hi rounded, lo truncated, as the kernel forms them),
+    stay within the reference's 2e-5 of its float32 kernel, as the split
+    with both parts rounded does."""
+    (q, k, v), want = _flash_split_case(case)
+    for mm in (_mm_split_lo_truncated, _mm_split):
+        got = _emulated_flash(*map(torch.from_numpy, (q, k, v)), case[5], mm)
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_SPLIT_CASES, ids=str)
+def test_flash_single_tf32_pass_misses_the_reference_tolerance(case):
+    """The witness for the split: one TF32 pass per product misses 2e-5 on
+    the same inputs, so it would change the float32 function."""
+    (q, k, v), want = _flash_split_case(case)
+    got = _emulated_flash(*map(torch.from_numpy, (q, k, v)), case[5], _mm_single)
+    assert np.abs(got.numpy() - want).max() > 2e-5
+
+
+# -- the design-variant harnesses edit the committed sources --------------------
+
+@pytest.mark.parametrize("route_variant", [(r, n) for r in flash_variants.VARIANTS
+                                           for n in flash_variants.VARIANTS[r]], ids=str)
+def test_flash_variants_edit_the_committed_source(route_variant):
+    # flash_attention.cu with tf32_split.cuh inlined, so that a variant can
+    # edit the split where this kernel includes it (ssd_scan.cu keeps its own)
+    committed = flash_variants.edited_source(route_variant[0], "committed")
+    assert '#include "tf32_split.cuh"' not in committed and "round_tf32" in committed
+    edited = flash_variants.edited_source(*route_variant)
+    assert (edited == committed) == (route_variant[1] == "committed")
+
+
+@pytest.mark.parametrize("variant", sorted(ssd_variants.VARIANTS))
+def test_ssd_variants_edit_the_committed_source(variant):
+    # ssd_scan.cu with tf32_split.cuh inlined: the split's helpers are edited
+    # where the kernel's source includes them
+    edited = ssd_variants.edited_source(variant)
+    committed = ssd_variants.edited_source("committed")
+    assert '#include "tf32_split.cuh"' not in committed and "round_tf32" in committed
+    assert (edited == committed) == (variant == "committed")
