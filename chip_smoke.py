@@ -18,8 +18,10 @@ of zamba2-7b at full width — and checks what comes out:
 2. the kernel builds (one ``nvcc`` per source, in parallel);
 3. each kernel against its plain PyTorch twin on the card, float32 and
    float64, at the served (or trained) shape, a ragged size and an
-   unaligned view (the general-noise kernels at (N, d, m) = (65536, 16, 4),
-   (65536, 16, 128) and (1001, 5, 3)); flash attention in float32 and bf16
+   unaligned view (the general-noise kernels at (N, d, m) = (65536, 16, 4)
+   and (1001, 5, 3) on their row route, (65536, 16, 128) on their staged
+   route, each case's route checked, ``torch.baddbmm`` and ``torch.einsum``
+   timed beside them at both timed widths); flash attention in float32 and bf16
    at the reference's test shapes, zamba2-7b's (2, 32, 32, 2048, 112),
    qwen3-1.7b's (1, 16, 8, 2048, 128), a ragged 200 and the 128-row tile's
    edges, each case on the route it must take (float32 on the mma_tf32
@@ -56,7 +58,10 @@ of zamba2-7b at full width — and checks what comes out:
    additive route (E bitwise equal to its diagonal relabel G), general noise
    through the kernels (J against the plain L), Reversible Heun on both, and
    the ``"auto"`` specs resolving to SRA1, EES(2,7), EES(2,5) and Milstein —
-   with a CPU cross-check, paths/s and one tick's device time;
+   with a CPU cross-check, paths/s and one tick's device time; then one
+   general-noise request at the reference kernel's width m = 128 (65,536
+   paths, d = 16), ``ees25:use_kernels=True`` against plain ``ees25`` on the
+   same seed (1e-5), with the device ms of one tick of each;
 10. three training steps on those terms: the additive term under the full
    adjoint through the prediffused kernels (bitwise equal to the diagonal
    relabel on the plain route) and the general term under the reversible
@@ -80,9 +85,11 @@ of zamba2-7b at full width — and checks what comes out:
    wall, device time and launches.
 
 The launch counts are zeroed just before each path (phases 4-5, the
-60-epoch runs of phase 7, phase 9's drain, phase 10's runs and phase 11's
-counted prefill) and read just after; a kernel of the path with no launch there fails the run.  The second-to-last line is the
-``{"kernels": [...]}`` record and the last line ``{"ok": true, "device":
+60-epoch runs of phase 7, phase 9's drain and its m = 128 request, phase
+10's runs and phase 11's counted prefill) and read just after; a kernel of
+the path with no launch there fails the run.  The second-to-last line is the
+``{"kernels": [...]}`` record (the general-noise kernels with their
+``launches_by_route``) and the last line ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
@@ -276,10 +283,13 @@ def kernel_phase(torch, timer):
     from repro_torch.benchmarks.stream_variants import host_us_per_call
     from repro_torch.core.williamson import EES25_2N
     from repro_torch.kernels.sde_step import ref as sref
-    from repro_torch.kernels.sde_step.sde_step import (AXPY_CHAIN, MAX_INCS, axpy_chain,
+    from repro_torch.kernels.sde_step.sde_step import (AXPY_CHAIN, INCREMENT_GENERAL,
+                                                       MAX_INCS, WS_STAGE_GENERAL,
+                                                       axpy_chain, general_route,
                                                        increment_diag,
                                                        increment_general, increment_pre,
-                                                       ws_stage_diag, ws_stage_diag_bwd,
+                                                       route_launches, ws_stage_diag,
+                                                       ws_stage_diag_bwd,
                                                        ws_stage_general, ws_stage_pre)
     from repro_torch.kernels.williamson2n.ref import williamson2n_ref
     from repro_torch.kernels.williamson2n.williamson2n import williamson2n
@@ -377,13 +387,22 @@ def kernel_phase(torch, timer):
             plain=lambda x: (sref.increment_general_ref(*x, h),),
             library=("torch.baddbmm(f[..., None], g, dW[..., None], beta=h)",
                      lambda x: torch.baddbmm(x[0][..., None], x[1],
-                                             x[2][..., None], beta=h))),
+                                             x[2][..., None], beta=h)),
+            routed=INCREMENT_GENERAL,
+            yardsticks=[("torch.einsum('...dm,...m->...d', g, dW) (the plain route's "
+                         "product alone)",
+                         lambda x: torch.einsum("...dm,...m->...d", x[1], x[2]))]),
         "ws_stage_general": dict(
             symbol="ws_stage_general_kernel", shapes=gen_ws, exact=True,
             timed=gen_ws_timed,
             kernel=lambda x: ws_stage_general(*x, h, a=a, b=b),
             plain=lambda x: sref.ws_stage_general_ref(*x, h, a, b),
-            library=None),
+            library=None, routed=WS_STAGE_GENERAL,
+            yardsticks=[("torch.baddbmm(f[..., None], g, dW[..., None], beta=h) (the "
+                         "yardstick of its product part only: no single call makes "
+                         "both outputs)",
+                         lambda x: torch.baddbmm(x[2][..., None], x[3],
+                                                 x[4][..., None], beta=h))]),
     }
     stats = {}
     for name, spec in specs.items():
@@ -392,12 +411,26 @@ def kernel_phase(torch, timer):
             tol = 0.0 if spec["exact"] else 4 * torch.finfo(dtype).eps
             for label, make in spec["shapes"]:
                 xs = make(dtype)
+                routed = spec.get("routed")
+                if routed is not None:
+                    before = route_launches(routed)
                 got = spec["kernel"](xs)
                 want = spec["plain"](xs)
                 torch.cuda.synchronize()
                 abs_err, rel_err, same = compare(torch, got, want)
                 scale = max(1.0, max(w.abs().max().item() for w in want))
-                print(f"  {name} {str(dtype)[6:]} {label}: max_abs_err="
+                took = ""
+                if routed is not None:
+                    # the diffusion and increment are the last two operands
+                    g, dW = xs[-2:]
+                    expected = general_route(g.shape[-1], dtype, g.data_ptr() % 16 == 0
+                                             and dW.data_ptr() % 16 == 0)
+                    after = route_launches(routed)
+                    taken = [r for r in after if after[r] != before[r]]
+                    check(taken == [expected], f"{name} {dtype} {label} took the routes "
+                          f"{taken}, not {expected}")
+                    took = f", {expected} route"
+                print(f"  {name} {str(dtype)[6:]} {label}{took}: max_abs_err="
                       f"{abs_err:.3e} max_rel_err={rel_err:.3e} bitwise={same}"
                       f" (tolerance {tol:.1e} x max|out|)", flush=True)
                 check(abs_err <= tol * scale,
@@ -408,12 +441,19 @@ def kernel_phase(torch, timer):
         for label, make, bytes_moved, ops in spec["timed"]:
             xs = make(torch.float32)
             library = spec["library"]
+            if spec.get("routed") is not None:
+                label += f", {general_route(xs[-2].shape[-1], torch.float32, True)} route"
             rows.append(_timed_row(
                 name, f"float32 {label}", timer, lambda: spec["kernel"](xs),
                 lambda: spec["plain"](xs),
                 None if library is None else (library[0], lambda: library[1](xs)),
                 spec["symbol"], bytes_moved, ops, FP32_FLOPS, "float32",
                 max(worst.values())))
+            for what, fn in spec.get("yardsticks", ()):
+                flushed = timer.ms(lambda: fn(xs))
+                warm = timer.ms(lambda: fn(xs), flush=False)
+                print(f"  {name} float32 {label}: {what} {flushed * 1e3:.2f} us with L2 "
+                      f"flushed ({warm * 1e3:.2f} us warm)", flush=True)
             del xs
         stats[name] = rows[0]
 
@@ -1169,6 +1209,7 @@ def noise_serve_phase(torch, timer):
               flush=True)
         for kern in KERNELS:
             kern.launches = 0
+        routes_before = general_routes()
         # One request at a time through its engine, each drain timed.
         rids, walls = {}, {}
         for label, eng, spec, n, seed, _ in requests:
@@ -1183,6 +1224,7 @@ def noise_serve_phase(torch, timer):
         done = {name: eng.done for name, eng in engines.items()}
     wall = sum(walls.values())
     launches = {k.name: k.launches for k in KERNELS if k.launches}
+    routes = general_routes(since=routes_before)
     n_paths = sum(r[3] for r in requests)
     print(f"  served {len(requests)} requests, {n_paths} paths x "
           f"{NOISE_STEPS} steps in {wall:.3f} s: {n_paths / wall:.0f} paths/s "
@@ -1294,7 +1336,95 @@ def noise_serve_phase(torch, timer):
                       reverse=True)
         for us, n, name in rows[:6]:
             print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
-    return launches
+    wide, wide_routes = wide_general_request(torch, timer)
+    for name, n in wide.items():
+        launches[name] = launches.get(name, 0) + n
+    for name, by_route in wide_routes.items():
+        routes[name] = {r: routes[name][r] + n for r, n in by_route.items()}
+    return launches, routes
+
+
+WIDE_CHANNELS = 128  # the reference kernel's lane-aligned width (its m % 128 == 0)
+
+
+def general_routes(since=None):
+    """``{kernel: {route: launches}}`` of the two general-noise kernels, less
+    the counts in ``since``."""
+    from repro_torch.kernels import INCREMENT_GENERAL, WS_STAGE_GENERAL
+    from repro_torch.kernels.sde_step.sde_step import route_launches
+
+    now = {k.name: route_launches(k) for k in (INCREMENT_GENERAL, WS_STAGE_GENERAL)}
+    if since is None:
+        return now
+    return {name: {r: n - since[name][r] for r, n in by.items()} for name, by in now.items()}
+
+
+def wide_general_request(torch, timer):
+    """Phase 9's general-noise request at the reference kernel's width:
+    65,536 paths of the step-kernel benchmark's general term (d = 16) with
+    m = 128 channels, ``ees25:use_kernels=True`` against plain ``ees25`` on
+    the same seed (1e-5), with the device ms of one tick of each; returns the
+    kernels' launches and the general kernels' launches by route."""
+    from repro_torch.benchmarks import step_kernels as sk
+    from repro_torch.core import PRNGKey, path_keys
+    from repro_torch.kernels import KERNELS
+    from repro_torch.serving import BucketKey, SDESampleConfig, SDESampleEngine
+
+    term = sk.make_term("general", channels=WIDE_CHANNELS)
+    cfg = SDESampleConfig(slots=SERVE_SLOTS, ticks_per_dispatch=2, guard_threshold=1e6)
+    eng = SDESampleEngine(term, torch.ones(sk.DIM, device="cuda"), cfg,
+                          args=sk.term_args("cuda"), noise_shape=(WIDE_CHANNELS,),
+                          device="cuda")
+    specs = ("ees25:use_kernels=True", "ees25")
+    with torch.no_grad():
+        for spec in specs:  # first use at full size, outside the count and the clock
+            eng.submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS, n_paths=SERVE_SLOTS, seed=99)
+            eng.run()
+        torch.cuda.synchronize()
+        for kern in KERNELS:
+            kern.launches = 0
+        routes_before = general_routes()
+        rids, walls = {}, {}
+        for spec in specs:
+            start = time.perf_counter()
+            rids[spec] = eng.submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS,
+                                    n_paths=SERVE_SLOTS, seed=51)
+            eng.run()
+            torch.cuda.synchronize()
+            walls[spec] = time.perf_counter() - start
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    routes = general_routes(since=routes_before)
+    got, want = (eng.done[rids[s]] for s in specs)
+    for r in (got, want):
+        check(r.y_final.shape == (SERVE_SLOTS, sk.DIM) and bool(np.isfinite(r.y_final).all())
+              and not r.diverged.any(), "the m = 128 request returned a bad sample")
+    err = _rel(got.y_final, want.y_final)
+    print(f"  m = {WIDE_CHANNELS} request ({SERVE_SLOTS} paths, d = {sk.DIM}, "
+          f"{NOISE_STEPS} steps): {specs[0]!r} vs {specs[1]!r}, same seed: max rel err "
+          f"{err:.3e} (tolerance 1e-5); drains {walls[specs[0]]:.3f} s and "
+          f"{walls[specs[1]]:.3f} s (host wall); kernel launches {launches}, general "
+          f"kernels by route {routes}", flush=True)
+    check(err <= 1e-5, "the m = 128 request: the kernel route disagrees with the plain route")
+    check(routes["ws_stage_general"]["staged"] > 0,
+          "the m = 128 request launched no ws_stage_general kernel on the staged route")
+    keys = path_keys(PRNGKey(7, device="cuda"), SERVE_SLOTS)[None]
+    for spec in specs:
+        bucket = BucketKey(spec, 0.0, NOISE_T1 / NOISE_STEPS, NOISE_STEPS)
+        with torch.no_grad():
+            totals = timer.kernels_us(
+                lambda: eng.executor.dispatch(bucket, keys, (NOISE_STEPS,)), reps=2,
+                flush=False)
+        dev_ms = sum(us for us, _ in totals.values()) / 2 / 1e3
+        general_ms = sum(us for name, (us, _) in totals.items()
+                         if "general_kernel" in name) / 2 / 1e3
+        print(f"  one m = {WIDE_CHANNELS} tick, {spec!r} ({SERVE_SLOTS} paths x "
+              f"{NOISE_STEPS} steps): device kernel time {dev_ms:.3f} ms, "
+              f"{general_ms:.3f} ms of it in the general-noise kernels", flush=True)
+        rows = sorted(((us / 2, n // 2, name) for name, (us, n) in totals.items()),
+                      reverse=True)
+        for us, n, name in rows[:4]:
+            print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
+    return launches, routes
 
 
 def noise_train_phase(torch):
@@ -1354,6 +1484,7 @@ def noise_train_phase(torch):
     ]
     for kern in KERNELS:
         kern.launches = 0
+    routes_before = general_routes()
     for label, term, plain_term, spec, plain, adjoint, ns, kern in cases:
         before = kern.launches
         t0 = time.perf_counter()
@@ -1378,6 +1509,7 @@ def noise_train_phase(torch):
             check(loss_err <= 1e-5 and par_err <= 1e-5,
                   f"{label}: the kernel route trains unlike the plain route")
     launches = {k.name: k.launches for k in KERNELS if k.launches}
+    routes = general_routes(since=routes_before)
 
     for label, term, _, spec, _, adjoint, ns, _ in cases:
         step, params, state = make(term, spec, adjoint, ns)
@@ -1393,7 +1525,7 @@ def noise_train_phase(torch):
             torch.cuda.set_sync_debug_mode("default")
     print("  one training step of each case ran with "
           "torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
-    return launches
+    return launches, routes
 
 
 def _rel_to_max(torch, got, want) -> float:
@@ -1764,17 +1896,19 @@ def main() -> int:
 
     print("phase 9: serve additive, general and diagonal SDEs (requests E-N)",
           flush=True)
-    serve_launches = noise_serve_phase(torch, timer)
+    serve_launches, serve_routes = noise_serve_phase(torch, timer)
 
     print("phase 10: train on the additive and general terms", flush=True)
-    noise_train_launches = noise_train_phase(torch)
+    noise_train_launches, train_routes = noise_train_phase(torch)
     new = ("increment_pre", "ws_stage_pre", "increment_general",
            "ws_stage_general")
     launches.update({name: serve_launches.get(name, 0)
                      + noise_train_launches.get(name, 0) for name in new})
+    by_route = {name: {r: n + train_routes[name][r] for r, n in routes.items()}
+                for name, routes in serve_routes.items()}
     print(f"  kernels launched on the noise-specialised paths (phases 9-10): "
-          f"serving {serve_launches}, training {noise_train_launches}",
-          flush=True)
+          f"serving {serve_launches}, training {noise_train_launches}; the general "
+          f"kernels by route {by_route}", flush=True)
 
     print("phase 11: LM prefill, zamba2-7b at full width", flush=True)
     lm_float32_phase(torch)
@@ -1806,7 +1940,8 @@ def main() -> int:
          "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"],
          "bound_by": stats[name]["bound_by"],
-         "library_ms": stats[name]["library_ms"]}
+         "library_ms": stats[name]["library_ms"],
+         **({"launches_by_route": by_route[name]} if name in by_route else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -49,9 +49,10 @@ def _drift(t, y, a):
     return a["nu"] * (a["mu"] - y)
 
 
-def make_term(noise: str) -> SDETerm:
+def make_term(noise: str, channels: int = N_CHANNELS) -> SDETerm:
     """The reference benchmark's term for ``noise`` (``"prediffused"`` is
-    the additive term whose solves take the prediffused route)."""
+    the additive term whose solves take the prediffused route); a general
+    term drives ``channels`` channels."""
     if noise == "diagonal":
         return SDETerm(drift=_drift,
                        diffusion=lambda t, y, a: a["sigma"] * torch.cos(y),
@@ -63,7 +64,7 @@ def make_term(noise: str) -> SDETerm:
     if noise == "general":
         return SDETerm(drift=_drift,
                        diffusion=lambda t, y, a: a["sigma"] * torch.stack(
-                           [torch.ones_like(y)] * N_CHANNELS, dim=-1),
+                           [torch.ones_like(y)] * channels, dim=-1),
                        noise="general")
     raise ValueError(f"unknown noise {noise!r}; valid: {', '.join(NOISES)}")
 

@@ -109,6 +109,7 @@
 #include <stdint.h>
 
 #include "tf32_split.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -319,59 +320,6 @@ constexpr int kOffBar = kOffV + kWgStages * kTileBytes;
 constexpr int kNumBars = 1 + 3 * kWgStages;  // q full; K full, V full, empty per stage
 // + 1024: the tiles start on a 1024-byte boundary (the swizzle's period)
 constexpr int kWgSmemBytes = kOffBar + 8 * kNumBars + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A barrier that has
-// not completed after ~10 s of SM clock (a fault in the pipeline) traps
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start == 0) {
-      start = now;
-    } else if (now - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-// One TMA box of a (d, s, b * h) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
 // leading and stride byte offsets (16-byte units), layout type 1 (SW128).
@@ -645,32 +593,6 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #undef ACC8
 #undef ACC64
 #undef REGS64
-
-// cuTensorMapEncodeTiled, reached through the runtime so the library needs
-// no link against the driver.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A (d, s, b * h) view of a contiguous (b, h, s, d) bf16 tensor, read in
 // boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; boxes

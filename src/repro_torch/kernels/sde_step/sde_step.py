@@ -24,6 +24,15 @@ Per-row matvecs under general noise (state ``(..., d)``, diffusion
 * :func:`ws_stage_general` — that increment, then the 2N update
   (``ws_stage_general_2d``).
 
+Each has two routes, chosen by :func:`general_route` from ``m``, the dtype
+and the operands' alignment (``csrc/row_matvec.cuh``): ``"row"`` (one thread
+per output, C entry ``<name>_<dtype>``) for rows of at most
+``ROW_ROUTE_MAX_BYTES`` bytes, row strides off 16 bytes and unaligned
+operands; ``"staged"`` (tiles of rows copied coalesced into a shared-memory
+ring, entry ``<name>_<dtype>_staged``) for the rest.  Both sum ``g@dW`` in
+the same order, so both equal the twin bitwise; :func:`route_launches`
+splits a kernel's launches by route.
+
 Each takes tensors of any shape (operands broadcast to the output's shape
 are materialized).  On a CPU tensor it is its plain twin (:mod:`.ref`); on a
 CUDA tensor it launches its kernel or raises.  Each kernel's ``launches``
@@ -43,7 +52,8 @@ __all__ = ["WS_STAGE_DIAG", "WS_STAGE_DIAG_BWD", "INCREMENT_DIAG",
            "WS_STAGE_GENERAL", "MAX_INCS", "ws_stage_diag",
            "ws_stage_diag_bwd", "increment_diag", "axpy_chain",
            "increment_pre", "ws_stage_pre", "increment_general",
-           "ws_stage_general"]
+           "ws_stage_general", "GENERAL_ROUTES", "ROW_ROUTE_MAX_BYTES",
+           "general_route", "route_launches"]
 
 _P, _N, _D, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
 
@@ -65,11 +75,53 @@ AXPY_CHAIN = CudaKernel("axpy_chain", "axpy_chain.cu", {
     for sfx in ("f32", "f64") for s in range(1, MAX_INCS + 1)})
 INCREMENT_PRE = _kernel("increment_pre", [_P] * 3 + [_N, _D, _P])
 WS_STAGE_PRE = _kernel("ws_stage_pre", [_P] * 6 + [_N] + [_D] * 3 + [_P])
-INCREMENT_GENERAL = _kernel("increment_general",
-                            [_P] * 4 + [_N, _I, _I, _D, _P])
-WS_STAGE_GENERAL = _kernel("ws_stage_general",
-                           [_P] * 7 + [_N, _I, _I] + [_D] * 3 + [_P])
+GENERAL_ROUTES = ("row", "staged")
+
+
+def _general_kernel(name, args):
+    """A general-noise kernel: one C entry per dtype and route."""
+    return CudaKernel(name, f"{name}.cu", {
+        f"{name}_{sfx}{'_staged' if r == 'staged' else ''}": args
+        for sfx in ("f32", "f64") for r in GENERAL_ROUTES})
+
+
+INCREMENT_GENERAL = _general_kernel("increment_general",
+                                    [_P] * 4 + [_N, _I, _I, _D, _P])
+WS_STAGE_GENERAL = _general_kernel("ws_stage_general",
+                                   [_P] * 7 + [_N, _I, _I] + [_D] * 3 + [_P])
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+#: Rows of g of at most this many bytes take the row route.  Measured on an
+#: H100 (``python -m repro_torch.benchmarks.general_variants``): the row
+#: route is ahead up to 64-byte rows (float32 m <= 16: a warp's loads span
+#: at most 2 KB, which the L1 holds), the staged route from 128 bytes on.
+ROW_ROUTE_MAX_BYTES = 64
+
+
+def general_route(m: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The route a CUDA general-noise launch takes for rows of ``m`` values
+    of ``dtype`` (float32 or float64), ``aligned`` when g and dW both start
+    on 16 bytes: ``"staged"`` for rows longer than ``ROW_ROUTE_MAX_BYTES``
+    whose stride is a multiple of 16 bytes, with aligned operands (what its
+    16-byte copies need); ``"row"`` for the rest."""
+    row_bytes = m * _ITEMSIZE[dtype]
+    if row_bytes <= ROW_ROUTE_MAX_BYTES or row_bytes % 16 or not aligned:
+        return "row"
+    return "staged"
+
+
+def route_launches(kernel: CudaKernel) -> dict:
+    """``{route: launches}`` of a general-noise kernel, from its entries'
+    counts (read by difference, as ``entry_launches``)."""
+    return {r: sum(n for fn, n in kernel.entry_launches.items()
+                   if fn.endswith("_staged") == (r == "staged"))
+            for r in GENERAL_ROUTES}
+
+
+def _general_entry(name: str, g: torch.Tensor, dW: torch.Tensor, m: int) -> str:
+    aligned = g.data_ptr() % 16 == 0 and dW.data_ptr() % 16 == 0
+    staged = general_route(m, g.dtype, aligned) == "staged"
+    return f"{name}_{_SUFFIX[g.dtype]}{'_staged' if staged else ''}"
 
 
 def _on_cuda(name: str, x: torch.Tensor) -> bool:
@@ -219,6 +271,9 @@ def increment_general(f, g, dW, h: float):
     ``g (..., d, m)`` and ``dW (..., m)``."""
     if not _on_cuda("increment_general", f):
         return _ref.increment_general_ref(f, g, dW, h)
+    if not is_current(f):
+        with torch.cuda.device(f.device):
+            return increment_general(f, g, dW, h)
     batch, d, m = _general_shapes(f, g, dW)
     f, g, dW = cuda_operands(f, g, dW, shapes=(batch + (d,), batch + (d, m),
                                                batch + (m,)))
@@ -226,10 +281,9 @@ def increment_general(f, g, dW, h: float):
     rows = f.numel() // d
     if rows == 0:
         return out
-    with torch.cuda.device(f.device):
-        INCREMENT_GENERAL.launch(
-            f"increment_general_{_SUFFIX[f.dtype]}", pointer(f), pointer(g),
-            pointer(dW), pointer(out), rows, d, m, float(h), stream_handle(f))
+    INCREMENT_GENERAL.launch(
+        _general_entry("increment_general", g, dW, m), f.data_ptr(), g.data_ptr(),
+        dW.data_ptr(), out.data_ptr(), rows, d, m, float(h), stream_handle(f))
     return out
 
 
@@ -238,6 +292,9 @@ def ws_stage_general(delta, y, f, g, dW, h: float, *, a: float, b: float):
     ``(..., d)`` like the state."""
     if not _on_cuda("ws_stage_general", delta):
         return _ref.ws_stage_general_ref(delta, y, f, g, dW, h, a, b)
+    if not is_current(delta):
+        with torch.cuda.device(delta.device):
+            return ws_stage_general(delta, y, f, g, dW, h, a=a, b=b)
     batch, d, m = _general_shapes(f, g, dW)
     batch = tuple(torch.broadcast_shapes(batch, delta.shape[:-1],
                                          y.shape[:-1]))
@@ -250,10 +307,8 @@ def ws_stage_general(delta, y, f, g, dW, h: float, *, a: float, b: float):
     rows = delta.numel() // d
     if rows == 0:
         return d_out, y_out
-    with torch.cuda.device(delta.device):
-        WS_STAGE_GENERAL.launch(
-            f"ws_stage_general_{_SUFFIX[delta.dtype]}", pointer(delta),
-            pointer(y), pointer(f), pointer(g), pointer(dW), pointer(d_out),
-            pointer(y_out), rows, d, m, float(h), float(a), float(b),
-            stream_handle(delta))
+    WS_STAGE_GENERAL.launch(
+        _general_entry("ws_stage_general", g, dW, m), delta.data_ptr(), y.data_ptr(),
+        f.data_ptr(), g.data_ptr(), dW.data_ptr(), d_out.data_ptr(), y_out.data_ptr(),
+        rows, d, m, float(h), float(a), float(b), stream_handle(delta))
     return d_out, y_out

@@ -31,10 +31,12 @@ from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.sde_step import ref as sref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
-from repro_torch.kernels.sde_step.sde_step import (MAX_INCS, axpy_chain, increment_diag,
+from repro_torch.kernels.sde_step.sde_step import (MAX_INCS, ROW_ROUTE_MAX_BYTES, axpy_chain,
+                                                   general_route, increment_diag,
                                                    increment_general,
-                                                   increment_pre, ws_stage_diag, ws_stage_diag_bwd,
-                                                   ws_stage_general, ws_stage_pre)
+                                                   increment_pre, route_launches, ws_stage_diag,
+                                                   ws_stage_diag_bwd, ws_stage_general,
+                                                   ws_stage_pre)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 from repro_torch.kernels.williamson2n.ref import williamson2n_ref
@@ -171,11 +173,17 @@ def test_stream_kernels_on_mixed_alignment(cuda, dtype):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("rows,d,m,offset", [(4096, 16, 4, 0), (512, 16, 128, 0),
-                                             (1001, 5, 3, 0), (333, 16, 4, 1)])
-def test_general_kernels_equal_twins(cuda, dtype, rows, d, m, offset):
-    a, b = EES25_2N.A[1], EES25_2N.B[1]
+# (rows, d, m, offset): the main path's m = 4 and the widths around the
+# route threshold (8, 16, 32); m = 128 and 256 with N*d off the staged
+# route's tile; m = 132 off its chunk; m = 3, a float32 row stride off 16
+# bytes; an unaligned base at m = 4 and 128; d = 1; d wider than a tile.
+GENERAL_CASES = [(4096, 16, 4, 0), (4096, 16, 8, 0), (4096, 16, 16, 0), (4096, 16, 32, 0),
+                 (512, 16, 128, 0), (1001, 16, 128, 0), (1001, 16, 256, 0),
+                 (257, 16, 132, 0), (1001, 5, 3, 0), (333, 16, 4, 1), (300, 16, 128, 1),
+                 (5000, 1, 128, 0), (37, 200, 64, 0)]
+
+
+def _general_operands(cuda, dtype, rows, d, m, offset):
     gen = torch.Generator(device=cuda).manual_seed(rows + m)
 
     def draw(*shape):
@@ -183,8 +191,29 @@ def test_general_kernels_equal_twins(cuda, dtype, rows, d, m, offset):
         return torch.randn(n + offset, generator=gen, device=cuda,
                            dtype=dtype)[offset:].view(shape)
 
-    delta, y, f = draw(rows, d), draw(rows, d), draw(rows, d)
-    g, dW = draw(rows, d, m), draw(rows, m)
+    return draw, [draw(rows, d), draw(rows, d), draw(rows, d), draw(rows, d, m), draw(rows, m)]
+
+
+def _run_on_route(kernel, route, run):
+    """``run()``'s outputs, asserting it made one launch of ``kernel``, on
+    ``route``."""
+    before, by_route = kernel.launches, route_launches(kernel)
+    got = run()
+    after = route_launches(kernel)
+    assert kernel.launches == before + 1
+    assert {r: after[r] - by_route[r] for r in after} == {
+        r: int(r == route) for r in after}
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d,m,offset", GENERAL_CASES)
+def test_general_kernels_equal_twins(cuda, dtype, rows, d, m, offset):
+    a, b = EES25_2N.A[1], EES25_2N.B[1]
+    draw, (delta, y, f, g, dW) = _general_operands(cuda, dtype, rows, d, m, offset)
+    route = general_route(m, dtype, offset == 0)
+    assert route == ("row" if offset or m * torch.finfo(dtype).bits // 8 <= ROW_ROUTE_MAX_BYTES
+                     or m * torch.finfo(dtype).bits % 128 else "staged")
     cases = [
         (INCREMENT_GENERAL, lambda: (increment_general(f, g, dW, 0.25),),
          lambda: (sref.increment_general_ref(f, g, dW, 0.25),)),
@@ -192,17 +221,61 @@ def test_general_kernels_equal_twins(cuda, dtype, rows, d, m, offset):
          lambda: sref.ws_stage_general_ref(delta, y, f, g, dW, 0.25, a, b)),
     ]
     for kernel, run, twin in cases:
-        before = kernel.launches
-        got = run()
-        assert kernel.launches == before + 1
+        got = _run_on_route(kernel, route, run)
         for gg, w in zip(got, twin()):
             torch.testing.assert_close(gg, w, rtol=0, atol=0)
-    # a diffusion broadcast over the paths and leading batch axes
+    # a diffusion broadcast over the paths and leading batch axes (materialized,
+    # so aligned; dW keeps the case's offset)
     g_row = draw(d, m)
-    got = increment_general(f.view(1, rows, d), g_row, dW.view(1, rows, m), 0.5)
+    got = _run_on_route(INCREMENT_GENERAL, route,
+                        lambda: increment_general(f.view(1, rows, d), g_row,
+                                                  dW.view(1, rows, m), 0.5))
     want = sref.increment_general_ref(f.view(1, rows, d), g_row, dW.view(1, rows, m), 0.5)
     assert got.shape == (1, rows, d)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d,m", [(4096, 16, 4), (4096, 16, 8), (4096, 16, 16),
+                                      (4096, 16, 32), (1001, 16, 128), (257, 16, 132),
+                                      (5000, 1, 128), (37, 200, 64)])
+def test_general_routes_equal_twins_on_both_sides_of_the_threshold(cuda, dtype, rows, d, m):
+    # Each route's C entry called directly, whichever the wrapper would pick:
+    # the staged route at the main path's m = 4, the row route at m = 128.
+    a, b = EES27_2N.A[2], EES27_2N.B[2]
+    _, (delta, y, f, g, dW) = _general_operands(cuda, dtype, rows, d, m, 0)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    want_k = sref.increment_general_ref(f, g, dW, 0.25)
+    want_d, want_y = sref.ws_stage_general_ref(delta, y, f, g, dW, 0.25, a, b)
+    stream = torch.cuda.current_stream().cuda_stream
+    for route in ("row", "staged"):
+        entry = "" if route == "row" else "_staged"
+        out, d_out, y_out = (torch.full_like(f, float("nan")) for _ in range(3))
+        _run_on_route(INCREMENT_GENERAL, route, lambda: INCREMENT_GENERAL.launch(
+            f"increment_general_{sfx}{entry}", f.data_ptr(), g.data_ptr(), dW.data_ptr(),
+            out.data_ptr(), rows, d, m, 0.25, stream))
+        _run_on_route(WS_STAGE_GENERAL, route, lambda: WS_STAGE_GENERAL.launch(
+            f"ws_stage_general_{sfx}{entry}", delta.data_ptr(), y.data_ptr(), f.data_ptr(),
+            g.data_ptr(), dW.data_ptr(), d_out.data_ptr(), y_out.data_ptr(), rows, d, m,
+            0.25, a, b, stream))
+        for got, want in ((out, want_k), (d_out, want_d), (y_out, want_y)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_general_staged_route_refuses_what_it_cannot_copy(cuda):
+    # A row stride off 16 bytes or an unaligned operand is the row route's:
+    # the staged entry raises rather than reading past its rows.
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    f = torch.randn(64, 16, generator=gen, device=cuda)
+    out = torch.empty_like(f)
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, offset in ((3, 0), (128, 1)):
+        g = torch.randn(64 * 16 * m + offset, generator=gen, device=cuda)[offset:]
+        dW = torch.randn(64 * m, generator=gen, device=cuda)
+        with pytest.raises(RuntimeError, match="increment_general kernel launch failed"):
+            INCREMENT_GENERAL.launch("increment_general_f32_staged", f.data_ptr(),
+                                     g.data_ptr(), dW.data_ptr(), out.data_ptr(), 64, 16,
+                                     m, 0.25, stream)
 
 
 def test_stage_backward_runs_the_kernel_on_a_broadcast_diffusion(cuda):

@@ -17,6 +17,7 @@ from repro.kernels.sde_step import ops as jops
 from repro.kernels.sde_step import ref as jref
 from repro.kernels.sde_step import sde_step as jsk
 from repro.kernels.williamson2n.ops import williamson2n_update as jw2n
+from repro_torch.benchmarks import general_variants
 from repro_torch.benchmarks.stream_variants import VARIANTS
 from repro_torch.benchmarks.stream_variants import _edit as _edit_source
 from repro_torch.core.williamson import EES25_2N, EES27_2N
@@ -445,6 +446,86 @@ def test_stream_variants_edit_the_committed_header(variant):
     text = (AXPY_CHAIN.source.parent / "stream.cuh").read_text()
     edited = _edit_source(text, VARIANTS[variant], variant)
     assert (edited == text) == (variant == "committed")
+
+
+# (m, dtype, aligned, route): rows of at most ROW_ROUTE_MAX_BYTES (64) bytes,
+# the first widths past it, and the edges of the staged route's 16-byte
+# copies (a row stride off 16 bytes, an unaligned operand).
+GENERAL_ROUTE_CASES = [
+    (1, torch.float32, True, "row"), (3, torch.float32, True, "row"),
+    (4, torch.float32, True, "row"), (8, torch.float32, True, "row"),
+    (16, torch.float32, True, "row"), (4, torch.float64, True, "row"),
+    (8, torch.float64, True, "row"), (17, torch.float32, True, "row"),
+    (20, torch.float32, True, "staged"), (32, torch.float32, True, "staged"),
+    (10, torch.float64, True, "staged"), (16, torch.float64, True, "staged"),
+    (128, torch.float32, True, "staged"), (128, torch.float64, True, "staged"),
+    (132, torch.float32, True, "staged"), (131, torch.float32, True, "row"),
+    (129, torch.float64, True, "row"), (128, torch.float32, False, "row"),
+    (32, torch.float32, False, "row"), (256, torch.float64, False, "row"),
+]
+
+
+@pytest.mark.parametrize("m,dtype,aligned,route", GENERAL_ROUTE_CASES)
+def test_general_route_choice(m, dtype, aligned, route):
+    assert sde_step_module.ROW_ROUTE_MAX_BYTES == 64
+    assert sde_step_module.general_route(m, dtype, aligned) == route
+
+
+def test_general_kernels_have_an_entry_per_dtype_and_route():
+    for kern, name in ((INCREMENT_GENERAL, "increment_general"),
+                       (WS_STAGE_GENERAL, "ws_stage_general")):
+        assert set(kern.functions) == {f"{name}_{sfx}{route}" for sfx in ("f32", "f64")
+                                       for route in ("", "_staged")}
+        assert len({tuple(a) for a in kern.functions.values()}) == 1  # one signature
+        text = kern.source.read_text()
+        for fn in kern.functions:
+            assert f'extern "C" int {fn}(' in text
+
+
+def test_route_launches_split_entry_counts():
+    kern = sde_step_module._general_kernel("increment_general", [])
+    kern.entry_launches.update({"increment_general_f32": 3, "increment_general_f64_staged": 2,
+                                "increment_general_f32_staged": 4})
+    assert sde_step_module.route_launches(kern) == {"row": 3, "staged": 6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 4, 33])
+def test_general_sum_from_negative_zero_is_the_twins(dtype, m):
+    # The staged route starts each sum at -0.0 and adds every product,
+    # g[0]*dW[0] included; the twin starts at g[0]*dW[0].  -0.0 is the
+    # additive identity, so the two agree bit for bit, signed zeros, infinities
+    # and NaNs included.
+    rng = np.random.default_rng(m)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-300])
+    g = rng.choice(np.concatenate([special, rng.normal(size=64)]), size=(50, 3, m))
+    w = rng.choice(np.concatenate([special, rng.normal(size=64)]), size=(50, m))
+    g, w = torch.tensor(g, dtype=dtype), torch.tensor(w, dtype=dtype)
+    acc = torch.full((50, 3), -0.0, dtype=dtype)
+    for j in range(m):
+        acc = acc + g[..., j] * w[..., None, j]
+    want = tref.gdw_ref(g, w)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(acc.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("variant", sorted(general_variants.VARIANTS))
+def test_general_variants_edit_the_committed_header(variant):
+    # Each design variant of the general-noise harness is one edit of the
+    # committed csrc/row_matvec.cuh; an edit that no longer applies raises.
+    text = (INCREMENT_GENERAL.source.parent / "row_matvec.cuh").read_text()
+    edited = general_variants.edited_header(variant)
+    assert (edited == text) == (variant == "committed")
+
+
+def test_general_term_takes_its_channels():
+    from repro_torch.benchmarks import step_kernels as sk
+    y = torch.zeros(5, sk.DIM)
+    args = sk.term_args("cpu")
+    for channels in (sk.N_CHANNELS, 128):
+        g = sk.make_term("general", channels=channels).diffusion(0.0, y, args)
+        assert g.shape == (5, sk.DIM, channels)
+    assert sk.make_term("general").diffusion(0.0, y, args).shape[-1] == sk.N_CHANNELS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
