@@ -10,8 +10,9 @@ It drives the port's paths through the eleven hand-written CUDA kernels — an
 requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
 d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
 training run with the reversible adjoint, the serving and training of
-additive- and general-noise SDEs, and the LM substrate's prefill and decode
-of zamba2-7b at full width — and checks what comes out:
+additive- and general-noise SDEs, the LM substrate's prefill and decode of
+zamba2-7b at full width, and the paper's Tables 7 and 2 and its stability
+frontier — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -49,9 +50,11 @@ of zamba2-7b at full width — and checks what comes out:
    held against the plain path on the card and on the CPU; the
    ``axpy_chain`` launches by chain length; one step of each under
    ``torch.cuda.set_sync_debug_mode("error")``;
-8. one EES(2,5) training step at 65,536 paths under the reversible and the
-   full adjoint, 8 and 64 steps: peak device memory, and the profile of one
-   reversible step;
+8. one EES(2,5) training step at 65,536 paths under the reversible, the
+   full and the recursive adjoint (checkpointed chunks of 2 and 4 steps),
+   8 and 64 steps: peak device memory (at 64 steps reversible < recursive <
+   full), one recursive step bitwise equal to one full step, and the
+   profile of one reversible step;
 9. the step-kernel benchmark's additive, general and diagonal terms
    (``repro_torch.benchmarks.step_kernels``, width 16, 4 channels, 64 steps)
    served through ``SDESampleEngine`` — requests E-N: the prediffused
@@ -82,15 +85,34 @@ of zamba2-7b at full width — and checks what comes out:
 12. the decode ``Engine`` on those weights: 8 requests of 8-token prompts,
    greedy, ``slots=8, max_len=64``: tokens/s, ticks, finite logits, and the
    same tokens from a second drain on a new engine; one decode step's host
-   wall, device time and launches.
+   wall, device time and launches;
+13. the paper's Euclidean experiments at the reference's sizes
+   (``repro_torch.benchmarks.table7_gbm``, ``table2_vol``,
+   ``bench_stability``): (a) Table 7's four solvers through the kernels,
+   bitwise equal to the plain path on the card and within 1e-4 of max |y_T|
+   of the CPU's plain path (where finite; non-finite on both alike),
+   EES(2,5) stable and Reversible Heun not; (b) Table 2's four solvers
+   under the reversible adjoint, kernels against plain (loss and each
+   gradient leaf within 1e-5 of its own max), ms per forward + backward
+   and the signature MMD, one EES(2,5) call's device busy share, then
+   EES(2,5) under the full, recursive and reversible adjoints: the
+   recursive gradients bitwise equal to the full ones, the reversible
+   ones within 1e-4 of each leaf's max, peak memory
+   reversible < recursive < full (with per-step noise; the bulk draw's
+   peak is shared by the two) and the ms of each; (c) the stability sweep
+   in full on the plain specs and EES(2,5) / EES(2,7) through the kernels
+   (frontiers identical), each frontier beside the reference's
+   ``BENCH_stability.json`` (differences printed) and the reference's gate.
 
-The launch counts are zeroed just before each path (phases 4-5, the
-60-epoch runs of phase 7, phase 9's drain and its m = 128 request, phase
-10's runs and phase 11's counted prefill) and read just after; a kernel of
-the path with no launch there fails the run.  The second-to-last line is the
-``{"kernels": [...]}`` record (the general-noise kernels with their
-``launches_by_route``) and the last line ``{"ok": true, "device":
-{...}}``.  Any failed phase exits non-zero; with no
+Each phase prints its seconds.  The launch counts are zeroed just before
+each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
+m = 128 request, phase 10's runs, phase 11's counted prefill and the kernel
+runs of 13a-13c) and read just after; a kernel of the path with no launch
+there fails the run.  The second-to-last line is the ``{"kernels": [...]}``
+record (``launches`` counts the path each kernel was first held to, as in
+earlier runs; the general-noise kernels add ``launches_by_route``, the
+Euclidean-path kernels ``launches_phase_13``) and the last line
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
 of the jax package ``repro``.
@@ -911,6 +933,19 @@ def ode_phase(torch, params):
     check(launches > 0, "the ODE sdeint launched no williamson2n kernel")
 
 
+def _zero_launches():
+    from repro_torch.kernels import KERNELS
+
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+def _read_launches():
+    from repro_torch.kernels import KERNELS
+
+    return {kern.name: kern.launches for kern in KERNELS if kern.launches}
+
+
 def _max_rel(got, want):
     """max |got - want| / max(1, max |want|) over matching tensor lists."""
     return max((g.double().cpu() - w.double().cpu()).abs().max().item()
@@ -973,8 +1008,7 @@ def table1_phase(torch):
 
     # 7b. The main path: the reference's 60 epochs for every solver, with the
     # launch counts zeroed just before and read just after.
-    for kern in KERNELS:
-        kern.launches = 0
+    _zero_launches()
     by_entry = dict(AXPY_CHAIN.entry_launches)
     rows = {}
     for name, spec, n_steps in t1.solvers():
@@ -1039,8 +1073,21 @@ def _train_step(torch, spec, n_steps, target, n_paths=256, **kw):
             prng.PRNGKey(1, device="cuda"))
 
 
+def _peak_mib(torch, fn):
+    """Peak device MiB allocated while ``fn`` runs, above what was allocated
+    before it, and ``fn``'s result."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20, out
+
+
 def memory_phase(torch, timer):
-    """Phase 8: peak memory of one EES(2,5) step, reversible vs full, and the
+    """Phase 8: peak memory of one EES(2,5) step under the reversible, full
+    and recursive adjoints, the recursive step against the full one, and the
     profile of one reversible step."""
     from repro_torch.benchmarks import table1_ou as t1
 
@@ -1048,22 +1095,15 @@ def memory_phase(torch, timer):
     from repro_torch.core.brownian import brownian_path
 
     target = t1.target_paths()
-
-    def peak_mib(fn):
-        """Peak device MiB allocated while ``fn`` runs, above what was
-        allocated before it, and ``fn``'s result."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        out = fn()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base) / 2**20, out
+    peak_mib = lambda fn: _peak_mib(torch, fn)  # noqa: E731
 
     # "per-step noise" draws each step's increment in the loop (and again in
     # the backward sweep) instead of the bulk buffer: the adjoint alone.
+    # "recursive" checkpoints chunks of the default remat_chunk (2 steps at
+    # 8 steps, 4 at 64: segments of n/2).
     configs = (("reversible", dict(adjoint="reversible")),
                ("full", dict(adjoint="full")),
+               ("recursive", dict(adjoint="recursive")),
                ("reversible, per-step noise",
                 dict(adjoint="reversible", bulk_increments=False)))
     peaks = {}
@@ -1096,6 +1136,30 @@ def memory_phase(torch, timer):
           + f"; the increment buffer itself grows by {dws:.1f}", flush=True)
     check(peaks[(64, "reversible")] < peaks[(64, "full")],
           "the reversible adjoint's peak is not below the full adjoint's")
+    check(peaks[(64, "recursive")] < peaks[(64, "full")],
+          "the recursive adjoint's peak is not below the full adjoint's")
+    check(peaks[(64, "reversible")] < peaks[(64, "recursive")],
+          "the reversible adjoint's peak is not below the recursive adjoint's")
+
+    # One recursive step against one full step (8 steps, 65,536 paths): the
+    # checkpointed replay runs the same kernels on the same inputs, so the
+    # updated weights and the gradient norm must agree bit for bit (the CPU
+    # test holds the gradients bitwise).
+    after = {}
+    for adjoint in ("full", "recursive"):
+        step, state, params, key = _train_step(
+            torch, "ees25:use_kernels=True", 8, target, n_paths=SERVE_SLOTS,
+            adjoint=adjoint)
+        params, _, m = step(params, state, key)
+        after[adjoint] = ([p.detach().clone() for p in params.parameters()], m)
+    (pf, mf), (pr, mr) = after["full"], after["recursive"]
+    same = (all(torch.equal(a, b) for a, b in zip(pf, pr))
+            and torch.equal(mf["grad_norm"], mr["grad_norm"]))
+    print(f"  one EES(2,5) step ({SERVE_SLOTS} paths x 8 steps), recursive vs "
+          f"full: updated weights max rel diff {_max_rel(pr, pf):.3e}, grad "
+          f"norm {mr['grad_norm'].item():.9e} vs {mf['grad_norm'].item():.9e}, "
+          f"bitwise={same}", flush=True)
+    check(same, "the recursive adjoint's step differs from the full adjoint's")
 
     step, state, params, key = _train_step(
         torch, "ees25:use_kernels=True", 8, target, n_paths=SERVE_SLOTS)
@@ -1160,7 +1224,7 @@ def noise_serve_phase(torch, timer):
     new kernels' launch counts."""
     from repro_torch.benchmarks import step_kernels as sk
     from repro_torch.core import PRNGKey, SDETerm, path_keys, sdeint
-    from repro_torch.kernels import (INCREMENT_GENERAL, INCREMENT_PRE, KERNELS,
+    from repro_torch.kernels import (INCREMENT_GENERAL, INCREMENT_PRE,
                                      WS_STAGE_GENERAL, WS_STAGE_PRE)
     from repro_torch.serving import BucketKey, SDESampleConfig, SDESampleEngine
 
@@ -1207,8 +1271,7 @@ def noise_serve_phase(torch, timer):
         print("  warm-up, 1024 paths per request's spec (first use): "
               + ", ".join(f"{k} {v:.3f} s" for k, v in firsts.items()),
               flush=True)
-        for kern in KERNELS:
-            kern.launches = 0
+        _zero_launches()
         routes_before = general_routes()
         # One request at a time through its engine, each drain timed.
         rids, walls = {}, {}
@@ -1223,7 +1286,7 @@ def noise_serve_phase(torch, timer):
             walls[label] = time.perf_counter() - start
         done = {name: eng.done for name, eng in engines.items()}
     wall = sum(walls.values())
-    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    launches = _read_launches()
     routes = general_routes(since=routes_before)
     n_paths = sum(r[3] for r in requests)
     print(f"  served {len(requests)} requests, {n_paths} paths x "
@@ -1367,7 +1430,6 @@ def wide_general_request(torch, timer):
     kernels' launches and the general kernels' launches by route."""
     from repro_torch.benchmarks import step_kernels as sk
     from repro_torch.core import PRNGKey, path_keys
-    from repro_torch.kernels import KERNELS
     from repro_torch.serving import BucketKey, SDESampleConfig, SDESampleEngine
 
     term = sk.make_term("general", channels=WIDE_CHANNELS)
@@ -1381,8 +1443,7 @@ def wide_general_request(torch, timer):
             eng.submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS, n_paths=SERVE_SLOTS, seed=99)
             eng.run()
         torch.cuda.synchronize()
-        for kern in KERNELS:
-            kern.launches = 0
+        _zero_launches()
         routes_before = general_routes()
         rids, walls = {}, {}
         for spec in specs:
@@ -1392,7 +1453,7 @@ def wide_general_request(torch, timer):
             eng.run()
             torch.cuda.synchronize()
             walls[spec] = time.perf_counter() - start
-    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    launches = _read_launches()
     routes = general_routes(since=routes_before)
     got, want = (eng.done[rids[s]] for s in specs)
     for r in (got, want):
@@ -1434,8 +1495,7 @@ def noise_train_phase(torch):
     route; returns the new kernels' launch counts."""
     from repro_torch.benchmarks import step_kernels as sk
     from repro_torch.core import SDETerm, prng
-    from repro_torch.kernels import (INCREMENT_GENERAL, KERNELS, WS_STAGE_GENERAL,
-                                     WS_STAGE_PRE)
+    from repro_torch.kernels import INCREMENT_GENERAL, WS_STAGE_GENERAL, WS_STAGE_PRE
     from repro_torch.nsde import moment_mse, ou_paths
     from repro_torch.optim import adamw
     from repro_torch.train import make_sde_train_step
@@ -1482,8 +1542,7 @@ def noise_train_phase(torch):
          "reversible-heun:use_kernels=True", "reversible-heun", "reversible",
          (sk.N_CHANNELS,), INCREMENT_GENERAL),
     ]
-    for kern in KERNELS:
-        kern.launches = 0
+    _zero_launches()
     routes_before = general_routes()
     for label, term, plain_term, spec, plain, adjoint, ns, kern in cases:
         before = kern.launches
@@ -1508,7 +1567,7 @@ def noise_train_phase(torch):
         else:
             check(loss_err <= 1e-5 and par_err <= 1e-5,
                   f"{label}: the kernel route trains unlike the plain route")
-    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    launches = _read_launches()
     routes = general_routes(since=routes_before)
 
     for label, term, _, spec, _, adjoint, ns, _ in cases:
@@ -1819,6 +1878,228 @@ def tick_profile(torch, timer, cfg, params):
           f"host per launch)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the paper's Euclidean experiments (Tables 7 and 2, the stability
+# frontier) at the reference's own sizes.
+# ---------------------------------------------------------------------------
+
+def _finite_rel(torch, got, want):
+    """max |got - want| / max |want| over the entries finite in both (so
+    relative to ``want``'s own scale, however small); inf when the two are not
+    finite at the same entries."""
+    got, want = got.double().cpu(), want.double().cpu()
+    ok = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), ok):
+        return float("inf")
+    err = (got[ok] - want[ok]).abs().max().item() if bool(ok.any()) else 0.0
+    scale = want[ok].abs().max().item() if bool(ok.any()) else 0.0
+    return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def _leaf_rel(torch, got, want):
+    """The largest :func:`_finite_rel` over matching tensor lists: each leaf
+    against its own largest entry."""
+    return max(_finite_rel(torch, g, w) for g, w in zip(got, want))
+
+
+def table7_phase(torch):
+    """13a: Table 7 (benchmarks/table7_gbm.py), the four solvers through the
+    kernels (the counted path), on the plain path on the card, and on the
+    plain path on the CPU."""
+    from repro_torch.benchmarks import table7_gbm as t7
+
+    _zero_launches()
+    kern = {name: t7.run_case(spec, n, device="cuda")
+            for name, spec, n in t7.solvers(use_kernels=True)}
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    plain = {name: t7.run_case(spec, n, device="cuda")
+             for name, spec, n in t7.solvers()}
+    cpu = {name: t7.run_case(spec, n, device="cpu")
+           for name, spec, n in t7.solvers()}
+    for name, spec, n in t7.solvers(use_kernels=True):
+        k, p, c = kern[name], plain[name], cpu[name]
+        kp = _finite_rel(torch, k.y_final, p.y_final)
+        kc = _finite_rel(torch, k.y_final, c.y_final)
+        same = torch.equal(k.y_final, p.y_final)
+        print(f"  table7_gbm/{name} ({spec}, {n} steps, {t7.N_PATHS} x {t7.D}): "
+              f"terminal_max={k.terminal_max:.6e} stable={k.stable} (plain "
+              f"{p.terminal_max:.6e}, CPU {c.terminal_max:.6e}); wall "
+              f"{k.seconds * 1e3:.3f} ms with the kernels, {p.seconds * 1e3:.3f} "
+              f"plain; kernels vs plain {kp:.2e} of max |y_T| (bitwise={same}; "
+              f"must be bitwise), vs the CPU {kc:.2e} of max |y_T| (tolerance "
+              f"1e-4)", flush=True)
+        check(k.y_final.shape == (t7.N_PATHS, t7.D), f"Table 7 {name}: shape")
+        check(same, f"Table 7 {name}: the kernels differ from the plain path")
+        check(kc <= 1e-4, f"Table 7 {name}: the card disagrees with the CPU")
+        check(k.stable == p.stable == c.stable, f"Table 7 {name}: stable differs")
+    check(kern["EES(2,5)"].stable and not kern["RevHeun"].stable,
+          "Table 7: the reference's outcome (EES(2,5) stable, Reversible Heun "
+          "not) does not hold")
+    return launches
+
+
+def table2_phase(torch, timer):
+    """13b: Table 2 (benchmarks/table2_vol.py) at its size: the four solvers
+    under the reversible adjoint, kernels (the counted path) against plain,
+    and the device's share of one EES(2,5) call; then EES(2,5) with the kernels under the full, recursive and reversible
+    adjoints: gradients, peak memory and time."""
+    from repro_torch.benchmarks import table2_vol as t2
+    from repro_torch.core import prng
+    from repro_torch.nsde import init_lsde
+
+    target = torch.as_tensor(t2.target_paths(), dtype=torch.float32, device="cuda")
+    key = prng.PRNGKey(0, device="cuda")
+    params = init_lsde(key, 1, t2.D_Z, width=t2.WIDTH, device="cuda")
+
+    def timed(loss):
+        """(loss, grads, ms): one warm call, then one timed call."""
+        t2.value_and_grad(loss, params, key)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        val, grads = t2.value_and_grad(loss, params, key)
+        val = val.item()
+        return val, grads, (time.perf_counter() - start) * 1e3
+
+    launches = {}
+    for (name, spec, n), (_, plain, _) in zip(t2.solvers(use_kernels=True),
+                                              t2.solvers()):
+        _zero_launches()
+        vk, gk, msk = timed(t2.make_loss(spec, n, target))
+        torch.cuda.synchronize()
+        for kname, cnt in _read_launches().items():
+            launches[kname] = launches.get(kname, 0) + cnt
+        vp, gp, msp = timed(t2.make_loss(plain, n, target))
+        l_err, g_err = _loss_err([vk], [vp]), _leaf_rel(torch, gk, gp)
+        print(f"  table2_vol/{name} ({n} steps, {t2.BATCH} paths, adjoint="
+              f"reversible): {msk:.3f} ms per forward + backward with the "
+              f"kernels, {msp:.3f} plain (host wall, one timed call after a "
+              f"warm one); sig_mmd={vk:.6f}; kernels vs plain: loss {l_err:.2e}, "
+              f"gradients {g_err:.2e} of each leaf's max (tolerance 1e-5)",
+              flush=True)
+        check(np.isfinite(vk) and all(bool(torch.isfinite(g).all()) for g in gk),
+              f"Table 2 {name}: not finite")
+        check(l_err <= 1e-5 and g_err <= 1e-5,
+              f"Table 2 {name}: the kernels disagree with the plain path")
+
+    # The device's share of one call (a profile of its ~60k launches takes
+    # ~20 s to read).
+    loss = t2.make_loss("ees25:use_kernels=True", t2.NFE // 3, target)
+    run = lambda: t2.value_and_grad(loss, params, key)  # noqa: E731
+    totals = timer.kernels_us(run, reps=1, flush=False)
+    dev_ms = sum(t for t, _ in totals.values()) / 1e3
+    n_launch = sum(n for _, n in totals.values())
+    _, _, wall_ms = timed(loss)
+    print(f"  table2_vol/EES(2,5) kernels, one forward + backward: device kernel "
+          f"time {dev_ms:.3f} ms over {n_launch} launches against {wall_ms:.3f} "
+          f"ms of host wall (device busy {dev_ms / wall_ms:.1%})", flush=True)
+
+    spec, n = "ees25:use_kernels=True", t2.NFE // 3
+    seg = n // t2.N_OBS
+    rows = {}
+    for adjoint in ("full", "recursive", "reversible"):
+        loss = t2.make_loss(spec, n, target, adjoint=adjoint)
+        val, grads, ms = timed(loss)
+        peak, _ = _peak_mib(torch, lambda: t2.value_and_grad(loss, params, key))
+        per_step = t2.make_loss(spec, n, target, adjoint=adjoint,
+                                bulk_increments=False)
+        peak_ps, _ = _peak_mib(torch, lambda: t2.value_and_grad(per_step, params, key))
+        rows[adjoint] = (val, grads, ms, peak, peak_ps)
+    vf, gf = rows["full"][:2]
+    for adjoint, (val, grads, ms, peak, peak_ps) in rows.items():
+        same = val == vf and all(torch.equal(a, b) for a, b in zip(grads, gf))
+        print(f"  table2_vol/EES(2,5) ({n} steps, segments of {seg}, adjoint="
+              f"{adjoint}): {ms:.3f} ms per forward + backward; peak device "
+              f"memory {peak:.3f} MiB ({peak_ps:.3f} MiB with per-step noise); "
+              f"gradients vs full: {_leaf_rel(torch, grads, gf):.3e} of each "
+              f"leaf's max (bitwise={same})",
+              flush=True)
+    rec, rev, full = rows["recursive"], rows["reversible"], rows["full"]
+    check(rec[0] == full[0] and all(torch.equal(a, b) for a, b in zip(rec[1], full[1])),
+          "Table 2: the recursive adjoint's gradients differ from the full adjoint's")
+    check(_leaf_rel(torch, rev[1], full[1]) <= 1e-4,
+          "Table 2: the reversible adjoint's gradients are far from the full "
+          "adjoint's (tolerance 1e-4 of each leaf's max)")
+    check(rev[4] < rec[4] < full[4], "Table 2 (per-step noise): peak memory is not "
+          "reversible < recursive < full")
+    check(rev[3] <= rec[3] < full[3], "Table 2: peak memory is not "
+          "reversible <= recursive < full")
+    return launches
+
+
+def stability_phase(torch):
+    """13c: the stability sweep (benchmarks/bench_stability.py) in full on the
+    plain specs, and EES(2,5) / EES(2,7) through the kernels (the counted
+    path), beside the reference's frontier from BENCH_stability.json."""
+    from repro_torch.benchmarks import bench_stability as sweep
+
+    with open(os.path.join(REPO, "BENCH_stability.json")) as f:
+        ref = json.load(f)
+    start = time.perf_counter()
+    plain = sweep.run(device="cuda", verbose=False)
+    plain_s = time.perf_counter() - start
+    _zero_launches()
+    start = time.perf_counter()
+    kern = sweep.run(device="cuda", solvers=("ees25:use_kernels=True",
+                                             "ees27:use_kernels=True"),
+                     verbose=False)
+    kern_s = time.perf_counter() - start
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    n_runs = len(plain["records"])
+    print(f"  {n_runs} plain runs in {plain_s:.2f} s, "
+          f"{len(kern['records'])} kernel runs in {kern_s:.2f} s "
+          f"({sweep.N_PATHS} paths x {sweep.DIM}, float64)", flush=True)
+    diffs = 0
+    for spec in sweep.SOLVERS:
+        for lam in (f"{x:g}" for x in sweep.STIFFNESS):
+            got, want = plain["frontiers"][spec][lam], ref["frontiers"][spec][lam]
+            same = got == want
+            diffs += not same
+            print(f"    {spec:16s} lam {lam:>2s}: max_stable_h "
+                  f"{got['max_stable_h']:.6g} min_budget {got['min_stable_budget']}"
+                  f"  (reference: {want['max_stable_h']:.6g}, "
+                  f"{want['min_stable_budget']}){'' if same else '  DIFFERS'}",
+                  flush=True)
+    flips = sum(r["stable"] != q["stable"] for r, q in zip(
+        plain["records"], ref["records"]))
+    print(f"  frontiers differing from the reference's: {diffs}; runs whose "
+          f"stable flag differs: {flips} of {n_runs}", flush=True)
+    for spec in ("ees25", "ees27"):
+        same = kern["frontiers"][f"{spec}:use_kernels=True"] == plain["frontiers"][spec]
+        print(f"  {spec}:use_kernels=True frontier equals plain {spec}'s: {same}",
+              flush=True)
+        check(same, f"the {spec} kernel route's frontier differs from the plain route's")
+    bad = sweep.gate(plain)
+    print(f"  the reference's gate (EES(2,5)'s frontier finite, positive and >= "
+          f"Reversible Heun's at every stiffness): {'pass' if not bad else bad}",
+          flush=True)
+    check(not bad, "the stability gate fails")
+    return launches
+
+
+def paper_tables_phase(torch, timer):
+    """Phase 13: returns ``{kernel: launches}`` summed over 13a-13c."""
+    total = {}
+    for label, fn, must in (
+            ("13a: Table 7, stiff GBM", table7_phase,
+             ("increment_diag", "ws_stage_diag", "axpy_chain")),
+            ("13b: Table 2, rough volatility", lambda torch: table2_phase(torch, timer),
+             ("increment_diag", "ws_stage_diag", "ws_stage_diag_bwd", "axpy_chain")),
+            ("13c: the stability frontier", stability_phase, ("ws_stage_diag",))):
+        start = time.perf_counter()
+        print(f" {label}", flush=True)
+        launches = fn(torch)
+        print(f"  kernels launched on {label[:3]}'s path: {launches} "
+              f"({time.perf_counter() - start:.1f} s)", flush=True)
+        for name in must:
+            check(launches.get(name, 0) > 0,
+                  f"{name} was not launched on phase {label[:3]}'s path")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1835,8 +2116,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
+    clock = {"phase": None, "start": t_start}
 
-    print("phase 1: device", flush=True)
+    def phase(label):
+        """Prints the previous phase's seconds, then this phase's heading."""
+        now = time.perf_counter()
+        if clock["phase"] is not None:
+            print(f"  ({clock['phase']}: {now - clock['start']:.1f} s)", flush=True)
+        clock.update(phase=label.split(":")[0], start=now)
+        if label:
+            print(label, flush=True)
+
+    phase("phase 1: device")
     card = card_line()
     print(f"  card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1850,7 +2141,7 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
           flush=True)
 
-    print("phase 2: build", flush=True)
+    phase("phase 2: build")
     from repro_torch.kernels import KERNELS, WILLIAMSON2N, WS_STAGE_DIAG, build_kernels
     seconds = build_kernels()
     print(f"  built {len(KERNELS)} kernel libraries in {seconds:.2f} s", flush=True)
@@ -1859,16 +2150,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {k.name}: {line.strip()}", flush=True)
 
-    print("phase 3: kernels against their plain twins", flush=True)
+    phase("phase 3: kernels against their plain twins")
     timer = Timer(torch)
     stats = kernel_phase(torch, timer)
     stats.update(lm_kernel_phase(torch, timer))
 
-    print("phase 4: serve requests A-D", flush=True)
+    phase("phase 4: serve requests A-D")
     params, _ = serve_phase(torch, timer)
     ws_launches = WS_STAGE_DIAG.launches
 
-    print("phase 5: ODE sdeint through williamson2n", flush=True)
+    phase("phase 5: ODE sdeint through williamson2n")
     ode_phase(torch, params)
 
     launches = {"ws_stage_diag": WS_STAGE_DIAG.launches,
@@ -1879,7 +2170,7 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
-    print("phase 7: Table 1 on the card", flush=True)
+    phase("phase 7: Table 1 on the card")
     train_launches = table1_phase(torch)
     print(f"  kernels launched on the training path (phase 7's 60-epoch runs): "
           f"{train_launches}", flush=True)
@@ -1890,15 +2181,14 @@ def main() -> int:
     launches.update({name: train_launches[name] for name in
                      ("ws_stage_diag_bwd", "increment_diag", "axpy_chain")})
 
-    print("phase 8: reversible vs full adjoint memory; one step's profile",
-          flush=True)
+    phase("phase 8: reversible, recursive and full adjoint memory; one step's "
+          "profile")
     memory_phase(torch, timer)
 
-    print("phase 9: serve additive, general and diagonal SDEs (requests E-N)",
-          flush=True)
+    phase("phase 9: serve additive, general and diagonal SDEs (requests E-N)")
     serve_launches, serve_routes = noise_serve_phase(torch, timer)
 
-    print("phase 10: train on the additive and general terms", flush=True)
+    phase("phase 10: train on the additive and general terms")
     noise_train_launches, train_routes = noise_train_phase(torch)
     new = ("increment_pre", "ws_stage_pre", "increment_general",
            "ws_stage_general")
@@ -1910,13 +2200,21 @@ def main() -> int:
           f"serving {serve_launches}, training {noise_train_launches}; the general "
           f"kernels by route {by_route}", flush=True)
 
-    print("phase 11: LM prefill, zamba2-7b at full width", flush=True)
+    phase("phase 11: LM prefill, zamba2-7b at full width")
     lm_float32_phase(torch)
     cfg, lm_params, prefill_launches = lm_prefill_phase(torch, timer)
     launches.update(prefill_launches)
 
-    print("phase 12: LM serving, zamba2-7b at full width (bf16)", flush=True)
+    phase("phase 12: LM serving, zamba2-7b at full width (bf16)")
     lm_serve_phase(torch, timer, cfg, lm_params)
+    del lm_params
+    torch.cuda.empty_cache()
+
+    phase("phase 13: the paper's Euclidean experiments (Tables 7 and 2, the "
+          "stability frontier)")
+    table_launches = paper_tables_phase(torch, timer)
+    print(f"  kernels launched on phase 13's paths: {table_launches}", flush=True)
+    phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
     sources = {"ws_stage_diag": ("ws_stage_diag.cu", f"{tpu}:144"),
@@ -1941,7 +2239,9 @@ def main() -> int:
          "bound_ms": stats[name]["bound_ms"],
          "bound_by": stats[name]["bound_by"],
          "library_ms": stats[name]["library_ms"],
-         **({"launches_by_route": by_route[name]} if name in by_route else {})}
+         **({"launches_by_route": by_route[name]} if name in by_route else {}),
+         **({"launches_phase_13": table_launches[name]}
+            if name in table_launches else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -10,8 +10,9 @@ predicts the card's peak for the same step without a run on the card.
 
 ``python -m repro_torch.benchmarks.step_memory --device cpu --paths 2048``
 counts one EES(2,5) step of Table 1 under the reversible adjoint (with bulk
-and with per-step increments) and the full adjoint, at 8 and 64 steps, and
-prints each peak and its value scaled linearly to 65,536 paths (every
+and with per-step increments), the full adjoint and the recursive adjoint
+(checkpointed chunks of the default ``remat_chunk``: 2 steps at 8 steps, 4
+at 64), at 8 and 64 steps, and prints each peak and its value scaled linearly to 65,536 paths (every
 tensor the step makes has a path axis; the parameters are inputs).  The
 bulk draw's pass size is scaled by the same factor, so its passes hold the
 rows they hold at 65,536 paths.
@@ -94,6 +95,7 @@ def main(argv=None) -> None:
     brownian.BULK_PASS_ELEMENTS = int(brownian.BULK_PASS_ELEMENTS / scale)
     configs = (("reversible", dict(adjoint="reversible")),
                ("full", dict(adjoint="full")),
+               ("recursive", dict(adjoint="recursive")),
                ("reversible, per-step noise",
                 dict(adjoint="reversible", bulk_increments=False)))
     for n_steps in (8, 64):

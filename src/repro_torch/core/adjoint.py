@@ -1,9 +1,17 @@
 """``solve()``: the one solve loop over a :class:`~repro_torch.core.grid.TimeGrid`.
 
-Port of ``repro.core.adjoint.solve`` for fixed grids under two adjoints:
+Port of ``repro.core.adjoint.solve`` for fixed grids under the three
+adjoints:
 
 * **full** — autograd through the loop: exact gradients of the discrete
   computation, O(n) activation memory;
+* **recursive** — the same gradients with the loop cut into checkpointed
+  chunks of ``remat_chunk`` steps inside each ``save_every`` segment
+  (default: the largest divisor of the segment length not above its square
+  root, as the reference's): the forward keeps each chunk's input state and
+  the backward replays one chunk at a time under autograd
+  (``torch.utils.checkpoint``, non-reentrant, so parameters reached through
+  ``args`` get their cotangents);
 * **reversible** — O(1) memory in the trajectory (Algorithm 1): a
   ``torch.autograd.Function`` whose forward runs the loop without a graph
   and keeps only the final solver state, and whose backward rebuilds each
@@ -25,17 +33,19 @@ The reference's ``lax.scan`` becomes a Python loop over steps, grouped into
 
 Solvers that advertise ``needs_levy_area`` (SRA1) get ``(dW, dH)`` pairs
 from the Levy-augmented driver queries, in bulk and per step, forward and in
-the reversible replay.  Under the full adjoint an ``"additive"`` term with
-bulk increments takes the prediffused fast path (:func:`_maybe_prediffuse`).
-The recursive adjoint, ``save_at`` dense output and realized (adaptive)
-grids are not ported yet.
+the reversible replay.  Under the full and recursive adjoints an
+``"additive"`` term with bulk increments takes the prediffused fast path
+(:func:`_maybe_prediffuse`).  ``save_at`` dense output and realized
+(adaptive) grids are not ported yet.
 """
 from __future__ import annotations
 
+import math
 import types
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import not_yet_ported
 from .brownian import BrownianPath
@@ -89,19 +99,42 @@ def _step_increment(solver, grid: TimeGrid, dWs, n):
     return grid.increment(n)
 
 
+def _run_steps(solver, term, state, grid: TimeGrid, args, dWs, n0, n1):
+    """Steps ``n0 .. n1 - 1`` from ``state``."""
+    for n in range(n0, n1):
+        dW = _step_increment(solver, grid, dWs, n)
+        state = solver.step(term, state, grid.t_of(n), grid.h_of(n), dW, args)
+    return state
+
+
+def _run_chunk(solver, term, state, grid: TimeGrid, args, dWs, n0, n1):
+    """Steps ``n0 .. n1 - 1`` as one checkpointed region: autograd keeps the
+    input state and replays the steps when the backward reaches them.  The
+    replay reads the same increments (the bulk buffer's rows, or the same
+    counter-based draws), so it uses no torch RNG state."""
+    return checkpoint(_run_steps, solver, term, state, grid, args, dWs, n0, n1,
+                      use_reentrant=False, preserve_rng_state=False)
+
+
 def _solve_loop(solver, term, y0, grid: TimeGrid, args, save_every, dWs,
-                guard, batch_dims):
-    """The forward loop: ``(final solver state, ys or None, diverged or None)``."""
+                guard, batch_dims, remat_chunk=None):
+    """The forward loop: ``(final solver state, ys or None, diverged or None)``.
+    With ``remat_chunk`` each segment runs as checkpointed chunks of that
+    many steps (the recursive adjoint)."""
     n_seg, seg_len = _segment_counts(grid.n_steps, save_every)
     n_live = grid.n_live
     state = solver.init(term, grid.t0, y0, args)
     div = None
     saves = []
     for seg in range(n_seg):
-        for n in range(seg * seg_len, min((seg + 1) * seg_len, n_live)):
-            dW = _step_increment(solver, grid, dWs, n)
-            state = solver.step(term, state, grid.t_of(n), grid.h_of(n), dW,
-                                args)
+        # A padded grid runs its live steps only, in chunks clipped to them.
+        lo, hi = seg * seg_len, min((seg + 1) * seg_len, n_live)
+        if remat_chunk is None:
+            state = _run_steps(solver, term, state, grid, args, dWs, lo, hi)
+        else:
+            for c0 in range(lo, hi, remat_chunk):
+                state = _run_chunk(solver, term, state, grid, args, dWs, c0,
+                                   min(c0 + remat_chunk, hi))
         if guard is not None:
             flag = tree_blowup(solver.extract(state), guard, batch_dims)
             div = flag if div is None else div | flag
@@ -111,6 +144,15 @@ def _solve_loop(solver, term, y0, grid: TimeGrid, args, save_every, dWs,
     if save_every is not None:
         ys = tree_map(lambda *xs: torch.stack(xs), saves[0], *saves[1:])
     return state, ys, div
+
+
+def _default_remat_chunk(seg_len: int) -> int:
+    """The reference's checkpoint granularity: ``isqrt(seg_len)``, lowered
+    until it divides the segment."""
+    chunk = max(1, math.isqrt(seg_len))
+    while seg_len % chunk != 0:
+        chunk -= 1
+    return chunk
 
 
 # ---------------------------------------------------------------------------
@@ -248,16 +290,17 @@ def _maybe_prediffuse(solver, term, y0, grid: TimeGrid, args, adjoint, dWs):
     diagonal route bitwise.  The buffer ``w`` is as large as ``dWs``, and
     both stay live for the solve.
 
-    Other cases keep their term and buffer: the reversible adjoint (its
-    backward treats the buffer as data, which would cut the diffusion
-    parameters' cotangents), per-step increments (nothing to hoist over),
-    and solvers that read ``term.diffusion`` or take Levy-area pairs
+    The full and recursive adjoints take it.  Other cases keep their term
+    and buffer: the reversible adjoint (its backward treats the buffer as
+    data, which would cut the diffusion parameters' cotangents), per-step
+    increments (nothing to hoist over), and solvers that read
+    ``term.diffusion`` or take Levy-area pairs
     (Milstein, SRA1).
     """
     if (
         dWs is None
         or getattr(term, "noise", None) != "additive"
-        or adjoint != "full"
+        or adjoint not in ("full", "recursive")
         or getattr(solver, "needs_levy_area", False)
         or getattr(solver, "needs_diffusion", False)
     ):
@@ -289,6 +332,10 @@ def solve(
     (the port writes out the batch the reference vmaps over).  The guard's
     ``diverged`` flag keeps those axes — one flag per path.
 
+    ``adjoint`` is ``"full"``, ``"recursive"`` (checkpointed chunks of
+    ``remat_chunk`` steps; each ``save_every`` segment must divide into
+    them) or ``"reversible"``.
+
     Returns a :class:`SolveResult`: ``y_final``, ``ys`` (stacked on a
     leading ``n_steps / save_every`` axis, or None) and ``diverged`` (None
     without ``guard``).
@@ -310,10 +357,18 @@ def solve(
             f"granularity and has no effect under adjoint={adjoint!r} — "
             "drop it or use adjoint='recursive'"
         )
-    if adjoint == "recursive":
-        raise not_yet_ported(f"adjoint={adjoint!r}")
-    if adjoint not in ("full", "reversible"):
+    if adjoint not in ("full", "recursive", "reversible"):
         raise ValueError(f"unknown adjoint {adjoint!r}")
+    if adjoint == "recursive":
+        _, seg_len = _segment_counts(grid.n_steps, save_every)
+        if remat_chunk is None:
+            remat_chunk = _default_remat_chunk(seg_len)
+        elif int(remat_chunk) < 1:
+            raise ValueError(f"remat_chunk must be a positive step count, got "
+                             f"{remat_chunk!r}")
+        elif seg_len % int(remat_chunk) != 0:
+            raise ValueError("segment length must be divisible by remat_chunk")
+        remat_chunk = int(remat_chunk)
     dWs = None
     if bulk_increments:
         dWs = (grid.levy_increments()
@@ -324,5 +379,5 @@ def solve(
         return _solve_reversible(solver, term, y0, grid, args, save_every, dWs,
                                  guard, batch_dims)
     state, ys, div = _solve_loop(solver, term, y0, grid, args, save_every, dWs,
-                                 guard, batch_dims)
+                                 guard, batch_dims, remat_chunk)
     return SolveResult(solver.extract(state), ys, div)

@@ -1,14 +1,17 @@
-"""Synthetic ground-truth dynamics (port of ``repro.nsde.data``, the OU
-paths of Table 1).
+"""Synthetic ground-truth dynamics (port of ``repro.nsde.data``): the OU
+paths of Table 1, the stiff GBM of Table 7 (Appendix H.1) and the rough
+volatility paths of Table 2 (Appendix H.2).
 
-A numpy copy of the reference's generator with the same ``rng`` call order,
-so the same seed gives the same target array in both packages.
+Numpy copies of the reference's generators with the same ``rng`` call
+order, so the same seed gives the same arrays in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ou_paths"]
+from .fbm import fbm_increments
+
+__all__ = ["ou_paths", "stiff_gbm_matrix", "gbm_paths", "rough_vol_paths"]
 
 
 def ou_paths(rng, batch: int, n_steps: int, T: float = 10.0,
@@ -22,3 +25,52 @@ def ou_paths(rng, batch: int, n_steps: int, T: float = 10.0,
     for n in range(n_steps):
         x[:, n + 1] = mu + (x[:, n] - mu) * a + sd * rng.standard_normal(batch)
     return x
+
+
+def stiff_gbm_matrix(rng, d: int = 25) -> np.ndarray:
+    """``A = Q diag(-20 (1 + i/d)) Q^T`` with ``Q`` from the QR of a Gaussian
+    matrix: eigenvalues from -20 to -40."""
+    lam = -20.0 * (1.0 + np.arange(d) / d)
+    Q, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    return (Q * lam) @ Q.T
+
+
+def gbm_paths(rng, A: np.ndarray, batch: int, n_steps: int, T: float = 1.0,
+              sigma: float = 0.1):
+    """dy = A y dt + sigma y dW (Stratonovich ~ Ito for this test scale),
+    simulated with a fine-grid exponential-Euler reference:
+    ``(batch, n+1, d)`` from ``y0 = 1``."""
+    d = A.shape[0]
+    h = T / n_steps
+    y = np.ones((batch, n_steps + 1, d))
+    eAh = _expm(A * h)
+    for n in range(n_steps):
+        dW = rng.standard_normal((batch, 1)) * np.sqrt(h)
+        y[:, n + 1] = (y[:, n] @ eAh.T) * np.exp(sigma * dW - 0.5 * sigma**2 * h)
+    return y
+
+
+def _expm(M):
+    """``exp(M)`` by eigendecomposition (M diagonalizable)."""
+    vals, vecs = np.linalg.eig(M)
+    return (vecs @ np.diag(np.exp(vals)) @ np.linalg.inv(vecs)).real
+
+
+def rough_vol_paths(rng, batch: int, n_steps: int, T: float = 1.0,
+                    H: float = 0.25, eta: float = 1.991, v0: float = 0.04,
+                    s0: float = 1.0, rho: float = -0.848):
+    """Rough-Bergomi-style price paths: v_t = v0 exp(eta W^H_t - eta^2 t^{2H}/2),
+    dS/S = sqrt(v) dB with corr(B, driver of W^H) = rho.  Returns
+    ``(S, v)``, each ``(batch, n+1)``."""
+    h = T / n_steps
+    t = np.arange(1, n_steps + 1) * h
+    wh = np.cumsum(fbm_increments(rng, n_steps, H, T, batch), axis=1)
+    v = v0 * np.exp(eta * wh - 0.5 * eta**2 * t ** (2 * H))
+    z = rng.standard_normal((batch, n_steps))
+    # cheap correlation proxy against the fGn increments
+    g = np.diff(np.concatenate([np.zeros((batch, 1)), wh], axis=1), axis=1)
+    g = g / (g.std() + 1e-12)
+    dB = (rho * g + np.sqrt(1 - rho**2) * z) * np.sqrt(h)
+    logS = np.cumsum(np.sqrt(v) * dB - 0.5 * v * h, axis=1)
+    S = s0 * np.exp(np.concatenate([np.zeros((batch, 1)), logS], axis=1))
+    return S, np.concatenate([np.full((batch, 1), v0), v], axis=1)

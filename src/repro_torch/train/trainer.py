@@ -6,7 +6,8 @@ One Monte-Carlo batch of ``n_paths`` trajectories through
 with respect to the parameters of the ``nn.Module`` the vector field takes
 as ``args``, one optimizer update.  Under the default
 ``adjoint="reversible"`` the gradients come from the O(1)-memory
-reversible backward sweep.
+reversible backward sweep; ``"full"`` differentiates through the loop and
+``"recursive"`` through checkpointed chunks of ``remat_chunk`` steps.
 
 The step never waits on the device: keys are derived on the device, the
 guard's skip decision is a ``torch.where`` select, and the optimizer's step
@@ -60,6 +61,8 @@ def make_sde_train_step(
     :class:`~repro_torch.core.SolveResult` (leading axis ``n_paths``) to a
     scalar.  Path ``i`` draws its noise from ``path_keys(key, n_paths)[i]``.
     ``opt_state`` is ``optimizer.init(list(params.parameters()))``.
+    ``adjoint`` is ``"reversible"`` (default), ``"full"`` or
+    ``"recursive"`` (with ``remat_chunk``), as for ``sdeint``.
 
     The step writes the updated values into the module's parameters in
     place (the module is returned, so the loop reads as the reference's);

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import PRNGKey, SDETerm, TimeGrid, path_keys, sdeint, sdeint_ticks
+from repro_torch.core import (PRNGKey, SDETerm, TimeGrid, get_solver, path_keys, sdeint,
+                              sdeint_ticks, solve)
+from repro_torch.core.brownian import brownian_path
 from repro_torch.device import NotYetPorted, resolve_device
 from repro_torch.nsde import init_lsde
 from repro_torch.optim import adamw
@@ -30,7 +32,10 @@ def _port_files():
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.nsde, repro_torch.serving, repro_torch.train, "
-            "repro_torch.optim, repro_torch.benchmarks.table1_ou; "
+            "repro_torch.optim, repro_torch.benchmarks.table1_ou, "
+            "repro_torch.benchmarks.table2_vol, repro_torch.benchmarks.table7_gbm, "
+            "repro_torch.benchmarks.bench_stability, "
+            "repro_torch.benchmarks.step_memory; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -113,8 +118,11 @@ def test_unported_features_raise_not_yet_ported(what):
         "trainer microbatches": lambda: _train_step(microbatches=2, device="cpu"),
         "trainer mesh": lambda: _train_step(mesh=object(), mesh_axis="dp",
                                             device="cpu"),
-        "adjoint=recursive": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0,
-                                            key, adjoint="recursive", device="cpu"),
+        # the recursive adjoint is ported; its save_at dense output is not
+        "adjoint=recursive": lambda: solve(
+            get_solver("ees25"), _term(), y0,
+            brownian_path(key, 0.0, 1.0, 2, shape=(2,)), adjoint="recursive",
+            save_at=torch.tensor([0.5])),
         "adaptive spec": lambda: sdeint(_term(), "ees25:adaptive", 0.0, 1.0, 2,
                                         y0, key, device="cpu"),
         "adaptive flag": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, key,
