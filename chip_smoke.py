@@ -12,7 +12,8 @@ d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
 training run with the reversible adjoint, the serving and training of
 additive- and general-noise SDEs, the LM substrate's prefill and decode of
 zamba2-7b at full width, and the paper's Tables 7 and 2 and its stability
-frontier — and checks what comes out:
+frontier, and the async serving plane under faults, with warmup into a
+persistent kernel cache — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -102,16 +103,31 @@ frontier — and checks what comes out:
    peak is shared by the two) and the ms of each; (c) the stability sweep
    in full on the plain specs and EES(2,5) / EES(2,7) through the kernels
    (frontiers identical), each frontier beside the reference's
-   ``BENCH_stability.json`` (differences printed) and the reference's gate.
+   ``BENCH_stability.json`` (differences printed) and the reference's gate;
+14. the async serving plane on phase 4's model and requests A-C
+   (``AsyncSDESampleEngine``, 65,536 slots, 2 ticks a dispatch, bucketing):
+   (a) two rounds, the model's parameters requiring gradients, bitwise equal
+   to phase 4's sync drain, through ``ws_stage_diag``, with async and sync
+   paths/s, the second round's host time by layer, no host sync inside a
+   steady-state dispatch under ``set_sync_debug_mode("warn")``, first
+   dispatches in worker threads, every launch on the executor's stream and
+   no result carrying an autograd graph; (b) seeded NaN faults (rate 0.3,
+   seed 0, plus one targeted cell of A): every request completes, A retries,
+   B and C bitwise (a); (c) one injected crash: one supervised restart,
+   bitwise (a); (d) ``warmup`` of A-C's signatures in a fresh process with a
+   temporary ``compile_cache_dir`` builds ``ws_stage_diag`` there, and a
+   second process on that directory runs no ``nvcc``, each one's seconds
+   printed.
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
-m = 128 request, phase 10's runs, phase 11's counted prefill and the kernel
-runs of 13a-13c) and read just after; a kernel of the path with no launch
+m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
+runs of 13a-13c and of 14a-14c) and read just after; a kernel of the path with no launch
 there fails the run.  The second-to-last line is the ``{"kernels": [...]}``
 record (``launches`` counts the path each kernel was first held to, as in
 earlier runs; the general-noise kernels add ``launches_by_route``, the
-Euclidean-path kernels ``launches_phase_13``) and the last line
+Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
+``launches_phase_14``) and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
@@ -902,7 +918,7 @@ def serve_phase(torch, timer):
           f"{cpu_err:.3e} (tolerance {cpu_tol:.1e})", flush=True)
     check(cpu_err <= cpu_tol, "served samples disagree with the CPU run")
     check(WS_STAGE_DIAG.launches > 0, "serving launched no ws_stage_diag kernel")
-    return params, y0
+    return params, y0, [done[rid_a], done[rid_b], done[rid_c]]
 
 
 def ode_phase(torch, params):
@@ -2100,6 +2116,277 @@ def paper_tables_phase(torch, timer):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the async serving plane, fault injection, warmup and the
+# persistent kernel cache, on phase 4's model and requests A-C.
+# ---------------------------------------------------------------------------
+
+# Requests A-C of phase 4: (spec, t1, n_steps, n_paths, save_every, seed).
+ABC = (("ees25:use_kernels=True", 2.0, 8, 2 * SERVE_SLOTS, None, 11),
+       ("ees25:use_kernels=True", 1.5, 6, SERVE_SLOTS, None, 12),
+       ("ees27:use_kernels=True", 2.0, 16, SERVE_SLOTS, 4, 13))
+
+
+def _async_drain(torch, engine, rounds: int = 1, on_round=None):
+    """Submit A-C to an async engine ``rounds`` times and await their device
+    results; returns ``(results of the last round, its seconds from the
+    first submit to the last result on the device, counters)``.
+    ``on_round(i, results)`` sees each round's results."""
+    import asyncio
+
+    async def serve():
+        async with engine:
+            for i in range(rounds):
+                start = time.perf_counter()
+                rids = [await engine.submit(s, t1=t1, n_steps=n, n_paths=p,
+                                            save_every=se, seed=seed)
+                        for s, t1, n, p, se, seed in ABC]
+                results = [await engine.result(r) for r in rids]
+                wall = time.perf_counter() - start
+                if on_round is not None:
+                    on_round(i, results)
+            out = await engine.drain()
+            return results, wall, out["counters"]
+
+    return asyncio.run(serve())
+
+
+def _same(torch, got, want) -> bool:
+    """Device results bitwise equal to the sync drain's host arrays."""
+    for name in ("y_final", "ys", "diverged"):
+        g, w = getattr(got, name), getattr(want, name)
+        if (g is None) != (w is None):
+            return False
+        if g is not None and not np.array_equal(g.cpu().numpy(), w):
+            return False
+    return True
+
+
+_WARM_SCRIPT = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.kernels import KERNELS
+from repro_torch.nsde import init_lsde, lsde_term
+from repro_torch.serving import SDESampleConfig, SDESampleEngine
+params = init_lsde(0, 1, 16, 32, device="cuda")
+signatures = json.loads(sys.argv[3])
+start = time.perf_counter()
+engine = SDESampleEngine(lsde_term(), torch.zeros(16, device="cuda"),
+                         SDESampleConfig(slots=65536, ticks_per_dispatch=2,
+                                         compile_cache_dir=sys.argv[2]),
+                         args=params, device="cuda")
+fresh = engine.warmup(signatures)
+seconds = time.perf_counter() - start
+print(json.dumps({"seconds": seconds, "fresh": fresh,
+                  "nvcc_runs": {k.name: k.nvcc_runs for k in KERNELS if k.nvcc_runs},
+                  "loaded": sorted(k.name for k in KERNELS if k._lib is not None)}))
+"""
+
+
+def warm_cache_subprocess(cache_dir: str, signatures) -> dict:
+    """One fresh process that warms A-C's signatures with ``cache_dir`` as
+    its compile cache; returns its report."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _WARM_SCRIPT, SRC, cache_dir, json.dumps(signatures)],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"warmup subprocess exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def async_phase(torch, params, y0, sync_abc):
+    """Phase 14: (a) the async engine serves A-C bitwise as phase 4's sync
+    drain, through ws_stage_diag, on the executor's stream from any thread,
+    with no host sync inside a steady-state dispatch; (b) under seeded NaN
+    faults every request completes and the untouched ones are bitwise (a);
+    (c) one injected crash restarts the loop once, bitwise (a); (d) warmup in
+    a fresh process builds into a compile cache a second process loads from
+    without nvcc.  Returns ws_stage_diag's launches over (a)-(c)."""
+    import tempfile
+    import threading
+    import warnings
+
+    from repro_torch.kernels import WS_STAGE_DIAG
+    from repro_torch.nsde import lsde_term
+    from repro_torch.serving import (AsyncSDESampleEngine, FaultConfig, SDESampleConfig,
+                                     SDESampleEngine, inject_faults)
+
+    cfg = SDESampleConfig(slots=SERVE_SLOTS, ticks_per_dispatch=2)
+    n_paths = sum(r[3] for r in ABC)
+    total_launches = 0
+
+    # Sync paths/s of A-C on this config: the second of two drains.
+    sync_eng = SDESampleEngine(lsde_term(), y0, cfg, args=params, device="cuda")
+    for _ in range(2):
+        for s, t1, n, p, se, seed in ABC:
+            sync_eng.submit(s, t1=t1, n_steps=n, n_paths=p, save_every=se, seed=seed)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        sync_eng.run()
+        sync_wall = time.perf_counter() - start
+
+    # (a) Two async drains of A-C on one engine, the model's parameters
+    # requiring gradients and autograd on: the first round's dispatches are
+    # first dispatches (worker threads), the second's steady state (the loop
+    # thread), each counted for host syncs under set_sync_debug_mode("warn").
+    check(all(p.requires_grad for p in params.parameters()) and torch.is_grad_enabled(),
+          "phase 14 serves a model whose parameters require gradients")
+    main_thread = threading.get_ident()
+    log = {"streams": set(), "threads": [], "syncs": [], "dispatch_streams": set()}
+    real_launch = WS_STAGE_DIAG.launch
+
+    def launch(fn, *args):
+        log["streams"].add(torch.cuda.current_stream().cuda_stream)
+        return real_launch(fn, *args)
+
+    engine = AsyncSDESampleEngine(lsde_term(), y0, cfg, args=params, device="cuda")
+    executor = engine.executor
+    real_dispatch = executor.dispatch
+
+    host = {"dispatch": 0.0, "deliver": 0.0}
+
+    def dispatch(key, tick_keys, active_steps=None):
+        on_loop = threading.get_ident() == main_thread
+        start = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = real_dispatch(key, tick_keys, active_steps)
+        host["dispatch"] += time.perf_counter() - start
+        log["threads"].append("loop" if on_loop else "worker")
+        log["syncs"].append((on_loop, sum("synchroniz" in str(w.message)
+                                          for w in caught)))
+        log["dispatch_streams"].add(executor.stream.cuda_stream)
+        return out
+
+    real_deliver = engine.scheduler.deliver
+
+    def deliver(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return real_deliver(*args, **kwargs)
+        finally:
+            host["deliver"] += time.perf_counter() - start
+
+    def on_round(i, results):
+        rounds.append(results)
+        if i == 0:  # time the second, steady round only
+            host.update(dispatch=0.0, deliver=0.0)
+
+    executor.dispatch = dispatch
+    engine.scheduler.deliver = deliver
+    rounds = []
+    WS_STAGE_DIAG.launches = 0
+    WS_STAGE_DIAG.launch = launch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        clean, async_wall, counters = _async_drain(torch, engine, rounds=2,
+                                                   on_round=on_round)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        WS_STAGE_DIAG.launch = real_launch
+    launches_a = WS_STAGE_DIAG.launches
+    total_launches += launches_a
+    steady = [n for on_loop, n in log["syncs"] if on_loop]
+    exec_stream = executor.stream.cuda_stream
+    print(f"  (a) async A-C, second round: {n_paths} paths in {async_wall:.3f} s: "
+          f"{n_paths / async_wall:.0f} paths/s (submit to the last result on the "
+          f"device); sync drain of A-C on the same config {sync_wall:.3f} s: "
+          f"{n_paths / sync_wall:.0f} paths/s (to results on the host); "
+          f"ws_stage_diag launches={launches_a} over both rounds; counters "
+          f"{counters}", flush=True)
+    print(f"  (a) host time in the second round: {host['dispatch']:.3f} s in "
+          f"dispatches, {host['deliver']:.3f} s scattering results to requests "
+          f"(a torch view per path and field, torch.stack at retirement), "
+          f"{async_wall - host['dispatch'] - host['deliver']:.3f} s else "
+          f"(planning, key packing, finalization, waiting on the device)",
+          flush=True)
+    print(f"  (a) dispatches by thread {log['threads']}; host syncs per dispatch "
+          f"under set_sync_debug_mode('warn'): {[n for _, n in log['syncs']]} "
+          f"(steady state, in the loop thread: {steady}); executor stream "
+          f"{exec_stream:#x}; streams the dispatches entered "
+          f"{sorted(map(hex, log['dispatch_streams']))}; streams ws_stage_diag "
+          f"launched on {sorted(map(hex, log['streams']))}", flush=True)
+    check(launches_a > 0, "the async path launched no ws_stage_diag kernel")
+    check(bool(steady) and max(steady) == 0,
+          f"a steady-state async dispatch synchronized with the host: {steady}")
+    check("worker" in log["threads"], "no dispatch ran in a worker thread")
+    check(log["streams"] == {exec_stream} == log["dispatch_streams"],
+          "a kernel launched off the executor's stream")
+    for results in rounds:
+        for label, got, want in zip("ABC", results, sync_abc):
+            check(got.y_final.is_cuda and not got.y_final.requires_grad,
+                  f"async result {label} is off the device or carries an "
+                  "autograd graph")
+            check(_same(torch, got, want),
+                  f"async request {label} differs from phase 4's sync drain")
+    print("  (a) A-C bitwise equal to phase 4's sync drain in both rounds; no "
+          "result requires grad", flush=True)
+
+    # (b) Seeded NaN faults: every request completes; untouched ones are (a).
+    # Seed 0's rate draws fire no NaN on A-C's three first dispatches, so one
+    # cell of A (dispatch 0, tick 1, slot 5) is targeted on top of the rate.
+    engine = AsyncSDESampleEngine(lsde_term(), y0, cfg, args=params, device="cuda")
+    inj = inject_faults(engine, FaultConfig(seed=0, nan_rate=0.3,
+                                            nan_slots=((0, 1, 5),)))
+    WS_STAGE_DIAG.launches = 0
+    faulty, wall, counters = _async_drain(torch, engine)
+    total_launches += WS_STAGE_DIAG.launches
+    untouched = [i for i, r in enumerate(faulty) if r.retries == 0]
+    print(f"  (b) nan_rate=0.3, seed 0, A's cell (0, 1, 5): {wall:.3f} s; fired: dispatches "
+          f"{inj.n_dispatch_calls}, NaN cells {inj.n_nans}; counters {counters}; "
+          f"retries by request {[r.retries for r in faulty]}; ws_stage_diag "
+          f"launches={WS_STAGE_DIAG.launches}", flush=True)
+    check(len(faulty) == 3 and all(bool(torch.isfinite(r.y_final).all())
+                                   and not r.diverged.any() for r in faulty),
+          "a request under NaN faults did not complete clean")
+    check(inj.n_nans >= 1 and faulty[0].retries >= 1
+          and counters["retries"] >= 1 and counters["diverged_paths"] >= 1,
+          "the injected NaN produced no divergence and no retry of A")
+    for i in untouched:
+        check(torch.equal(faulty[i].y_final, clean[i].y_final),
+              f"request {'ABC'[i]}, untouched by faults, differs from (a)")
+    print(f"  (b) untouched requests {[('ABC')[i] for i in untouched]} bitwise equal "
+          f"to (a)", flush=True)
+
+    # (c) One crash at the first dispatch: one supervised restart, bitwise (a).
+    engine = AsyncSDESampleEngine(lsde_term(), y0, cfg, args=params, device="cuda")
+    inj = inject_faults(engine, FaultConfig(crash_dispatches=(0,)))
+    WS_STAGE_DIAG.launches = 0
+    crashed, wall, counters = _async_drain(torch, engine)
+    total_launches += WS_STAGE_DIAG.launches
+    print(f"  (c) crash at dispatch 0: {wall:.3f} s; crashes {inj.n_crashes}, "
+          f"restarts {counters['restarts']}", flush=True)
+    check(inj.n_crashes == 1 and counters["restarts"] == 1,
+          "the injected crash did not restart the serve loop exactly once")
+    for label, got, want in zip("ABC", crashed, clean):
+        check(torch.equal(got.y_final, want.y_final)
+              and (want.ys is None or torch.equal(got.ys, want.ys)),
+              f"request {label} after the restart differs from (a)")
+    print("  (c) A-C after the restart bitwise equal to (a)", flush=True)
+
+    # (d) Warmup in fresh processes sharing a compile cache.
+    signatures = [dict(solver=s, t1=t1, n_steps=n, save_every=se)
+                  for s, t1, n, _, se, _ in ABC]
+    with tempfile.TemporaryDirectory() as cache_dir:
+        cold = warm_cache_subprocess(cache_dir, signatures)
+        warm = warm_cache_subprocess(cache_dir, signatures)
+        libs = sorted(os.listdir(cache_dir))
+    print(f"  (d) warmup of A-C's signatures in a fresh process: cold cache "
+          f"{cold['seconds']:.3f} s ({cold['fresh']} entries, nvcc runs "
+          f"{cold['nvcc_runs']}, loaded {cold['loaded']}); warm cache "
+          f"{warm['seconds']:.3f} s ({warm['fresh']} entries, nvcc runs "
+          f"{warm['nvcc_runs']}); cache holds {libs}", flush=True)
+    check(cold["nvcc_runs"].get("ws_stage_diag", 0) == 1,
+          "the cold warmup did not build ws_stage_diag into the cache")
+    check(warm["nvcc_runs"] == {} and "ws_stage_diag" in warm["loaded"],
+          "the warm-cache process ran nvcc or loaded nothing")
+    check(cold["fresh"] == warm["fresh"] > 0, "warmup counts differ")
+    return total_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2156,7 +2443,7 @@ def main() -> int:
     stats.update(lm_kernel_phase(torch, timer))
 
     phase("phase 4: serve requests A-D")
-    params, _ = serve_phase(torch, timer)
+    params, y0, sync_abc = serve_phase(torch, timer)
     ws_launches = WS_STAGE_DIAG.launches
 
     phase("phase 5: ODE sdeint through williamson2n")
@@ -2214,6 +2501,11 @@ def main() -> int:
           "stability frontier)")
     table_launches = paper_tables_phase(torch, timer)
     print(f"  kernels launched on phase 13's paths: {table_launches}", flush=True)
+
+    phase("phase 14: async serving, faults and warmup (requests A-C)")
+    async_launches = async_phase(torch, params, y0, sync_abc)
+    print(f"  ws_stage_diag launched on phase 14's paths: {async_launches}",
+          flush=True)
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -2241,7 +2533,9 @@ def main() -> int:
          "library_ms": stats[name]["library_ms"],
          **({"launches_by_route": by_route[name]} if name in by_route else {}),
          **({"launches_phase_13": table_launches[name]}
-            if name in table_launches else {})}
+            if name in table_launches else {}),
+         **({"launches_phase_14": async_launches}
+            if name == "ws_stage_diag" else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -2,10 +2,12 @@
 
 Each kernel source under ``repro_torch/csrc/`` is compiled on its own into a
 shared library with a plain C interface (no PyTorch headers, so one build
-takes seconds), for ``sm_90a``.  Libraries land in ``csrc/build/`` under a
-name that carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused; a build writes to a temporary name
-and renames it into place, so concurrent builders never load a partial file.
+takes seconds), for ``sm_90a``.  Libraries land in ``csrc/build/`` (or the
+directory :func:`set_library_dir` names: the serving engine's persistent
+kernel cache) under a name that carries a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is reused, by this process
+or a later one; a build writes to a temporary name and renames it into
+place, so concurrent builds never load a partial file.
 
 Nothing is compiled or loaded at import time: the CPU tests import every
 module, and a machine without ``nvcc`` never reaches a build.
@@ -28,10 +30,13 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 __all__ = ["CudaKernel", "build_all", "cuda_operands", "is_current", "pointer",
-           "stream_handle", "CSRC_DIR", "BUILD_DIR"]
+           "stream_handle", "set_library_dir", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
+# Where libraries are built and looked up: process-wide, as the reference's
+# persistent compilation cache is jax's process-wide setting.
+_library_dir = BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The current stream's handle by device index (what Triton and inductor
@@ -39,6 +44,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # wrappers around them; absent from CPU builds of torch.
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 _CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def set_library_dir(path) -> None:
+    """Build and load kernel libraries under ``path`` from now on.
+
+    Kernels already loaded keep their library; every other kernel looks for
+    its library (named by the hash of its sources and flags) in ``path`` and
+    builds it there if absent, so a later process pointed at the same
+    directory loads it and runs no ``nvcc``."""
+    global _library_dir
+    _library_dir = Path(path)
 
 
 def _nvcc() -> str:
@@ -64,6 +80,8 @@ class CudaKernel:
     and nowhere else; callers reset it to count the launches of one run.
     ``entry_launches`` counts the same launches by exported function (a
     kernel's specialisations, its routes); callers read it by difference.
+    ``nvcc_runs`` counts the builds this process ran (0 when the library
+    was found built).
     """
 
     def __init__(self, name: str, source: str,
@@ -74,6 +92,7 @@ class CudaKernel:
         self.launches = 0
         self.entry_launches = collections.Counter()
         self.build_log = ""
+        self.nvcc_runs = 0
         self._lib = None
         self._bound = {}
         self._lock = threading.Lock()
@@ -82,20 +101,21 @@ class CudaKernel:
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for path in [self.source] + sorted(CSRC_DIR.glob("*.cuh")):
             digest.update(path.read_bytes())
-        return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
+        return _library_dir / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile the source unless its library is already built."""
         target = self.library_path()
         if target.exists():
             return target
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        target.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
                str(self.source)]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
+            self.nvcc_runs += 1
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(

@@ -25,8 +25,14 @@ time through :func:`~repro_torch.core.registry.select_solver` with the
 term's declared noise and the request's step ``dt``; the resolved spec is
 the request's signature, so requests that resolve alike share an executor.
 
-Not ported yet (they raise): adaptive requests, ``compile_cache_dir`` and
-mesh-sharded slots; ``warmup`` and the async engine are absent.
+:meth:`SDESampleEngine.warmup` prepares the callables (and builds the
+kernel libraries) expected traffic needs; ``compile_cache_dir`` keeps those
+libraries where a later process loads them (see
+:func:`~repro_torch.serving.executor.enable_persistent_compile_cache`).
+:class:`~repro_torch.serving.async_engine.AsyncSDESampleEngine` serves a
+continuous request stream over this engine.
+
+Not ported yet (they raise): adaptive requests and mesh-sharded slots.
 """
 from __future__ import annotations
 
@@ -41,8 +47,8 @@ from ..core.prng import PRNGKey
 from ..core.registry import parse_solver_spec, select_solver
 from ..core.sdeint import path_keys
 from ..device import not_yet_ported, resolve_device
-from .bucketing import BucketKey, BucketingConfig, group_key
-from .executor import TickExecutor
+from .bucketing import BucketKey, BucketingConfig, bucket_key, group_key
+from .executor import TickExecutor, enable_persistent_compile_cache
 from .scheduler import (
     STAT_FIELDS,
     QueueFull,
@@ -76,11 +82,17 @@ class SDESampleConfig:
     # bucket and stack into one dispatch; samples are unchanged.
     bucketing: bool = True
     bucket_min_steps: int = 8
-    compile_cache_dir: Optional[str] = None  # not yet ported
+    # Directory of the persistent kernel cache: kernel libraries are built
+    # there and reloaded by later processes, so a restarted engine runs no
+    # nvcc (the reference's persistent XLA compilation cache).
+    compile_cache_dir: Optional[str] = None
     # Divergence guard threshold (None: off); flagged requests retry down
     # the retry_policy ladder (None: no retries).
     guard_threshold: Optional[float] = 1e6
     retry_policy: Optional[RetryPolicy] = RetryPolicy()
+    # Supervised async serve loop: how many times a transient executor
+    # crash may restart the loop before it fails the engine.
+    max_restarts: int = 2
 
 
 def _to_host(x) -> Optional[np.ndarray]:
@@ -109,14 +121,14 @@ class SDESampleEngine:
             )
         if cfg.mesh is not None:
             raise not_yet_ported("mesh-sharded serving slots")
-        if cfg.compile_cache_dir is not None:
-            raise not_yet_ported("compile_cache_dir (persistent compile cache)")
         self.device = resolve_device(device)
         self.term = term
         self.y0 = y0
         self.cfg = cfg
         self.args = args
         self.noise_shape = noise_shape
+        if cfg.compile_cache_dir is not None:
+            enable_persistent_compile_cache(cfg.compile_cache_dir)
         self._bucket_cfg = BucketingConfig(enabled=cfg.bucketing,
                                            min_steps=cfg.bucket_min_steps)
         self.scheduler = Scheduler(
@@ -205,6 +217,35 @@ class SDESampleEngine:
             out["counters"] = dict(self.counters)
         return out
 
+    def warmup(self, signatures) -> int:
+        """Prepare the dispatch callables a list of requests needs.
+
+        ``signatures`` are submit-style dicts (``solver``, ``t1``,
+        ``n_steps`` and any of ``t0`` / ``save_every`` / ``rtol`` / ``atol``
+        / ``save_at``; ``n_paths`` / ``seed`` / ``priority`` are ignored).
+        Each resolves to its bucket (or exact signature) and is warmed at
+        both dispatch depths the engine uses (``ticks_per_dispatch`` and the
+        single-tick tail): the kernel libraries it launches are built — into
+        ``compile_cache_dir`` when set, so later processes load them — and
+        its callable cached.  Returns the number of entries this call
+        created (cached ones do not count)."""
+        fresh = 0
+        for spec in signatures:
+            spec = dict(spec)
+            for drop in ("n_paths", "seed", "priority"):
+                spec.pop(drop, None)
+            solver = spec.pop("solver")
+            term_kind = ("manifold" if hasattr(self.term, "algebra_increment")
+                         else "euclidean")
+            req = make_request(0, solver, term_kind=term_kind,
+                               n_paths=1, seed=0, **spec)
+            key = bucket_key(req.signature, self._bucket_cfg)
+            if key is None:
+                key = req.signature
+            for depth in {1, self.cfg.ticks_per_dispatch}:
+                fresh += self.executor.warmup(key, depth, self.cfg.slots)
+        return fresh
+
     def cancel(self, request_id: int) -> bool:
         """Cancel a queued request (partial results discarded).  True if this
         call cancelled it; False if already cancelled or completed;
@@ -281,15 +322,19 @@ class SDESampleEngine:
         self.counters["retries"] += 1
         return child_id
 
-    def _finalize_retired(self, rid: int) -> Optional[int]:
+    def _finalize_retired(self, rid: int, diverged=None) -> Optional[int]:
         """Book divergence of a just-retired request, retry it or surface it
-        under its root id; None when it went back on the queue."""
+        under its root id; None when it went back on the queue.  ``diverged``
+        is a host copy of the result's flags where those live on the device
+        (the async engine's), read in their place."""
         res = self.scheduler.done[rid]
         root = self._retry_parent.get(rid, rid)
         attempt = self._retry_attempt.get(root, 0)
+        if diverged is None:
+            diverged = res.diverged
         n_div = 0
-        if res.diverged is not None:
-            n_div = int(np.asarray(res.diverged).sum())
+        if diverged is not None:
+            n_div = int(diverged.sum())
         if n_div:
             self.counters["diverged_requests"] += 1
             self.counters["diverged_paths"] += n_div
@@ -397,11 +442,9 @@ class SDESampleEngine:
             if plan is not None:
                 self._staged = (plan, self._plan_keys(plan))
 
-    @torch.no_grad()
     def _dispatch_next(self, tick_limit: int) -> int:
         """Plan (or unstage), dispatch and deliver one tick stack; returns
-        the ticks served (0 when idle).  Serving records no autograd graph,
-        whether or not the model's parameters require gradients.  If a dispatch raises, every
+        the ticks served (0 when idle).  If a dispatch raises, every
         undelivered reservation is released before the error propagates."""
         self._expire()
         depth = min(tick_limit, self.cfg.ticks_per_dispatch)

@@ -1,16 +1,21 @@
-"""The public names of ``repro_torch.core`` against ``repro.core``, and the
-port's tableaux helpers against the reference's (float64, exact).
+"""The public names of ``repro_torch.core``, ``repro_torch.serving`` and
+``repro_torch.nsde`` against the reference's, and the port's tableaux
+helpers against the reference's (float64, exact).
 
-Every Euclidean name the reference's core exports is exported by the port.
-The names still to be ported are listed here with the queue item that
-brings them: adaptive grids on a Virtual Brownian Tree (A12) and the
-manifold solvers (A15).
+Every name the reference's modules export is exported by the port, except
+those still to be ported, listed here with the queue item that brings them:
+adaptive grids on a Virtual Brownian Tree (A12) and the manifold solvers and
+models (A15).
 """
 import numpy as np
 import pytest
 
 import repro.core as jcore
+import repro.nsde as jnsde
+import repro.serving as jserving
 import repro_torch.core as tcore
+import repro_torch.nsde as tnsde
+import repro_torch.serving as tserving
 from repro.core import tableaux as jtab
 from repro_torch.core import tableaux as ttab
 
@@ -21,6 +26,13 @@ WAITING = {
             "GeoEulerMaruyama", "Group", "ManifoldSDETerm", "Product", "RKMK2",
             "SO3", "SOn", "SphereAction", "Torus", "cfees25_solver",
             "cfees27_solver"},
+}
+# Names of the other modules still to be ported, by module and item.
+MODULE_WAITING = {
+    "serving": (jserving, tserving, {}),
+    "nsde": (jnsde, tnsde, {"A15": {"init_kuramoto_nsde", "kuramoto_nsde_term",
+                                    "init_sphere_nsde", "sphere_nsde_term",
+                                    "wrapped_energy_score"}}),
 }
 TABLEAUX = ["euler", "heun", "midpoint", "rk3", "rk4", "ees25", "ees27_tableau"]
 
@@ -41,6 +53,16 @@ def test_core_exports_every_euclidean_name_of_the_reference():
 def test_the_waiting_names_are_not_exported_yet():
     for names in WAITING.values():
         assert not names & set(tcore.__all__)
+
+
+@pytest.mark.parametrize("module", sorted(MODULE_WAITING))
+def test_module_exports_every_name_of_the_reference(module):
+    ref, port, waiting = MODULE_WAITING[module]
+    waiting = set().union(*waiting.values())
+    assert set(ref.__all__) - set(port.__all__) == waiting
+    assert not waiting & set(port.__all__)
+    for name in set(ref.__all__) - waiting:
+        assert hasattr(port, name), name
 
 
 def test_tableaux_import_from_core():

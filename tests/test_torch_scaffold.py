@@ -109,8 +109,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
 
 @pytest.mark.parametrize("what", [
     "trainer microbatches", "adjoint=recursive", "adaptive spec", "adaptive flag",
-    "mesh", "trainer mesh", "engine adaptive", "engine compile cache",
-    "engine mesh"])
+    "mesh", "trainer mesh", "engine adaptive", "engine mesh"])
 def test_unported_features_raise_not_yet_ported(what):
     key = PRNGKey(0, device="cpu")
     y0 = torch.zeros(2)
@@ -132,14 +131,23 @@ def test_unported_features_raise_not_yet_ported(what):
                                mesh=object()),
         "engine adaptive": lambda: SDESampleEngine(_term(), y0, device="cpu").submit(
             "ees25:adaptive", t1=1.0, n_steps=2, n_paths=1),
-        "engine compile cache": lambda: SDESampleEngine(
-            _term(), y0, SDESampleConfig(compile_cache_dir="x"), device="cpu"),
         "engine mesh": lambda: SDESampleEngine(
             _term(), y0, SDESampleConfig(mesh=object(), mesh_axis="mc"),
             device="cpu"),
     }
     with pytest.raises(NotYetPorted, match="not yet ported"):
         run[what]()
+
+
+def test_engine_compile_cache_is_ported(tmp_path, monkeypatch):
+    """``compile_cache_dir`` no longer raises: it names the directory the
+    kernel libraries are built in and loaded from."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "_library_dir", _build.BUILD_DIR)
+    SDESampleEngine(_term(), torch.zeros(2),
+                    SDESampleConfig(compile_cache_dir=str(tmp_path)), device="cpu")
+    assert _build._library_dir == tmp_path
 
 
 def test_engine_rejected_submit_burns_no_id():
