@@ -5,15 +5,17 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's paths through the eleven hand-written CUDA kernels — an
+It drives the port's paths through the eleven hand-written CUDA kernels (and
+the per-path step-size entries of two of them) — an
 ``SDESampleEngine`` serving EES(2,5) and EES(2,7) Monte-Carlo sampling
 requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
 d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
 training run with the reversible adjoint, the serving and training of
 additive- and general-noise SDEs, the LM substrate's prefill and decode of
 zamba2-7b at full width, and the paper's Tables 7 and 2 and its stability
-frontier, and the async serving plane under faults, with warmup into a
-persistent kernel cache — and checks what comes out:
+frontier, the async serving plane under faults, with warmup into a
+persistent kernel cache, and adaptive solves on Virtual Brownian Trees,
+served and differentiated — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -117,15 +119,40 @@ persistent kernel cache — and checks what comes out:
    bitwise (a); (d) ``warmup`` of A-C's signatures in a fresh process with a
    temporary ``compile_cache_dir`` builds ``ws_stage_diag`` there, and a
    second process on that directory runs no ``nvcc``, each one's seconds
-   printed.
+   printed;
+15. adaptive solves on Virtual Brownian Trees, on phase 4's model: (a)
+   request O (``ees25:adaptive,use_kernels=True``, t1 = 2, a 256-trial
+   budget, 131,072 paths, rtol 1e-3, ``save_at`` 0.5/1/1.5/2) and P (O's
+   plain spec) through the sync engine at 65,536 slots, bitwise equal
+   (y_final, ys, t_final, counts), every path at t1, O only through the
+   per-path ``ws_stage_diag`` entry; paths/s, trials, host syncs, mean
+   counts; one short tick profiled (device ms a trial, against O's host
+   ms a trial); O again through the async engine, bitwise to the sync
+   drain; (b) float64, 256 of O's paths: the controller on the card and on
+   the CPU, beside the card's own run with h0 one ulp up, whose per-path
+   spread sigma sets the gate: the means of the counts, of y_final and of
+   its squared deviation within 6 sigma / sqrt(256) of the CPU's, their
+   per-path spread within 2 sigma; one realized grid solved on both,
+   within 1e-9 relative; bounded == unbounded on the card; (c) one grid
+   realized at 4,096 paths, reversible-adjoint gradients over it with the
+   kernels (the per-path ``ws_stage_diag_bwd`` entry) bitwise to plain,
+   against the full adjoint's; the three adjoints' peak memory at 65,536
+   paths over one realized grid with bulk increments, and the reversible
+   adjoint's with per-step increments.  Phase 3 also
+   holds the two per-path entries bitwise to their twins (h varying per
+   row; d = 16, d = 3 whose float32 packs straddle paths, unaligned) and
+   times them beside the scalar entries.
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
 m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
-runs of 13a-13c and of 14a-14c) and read just after; a kernel of the path with no launch
-there fails the run.  The second-to-last line is the ``{"kernels": [...]}``
-record (``launches`` counts the path each kernel was first held to, as in
-earlier runs; the general-noise kernels add ``launches_by_route``, the
+runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient)
+and read just after; a
+kernel of the path with no launch there fails the run.  The second-to-last
+line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
+kernel was first held to, as in earlier runs — for the per-path entries
+``ws_stage_diag_rows`` and ``ws_stage_diag_bwd_rows``, request O and 15c's
+kernel gradient; the general-noise kernels add ``launches_by_route``, the
 Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
 ``launches_phase_14``) and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
@@ -198,12 +225,14 @@ class Timer:
         self.flush_buf = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                                      device="cuda")
 
-    def kernels_us(self, fn, reps: int = 30, flush: bool = True):
-        """{kernel name: (total device us, launches)} over ``reps`` calls."""
+    def kernels_us(self, fn, reps: int = 30, flush: bool = True, warm: bool = True):
+        """{kernel name: (total device us, launches)} over ``reps`` calls,
+        after one unprofiled call when ``warm``."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2387,6 +2416,380 @@ def async_phase(torch, params, y0, sync_abc):
     return total_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (per-path step sizes): the rows entries of ws_stage_diag and
+# ws_stage_diag_bwd, which adaptive solves launch with one h per path.
+# ---------------------------------------------------------------------------
+
+# (rows, d, offset): the served state, d = 3 (float32 16-byte packs straddle
+# two paths) and an unaligned view of it.
+ROWS_SHAPES = ((SERVE_SLOTS, D_Z, 0), (1001, 3, 0), (1001, 3, 1))
+
+
+def rows_kernel_phase(torch, timer, stats):
+    """The per-path entries bitwise against their twins with h varying per
+    row, then timed at (65536, 16) float32 beside the scalar entries."""
+    from repro_torch.core.williamson import EES25_2N
+    from repro_torch.kernels.sde_step import ref as sref
+    from repro_torch.kernels.sde_step.sde_step import ws_stage_diag, ws_stage_diag_bwd
+
+    a, b = EES25_2N.A[1], EES25_2N.B[1]
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def inputs(n_in, rows, d, offset, dtype):
+        xs = [torch.randn(rows * d + offset, generator=gen, device="cuda",
+                          dtype=dtype)[offset:].reshape(rows, d) for _ in range(n_in)]
+        h = torch.rand(rows, 1, generator=gen, device="cuda", dtype=dtype) * 0.2
+        return xs, h
+
+    specs = {
+        "ws_stage_diag_rows": dict(
+            n_in=5, streams=7, ops=6, symbol="ws_stage_diag_rows_kernel",
+            scalar="ws_stage_diag",
+            kernel=lambda xs, h: ws_stage_diag(*xs, h, a=a, b=b),
+            plain=lambda xs, h: sref.ws_stage_diag_ref(*xs, h, a, b)),
+        "ws_stage_diag_bwd_rows": dict(
+            n_in=4, streams=8, ops=6, symbol="ws_stage_diag_bwd_rows_kernel",
+            scalar="ws_stage_diag_bwd",
+            kernel=lambda xs, h: ws_stage_diag_bwd(*xs, h, a=a, b=b),
+            plain=lambda xs, h: sref.ws_stage_diag_bwd_ref(*xs, h, a, b)),
+    }
+    for name, spec in specs.items():
+        for dtype in (torch.float32, torch.float64):
+            for rows, d, offset in ROWS_SHAPES:
+                xs, h = inputs(spec["n_in"], rows, d, offset, dtype)
+                got, want = spec["kernel"](xs, h), spec["plain"](xs, h)
+                torch.cuda.synchronize()
+                abs_err, _, same = compare(torch, got, want)
+                print(f"  {name} {str(dtype)[6:]} (rows, d)=({rows},{d})"
+                      f"{' unaligned' if offset else ''}: max_abs_err={abs_err:.3e} "
+                      f"bitwise={same} (h varies per row; tolerance 0)", flush=True)
+                check(same, f"{name} {dtype} ({rows},{d}) differs from its twin")
+        xs, h = inputs(spec["n_in"], SERVE_SLOTS, D_Z, 0, torch.float32)
+        n = SERVE_SLOTS * D_Z
+        stats[name] = _timed_row(
+            name, f"float32 (rows, d)=({SERVE_SLOTS},{D_Z})", timer,
+            lambda: spec["kernel"](xs, h), lambda: spec["plain"](xs, h), None,
+            spec["symbol"], spec["streams"] * n * 4 + SERVE_SLOTS * 4,
+            spec["ops"] * n, FP32_FLOPS, "float32", 0.0)
+        scalar = stats[spec["scalar"]]
+        print(f"  {name}: {stats[name]['ms'] * 1e3:.2f} us against the scalar "
+              f"entry's {scalar['ms'] * 1e3:.2f} us (L2 flushed; "
+              f"{stats[name]['ms_warm'] * 1e3:.2f} against "
+              f"{scalar['ms_warm'] * 1e3:.2f} warm)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: adaptive solves on Virtual Brownian Trees — served (O kernels,
+# P plain), the card against the CPU in float64, and gradients over an
+# adaptively realized grid.
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_SAVE_AT = (0.5, 1.0, 1.5, 2.0)
+# Request O (P is O with the plain spec): spec, t1, trial budget, paths, rtol.
+ADAPTIVE_O = ("ees25:adaptive,use_kernels=True", 2.0, 256, 2 * SERVE_SLOTS, 1e-3, 31)
+ADAPTIVE_CPU_PATHS = 256
+ADAPTIVE_GRAD_PATHS = 4096
+PROFILE_TRIALS = 4
+# 15(b)'s gate on the controller's statistics over the 256 paths: the card
+# against the CPU differs path by path as much as the card against itself
+# with h0 one ulp up (sigma, per path).  The means of the counts, y_final
+# and (y_final - mean)^2 must agree within MEAN_SIGMAS sigma / sqrt(paths),
+# and the per-path differences' spread must stay within SPREAD_RATIO sigma
+# (tests/test_torch_vbt_adaptive.py holds one-ulp h0 moves on the CPU to
+# both limits).
+MEAN_SIGMAS = 6.0
+SPREAD_RATIO = 2.0
+
+
+def _adaptive_requests():
+    spec, t1, n, paths, rtol, seed = ADAPTIVE_O
+    return [dict(solver=s, t1=t1, n_steps=n, n_paths=paths, rtol=rtol,
+                 save_at=ADAPTIVE_SAVE_AT, seed=seed)
+            for s in (spec, "ees25:adaptive")]
+
+
+def _same_result(torch, got, want, fields=("y_final", "ys", "t_final",
+                                           "n_accepted", "n_rejected")) -> bool:
+    for name in fields:
+        g, w = getattr(got, name), getattr(want, name)
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else w
+        if not np.array_equal(g, w):
+            return False
+    return True
+
+
+def _controller_statistics(torch, card, cpu, nudged):
+    """The largest |mean(card - cpu)| in units of sigma / sqrt(paths), and the
+    largest std(card - cpu) / sigma, over n_accepted, n_rejected, each
+    component of y_final and of (y_final - its mean)^2; sigma is the std of
+    card - nudged, the spread that one ulp of h0 makes."""
+    def stats(r):
+        y = r.y_final.cpu()
+        return [r.n_accepted.cpu().double()[:, None],
+                r.n_rejected.cpu().double()[:, None], y, (y - y.mean(0)) ** 2]
+
+    worst_z = worst_ratio = 0.0
+    for a, b, c in zip(stats(card), stats(cpu), stats(nudged)):
+        sigma = (a - c).std(0)
+        d = a - b
+        n = d.shape[0]
+        worst_z = max(worst_z, (d.mean(0).abs() / (sigma / n ** 0.5)).max().item())
+        worst_ratio = max(worst_ratio, (d.std(0) / sigma).max().item())
+    return worst_z, worst_ratio
+
+
+def adaptive_phase(torch, timer, params, y0):
+    """Phase 15 (a-c); returns the rows entries' launches on its paths."""
+    import asyncio
+    import copy
+
+    from repro_torch.core import adaptive as ad
+    from repro_torch.core import (PRNGKey, get_solver, path_keys, realize_grid, sdeint,
+                                  solve, virtual_brownian_tree)
+    from repro_torch.kernels import WS_STAGE_DIAG, WS_STAGE_DIAG_BWD
+    from repro_torch.kernels.sde_step.sde_step import rows_launches
+    from repro_torch.nsde import lsde_term
+    from repro_torch.serving import AsyncSDESampleEngine, SDESampleConfig, SDESampleEngine
+
+    term = lsde_term()
+    spec_o, t1, budget, n_paths, rtol, seed = ADAPTIVE_O
+    cfg = SDESampleConfig(slots=SERVE_SLOTS, ticks_per_dispatch=2)
+    requests = _adaptive_requests()
+
+    # (a) O and P through the sync engine.
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        engine = SDESampleEngine(term, y0, cfg, args=params, device="cuda")
+        warm = engine.submit(spec_o, t1=t1, n_steps=8, n_paths=1024, rtol=rtol,
+                             seed=99)
+        engine.run()
+        del engine.done[warm]
+        _zero_launches()
+        WS_STAGE_DIAG.entry_launches.clear()
+        WS_STAGE_DIAG_BWD.entry_launches.clear()
+        ad.COUNTS.trials = ad.COUNTS.syncs = 0
+        engine.executor.n_dispatches = engine.executor.n_ticks = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        rid_o = engine.submit(**requests[0])
+        engine.run()
+        torch.cuda.synchronize()
+        o_wall = time.perf_counter() - start
+        o_disp = engine.executor.n_dispatches
+        o_counts = copy.copy(ad.COUNTS)
+        launches = {"ws_stage_diag_rows": rows_launches(WS_STAGE_DIAG),
+                    "ws_stage_diag": WS_STAGE_DIAG.launches}
+        start = time.perf_counter()
+        rid_p = engine.submit(**requests[1])
+        engine.run()
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - start
+    res_o, res_p = engine.done[rid_o], engine.done[rid_p]
+    check(launches["ws_stage_diag_rows"] > 0,
+          "request O launched no per-path ws_stage_diag entry")
+    check(launches["ws_stage_diag_rows"] == launches["ws_stage_diag"],
+          "request O launched the scalar ws_stage_diag entry")
+    check(res_o.y_final.shape == (n_paths, D_Z)
+          and res_o.ys.shape == (n_paths, len(ADAPTIVE_SAVE_AT), D_Z),
+          f"request O shapes {res_o.y_final.shape} {res_o.ys.shape}")
+    check(bool(np.isfinite(res_o.y_final).all() and np.isfinite(res_o.ys).all()),
+          "request O has non-finite samples")
+    check(bool((res_o.t_final == t1).all()), "a path of O stopped short of t1")
+    same_op = _same_result(torch, res_o, res_p)
+    check(same_op, "O (kernels) and P (plain) differ")
+    trials = o_counts.trials
+    print(f"  O: {n_paths} paths in {o_wall:.3f} s ({n_paths / o_wall:.0f} paths/s, "
+          f"host wall clock incl. delivery), {o_disp} dispatch(es) of 2 ticks; "
+          f"{trials} trials ({trials / 2:.0f} a tick: the slowest path's), "
+          f"{o_counts.syncs} host syncs ({o_counts.syncs / o_disp:.0f} a dispatch, "
+          f"one every {ad.CHECK_EVERY} trials); accepted {res_o.n_accepted.mean():.2f} "
+          f"and rejected {res_o.n_rejected.mean():.2f} steps a path (mean), "
+          f"max trials of a path {int((res_o.n_accepted + res_o.n_rejected).max())}; "
+          f"per-path ws_stage_diag launches {launches['ws_stage_diag_rows']}",
+          flush=True)
+    print(f"  P (plain): {n_paths / p_wall:.0f} paths/s; O == P bitwise (y_final, ys, "
+          f"t_final, n_accepted, n_rejected): {same_op}; every t_final == {t1}",
+          flush=True)
+
+    # Device time per trial: one tick of O's paths, profiled at a short
+    # budget (every kernel is built and warm from O's drain); host time per
+    # trial: O's drain.
+    keys = path_keys(PRNGKey(seed, device="cuda"), SERVE_SLOTS)
+    with torch.no_grad():
+        totals = timer.kernels_us(
+            lambda: sdeint(term, spec_o, 0.0, t1, PROFILE_TRIALS, y0, None,
+                           args=params, rtol=rtol, save_at=ADAPTIVE_SAVE_AT,
+                           batch_keys=keys, bounded=False, device="cuda"),
+            reps=1, flush=False, warm=False)
+    dev_ms = sum(us for us, _ in totals.values()) / 1e3 / PROFILE_TRIALS
+    host_ms = o_wall * 1e3 / trials
+    launches_trial = sum(n for _, n in totals.values()) / PROFILE_TRIALS
+    rng_ms = sum(us for name, (us, _) in totals.items()
+                 if "elementwise" in name or "erfinv" in name.lower()) / 1e3 / PROFILE_TRIALS
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:4]
+    print(f"  a trial at {SERVE_SLOTS} paths: {dev_ms:.2f} ms of device time "
+          f"(profiled, {PROFILE_TRIALS}-trial budget) in {host_ms:.2f} ms of host "
+          f"wall (O's drain, delivery included; device busy {dev_ms / host_ms:.0%}), "
+          f"{launches_trial:.0f} launches; elementwise and erfinv kernels "
+          f"(threefry, the tree, the step's glue) {rng_ms:.2f} ms; top kernels: "
+          + "; ".join(f"{name[:60]} {us / 1e3 / PROFILE_TRIALS:.2f} ms"
+                      for name, (us, _) in top), flush=True)
+
+    # O through the async engine (P equals O bitwise, checked above).
+    async def serve():
+        async with AsyncSDESampleEngine(term, y0, cfg, args=params,
+                                        device="cuda") as aeng:
+            rid = await aeng.submit(**requests[0])
+            return await aeng.result(rid, numpy=True)
+
+    start = time.perf_counter()
+    async_o = asyncio.run(serve())
+    a_wall = time.perf_counter() - start
+    same_async = _same_result(torch, async_o, res_o)
+    check(same_async, "the async engine's O differs from the sync drain")
+    print(f"  async engine: O bitwise equal to the sync drain: {same_async} "
+          f"({n_paths / a_wall:.0f} paths/s)", flush=True)
+
+    print(f"  (15a: {time.perf_counter() - t_phase:.1f} s)", flush=True)
+    t_phase = time.perf_counter()
+
+    # (b) The card against the CPU, float64, 256 of O's paths.
+    p64 = copy.deepcopy(params).double()
+    p_cpu = copy.deepcopy(p64).to("cpu")
+    y64 = y0.double()
+    k_card = path_keys(PRNGKey(seed, device="cuda"), ADAPTIVE_CPU_PATHS)
+    k_cpu = k_card.cpu()
+    opts = dict(rtol=rtol, save_at=ADAPTIVE_SAVE_AT)
+    with torch.no_grad():
+        card = sdeint(term, spec_o, 0.0, t1, budget, y64, None, args=p64,
+                      batch_keys=k_card, bounded=False, device="cuda", **opts)
+        cpu = sdeint(term, "ees25:adaptive", 0.0, t1, budget, y64.cpu(), None,
+                     args=p_cpu, batch_keys=k_cpu, bounded=False, device="cpu",
+                     **opts)
+        # The card against itself, the first trial's step one ulp longer.
+        nudged = sdeint(term, spec_o, 0.0, t1, budget, y64, None, args=p64,
+                        batch_keys=k_card, bounded=False, device="cuda",
+                        h0=float(np.nextafter(t1 / 16, t1)), **opts)
+        same_counts = ((card.n_accepted.cpu() == cpu.n_accepted)
+                       & (card.n_rejected.cpu() == cpu.n_rejected))
+        self_counts = ((card.n_accepted == nudged.n_accepted)
+                       & (card.n_rejected == nudged.n_rejected))
+        gap = ((card.y_final.cpu() - cpu.y_final).abs().amax(-1)
+               / cpu.y_final.abs().amax(-1))
+        # One realized grid (bounded=True's phase 1), solved on the card
+        # (its phase 2: bitwise the single pass) and on the CPU.
+        tree = virtual_brownian_tree(k_card, 0.0, t1, shape=(D_Z,),
+                                     dtype=torch.float64)
+        y64b = y64.expand(ADAPTIVE_CPU_PATHS, D_Z).contiguous()
+        rg = realize_grid(spec_o, term, y64b, tree, p64, rtol=rtol, max_steps=budget)
+        on_card = solve(get_solver(spec_o), term, y64b, rg.grid, p64,
+                        batch_dims=1).y_final
+        check(torch.equal(on_card, card.y_final)
+              and torch.equal(rg.n_accepted, card.n_accepted)
+              and torch.equal(rg.n_rejected, card.n_rejected),
+              "bounded=True and bounded=False differ on the card")
+        grid_cpu = type(rg.grid)(rg.grid.ts.cpu(), virtual_brownian_tree(
+            k_cpu, 0.0, t1, shape=(D_Z,), dtype=torch.float64), 0.0, t1,
+            n_active=rg.grid.n_active, hs=rg.grid.hs.cpu())
+        on_cpu = solve(get_solver("ees25"), term, y64b.cpu(), grid_cpu, p_cpu,
+                       batch_dims=1).y_final
+        grid_rel = ((on_card.cpu() - on_cpu).abs().amax(-1)
+                    / on_cpu.abs().amax(-1)).max().item()
+    print(f"  (b) float64, {ADAPTIVE_CPU_PATHS} of O's paths, controller on each "
+          f"device: counts equal on {int(same_counts.sum())} paths, y_final within "
+          f"{gap[same_counts].max().item() if same_counts.any() else float('nan'):.3e} "
+          f"relative on those and {gap.max().item():.3e} on all; the card against "
+          f"itself with h0 one ulp up: counts equal on {int(self_counts.sum())} "
+          f"paths (the trial sequence amplifies any rounding difference)",
+          flush=True)
+    worst_z, worst_ratio = _controller_statistics(torch, card, cpu, nudged)
+    print(f"  (b) the controller's statistics, card against CPU, in units of the "
+          f"card-vs-nudged-card spread: means (counts, y_final, its variance) "
+          f"within {worst_z:.2f} sigma/sqrt({ADAPTIVE_CPU_PATHS}) (limit "
+          f"{MEAN_SIGMAS}), per-path spread {worst_ratio:.2f} sigma (limit "
+          f"{SPREAD_RATIO})", flush=True)
+    check(worst_z <= MEAN_SIGMAS,
+          "the card's controller statistics are off the CPU's (means)")
+    check(worst_ratio <= SPREAD_RATIO,
+          "the card's controller strays from the CPU's path by path")
+    print(f"  (b) one realized grid (the card's), solved on the card and on the CPU: "
+          f"y_final within {grid_rel:.3e} relative (limit 1e-9); bounded=True "
+          f"== bounded=False on the card bitwise", flush=True)
+    check(grid_rel <= 1e-9, "the card and the CPU disagree on one realized grid")
+
+    print(f"  (15b: {time.perf_counter() - t_phase:.1f} s)", flush=True)
+    t_phase = time.perf_counter()
+
+    # (c) Reversible-adjoint gradients over an adaptively realized grid: the
+    # grid is realized once (the controller takes no gradient) and solved as
+    # sdeint's bounded=True solves it, with each spec and adjoint.
+    keys_g = path_keys(PRNGKey(seed, device="cuda"), ADAPTIVE_GRAD_PATHS)
+    yg = y0.expand(ADAPTIVE_GRAD_PATHS, D_Z).contiguous()
+    with torch.no_grad():
+        grid_g = realize_grid(spec_o, term, yg, virtual_brownian_tree(
+            keys_g, 0.0, t1, shape=(D_Z,)), params, rtol=rtol,
+            max_steps=budget).grid
+
+    def grads(spec, adjoint):
+        model = copy.deepcopy(params)
+        model.zero_grad()
+        out = solve(get_solver(spec), term, yg, grid_g, model, adjoint=adjoint,
+                    batch_dims=1)
+        (out.y_final ** 2).mean().backward()
+        # the encoder and readout are not on this loss's path
+        return [p.grad.clone() for p in model.parameters() if p.grad is not None]
+
+    _zero_launches()
+    WS_STAGE_DIAG_BWD.entry_launches.clear()
+    g_kern = grads(spec_o, "reversible")
+    launches["ws_stage_diag_bwd_rows"] = rows_launches(WS_STAGE_DIAG_BWD)
+    g_plain = grads("ees25:adaptive", "reversible")
+    g_full = grads("ees25:adaptive", "full")
+    same_grad = all(torch.equal(a, b) for a, b in zip(g_kern, g_plain))
+    check(same_grad, "reversible gradients differ between kernels and plain")
+    check(launches["ws_stage_diag_bwd_rows"] > 0,
+          "the reversible replay launched no per-path ws_stage_diag_bwd entry")
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(g_plain, g_full))
+    print(f"  (c) {ADAPTIVE_GRAD_PATHS} paths: reversible gradients, kernels vs plain "
+          f"bitwise: {same_grad} ({launches['ws_stage_diag_bwd_rows']} per-path "
+          f"ws_stage_diag_bwd launches); reversible vs full: largest relative gap "
+          f"{rel:.3e} (of each parameter's largest entry)", flush=True)
+
+    # Peak memory of the three adjoints at 65,536 paths over one realized grid
+    # of a 256-trial budget with bulk increments, and the reversible
+    # adjoint's with per-step increments (a tree descent a step each way),
+    # the one adjoint whose peak the increments' mode moves by a multiple.
+    keys_m = path_keys(PRNGKey(seed, device="cuda"), SERVE_SLOTS)
+    tree = virtual_brownian_tree(keys_m, 0.0, t1, shape=(D_Z,))
+    yb = y0.expand(SERVE_SLOTS, D_Z).contiguous()
+    with torch.no_grad():
+        real_mib, rg = _peak_mib(torch, lambda: realize_grid(
+            spec_o, term, yb, tree, params, rtol=rtol, max_steps=budget))
+    mem, secs = {}, {}
+    for adjoint, bulk in (("reversible", True), ("reversible", False),
+                          ("recursive", True), ("full", True)):
+        def step():
+            model = copy.deepcopy(params)
+            out = solve(get_solver(spec_o), term, yb, rg.grid, model,
+                        adjoint=adjoint, bulk_increments=bulk, batch_dims=1)
+            (out.y_final ** 2).mean().backward()
+        start = time.perf_counter()
+        mem[(adjoint, bulk)], _ = _peak_mib(torch, step)
+        secs[(adjoint, bulk)] = time.perf_counter() - start
+    print(f"  (c) peak device memory at {SERVE_SLOTS} paths, {budget}-trial grid "
+          f"({rg.grid.n_active} live steps): realization {real_mib:.1f} MiB; "
+          + ", ".join(f"{adj} {'bulk' if bulk else 'per-step'} {mib:.1f} MiB "
+                      f"({secs[(adj, bulk)]:.1f} s)"
+                      for (adj, bulk), mib in mem.items()), flush=True)
+    check(mem[("reversible", False)] < mem[("full", True)],
+          "the reversible adjoint does not save memory over the full one")
+    print(f"  (15c: {time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2440,6 +2843,7 @@ def main() -> int:
     phase("phase 3: kernels against their plain twins")
     timer = Timer(torch)
     stats = kernel_phase(torch, timer)
+    rows_kernel_phase(torch, timer, stats)
     stats.update(lm_kernel_phase(torch, timer))
 
     phase("phase 4: serve requests A-D")
@@ -2506,6 +2910,13 @@ def main() -> int:
     async_launches = async_phase(torch, params, y0, sync_abc)
     print(f"  ws_stage_diag launched on phase 14's paths: {async_launches}",
           flush=True)
+
+    phase("phase 15: adaptive solves on Virtual Brownian Trees (requests O, P; "
+          "card vs CPU; gradients over a realized grid)")
+    adaptive_launches = adaptive_phase(torch, timer, params, y0)
+    print(f"  launched on phase 15's paths: {adaptive_launches}", flush=True)
+    launches.update({name: adaptive_launches[name] for name in
+                     ("ws_stage_diag_rows", "ws_stage_diag_bwd_rows")})
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -2513,6 +2924,8 @@ def main() -> int:
                "williamson2n": ("williamson2n.cu",
                                 "src/repro/kernels/williamson2n/williamson2n.py:56"),
                "ws_stage_diag_bwd": ("ws_stage_diag_bwd.cu", f"{tpu}:182"),
+               "ws_stage_diag_rows": ("ws_stage_diag.cu", f"{tpu}:144"),
+               "ws_stage_diag_bwd_rows": ("ws_stage_diag_bwd.cu", f"{tpu}:182"),
                "increment_diag": ("increment_diag.cu", f"{tpu}:65"),
                "axpy_chain": ("axpy_chain.cu", f"{tpu}:286"),
                "increment_pre": ("increment_pre.cu", f"{tpu}:85"),

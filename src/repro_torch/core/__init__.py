@@ -1,21 +1,28 @@
-"""repro_torch.core — the EES solve stack of the port (fixed grids).
+"""repro_torch.core — the EES solve stack of the port.
 
   tableaux   — Butcher tableaux (Euler ... RK4, EES(2,5;x), EES(2,7))
   williamson — Williamson 2N coefficients + Bazavov conditions (numpy)
   prng       — threefry2x32 keys and draws, bit-exact to jax.random's
   pytree     — pytrees of tensors and their leafwise linear algebra
-  brownian   — counter-based fixed-grid Brownian drivers
-  grid       — the time grid (uniform / padded uniform)
+  brownian   — counter-based Brownian drivers: fixed-grid paths and the
+               Virtual Brownian Tree
+  grid       — the time grid (uniform / padded uniform / realized) and the
+               dense-output helpers
   solvers    — SDETerm; 2N, Butcher, Reversible Heun, MCF, Milstein, SRA1
-  adjoint    — solve(): the one solve loop (full and reversible adjoints)
+  adaptive   — PI-controlled grid realization and adaptive integration
+  adjoint    — solve(): the one solve loop (full, recursive and reversible
+               adjoints)
   registry   — string-keyed solver registry ("ees25", "milstein", ...) and
                select_solver ("auto" specs)
   stability  — linear and mean-square stability of RK tableaux (numpy)
   sdeint     — batched Monte-Carlo integration and multi-tick dispatch
 """
+from .adaptive import AdaptiveResult, RealizedGrid, integrate_adaptive, realize_grid
 from .adjoint import SolveResult, solve
-from .brownian import BrownianPath, PaddedBrownianPath, brownian_path, padded_brownian_path
-from .grid import TimeGrid
+from .brownian import (BrownianDriver, BrownianPath, PaddedBrownianPath, VirtualBrownianTree,
+                       brownian_path, padded_brownian_path, virtual_brownian_tree)
+from .grid import TimeGrid, fill_saves, save_mask
+from .pytree import resolve_solver
 from .prng import PRNGKey, fold_in, normal, split
 from .registry import (canonical_spec, get_solver, list_solvers, parse_solver_spec, register_solver,
                        select_solver, solver_kind)
@@ -28,6 +35,11 @@ from .williamson import EES25_2N, EES27_2N, bazavov_residuals, butcher_from_2n, 
 __all__ = [
     "solve",
     "SolveResult",
+    "realize_grid",
+    "RealizedGrid",
+    "integrate_adaptive",
+    "AdaptiveResult",
+    "resolve_solver",
     "path_keys",
     "sdeint",
     "sdeint_ticks",
@@ -46,7 +58,12 @@ __all__ = [
     "brownian_path",
     "PaddedBrownianPath",
     "padded_brownian_path",
+    "VirtualBrownianTree",
+    "virtual_brownian_tree",
+    "BrownianDriver",
     "TimeGrid",
+    "fill_saves",
+    "save_mask",
     "SDETerm",
     "VALID_NOISE",
     "LowStorageSolver",

@@ -1,11 +1,21 @@
-"""Counter-based fixed-grid Brownian drivers.
+"""Counter-based Brownian drivers: fixed-grid paths and the Virtual Brownian Tree.
 
-Port of the fixed-grid half of ``repro.core.brownian``
-(:class:`BrownianPath`, :class:`PaddedBrownianPath`); the Virtual Brownian
-Tree comes with adaptive grids.  The increment over step ``n`` is
+Port of ``repro.core.brownian``: :class:`BrownianPath` and
+:class:`PaddedBrownianPath` (fixed grids) and :class:`VirtualBrownianTree`
+(arbitrary query times, for adaptive stepping), behind one driver protocol
+(:class:`BrownianDriver`).  The increment over step ``n`` of a fixed grid is
 ``sqrt(h) * normal(fold_in(key, n), shape)`` with the reference's threefry
 key scheme (:mod:`repro_torch.core.prng`), so a seed names the same path in
 both packages.
+
+The tree resolves ``W(t)`` by descending ``depth`` levels of a dyadic
+bisection of ``[t0, t1]``; the bridge sample at a visited midpoint is drawn
+from ``fold_in(key, node)`` (heap index: root 1, children ``2n``/``2n+1``).
+Each path of a key batch queries its own ``t``, so its ``node`` sequence is
+its own: the draws are one batched ``fold_in`` over a tensor of nodes.
+Times are float64 whatever the draw dtype (the reference's
+``jnp.result_type(float)`` under x64): whether a descent turns right decides
+which normals a path draws.
 
 The key may carry leading batch axes (``(*batch, 2)``): increments then have
 shape ``(*batch, *shape)``, one independent path per key — the port writes
@@ -29,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -38,10 +48,13 @@ from . import prng
 from .pytree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = [
+    "BrownianDriver",
     "BrownianPath",
     "brownian_path",
     "PaddedBrownianPath",
     "padded_brownian_path",
+    "VirtualBrownianTree",
+    "virtual_brownian_tree",
 ]
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -136,6 +149,25 @@ def _check_steps(n_grid: int, n_steps: int, what: str):
         )
 
 
+@runtime_checkable
+class BrownianDriver(Protocol):
+    """What a Brownian driver provides: increments over time intervals.
+
+    ``increment_over(s, t)`` is ``W(t) - W(s)``; ``grid_increment(ts, n)``
+    the increment over step ``n`` of the grid ``ts``, recomputable in any
+    order (the reversible adjoint's backward sweep relies on it).  The bulk
+    form ``grid_increments(ts)`` stacks every step's increment, row ``n``
+    bitwise-equal to ``grid_increment(ts, n)``.
+    """
+
+    t0: float
+    t1: float
+
+    def increment_over(self, s, t): ...
+
+    def grid_increment(self, ts, n): ...
+
+
 @dataclasses.dataclass(frozen=True)
 class BrownianPath:
     """Fixed-grid Brownian driver over [t0, t1] with ``n_steps`` steps.
@@ -155,6 +187,9 @@ class BrownianPath:
     @property
     def h(self) -> float:
         return (self.t1 - self.t0) / self.n_steps
+
+    def t_of(self, n):
+        return self.t0 + n * self.h
 
     def increment(self, n: int):
         """dW over step ``n`` (t_n -> t_{n+1})."""
@@ -192,6 +227,34 @@ class BrownianPath:
         return (self.grid_increments(ts),
                 _bulk_levy(self.key, self.n_steps, self.shape, self.dtype,
                            self.h))
+
+    def path(self):
+        """The cumulative path ``W_{t_n}``, shape ``(n_steps + 1, *batch,
+        *shape)`` (a pytree of such for a pytree of shapes): one bulk draw and
+        a cumulative sum, realized once per driver and cached."""
+        cached = self.__dict__.get("_path_cache")
+        if cached is not None:
+            return cached
+        incs = _bulk_draw(self.key, self.n_steps, self.shape, self.dtype,
+                          _sqrt_in(self.h, self.dtype))
+        w = tree_map(lambda x: torch.cat(
+            [torch.zeros_like(x[:1]), torch.cumsum(x, dim=0)]), incs)
+        object.__setattr__(self, "_path_cache", w)
+        return w
+
+    def increment_over(self, s, t):
+        """``W(t) - W(s)`` for grid-aligned ``s < t``: both are rounded to the
+        nearest grid node and read out of :meth:`path` (two gathers)."""
+        n0 = _nearest_node(s, self.t0, self.h)
+        n1 = _nearest_node(t, self.t0, self.h)
+        return tree_map(lambda x: x[n1] - x[n0], self.path())
+
+
+def _nearest_node(t, t0: float, h: float):
+    """The grid index nearest ``t`` (half to even, as ``jnp.round``)."""
+    if isinstance(t, torch.Tensor):
+        return torch.round((t.to(torch.float64) - t0) / h).to(torch.int64)
+    return int(np.round((float(t) - t0) / h))
 
 
 def _levy_draw(key, n, shape, dtype, h):
@@ -232,6 +295,9 @@ class PaddedBrownianPath:
     def t1(self) -> float:
         """End of the *padded* window."""
         return self.t0 + self.n_steps * self.h
+
+    def t_of(self, n):
+        return self.t0 + n * self.h
 
     def increment(self, n: int):
         sub = prng.fold_in(self.key, n)
@@ -277,3 +343,194 @@ def padded_brownian_path(key, t0, h, n_steps, shape=(),
     if isinstance(shape, list):
         shape = tuple(shape)
     return PaddedBrownianPath(key, float(t0), float(h), int(n_steps), shape, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Virtual Brownian Tree.
+# ---------------------------------------------------------------------------
+
+# 2*node+1 must stay inside int32 for fold_in: node < 2^(depth+1).
+_MAX_DEPTH = 28
+#: The dtype of every time the tree and the adaptive controller compute with.
+TIME_DTYPE = torch.float64
+
+
+def _trail(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with ``n`` trailing unit axes (to broadcast over a draw shape)."""
+    return x.reshape(tuple(x.shape) + (1,) * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class VirtualBrownianTree:
+    """Brownian motion queryable at arbitrary ``t`` in O(1) memory.
+
+    ``weval(t)`` descends ``depth`` levels of a dyadic bisection of
+    ``[t0, t1]`` (``depth`` from ``tol``); the bridge sample at each visited
+    midpoint comes from ``fold_in(key, node)``, so ``W(t)`` is a pure
+    function of ``(key, t)``.  Below the leaf resolution the path is the
+    bridge's conditional mean (linear interpolation).  Increments telescope
+    to rounding, which keeps accept/reject stepping on one fixed path.
+
+    ``key`` is ``(*batch, 2)``: one independent path per key.  A query time
+    is a float, or a float64 tensor broadcastable to ``batch`` (one time per
+    path); bulk queries put a leading node axis in front of ``batch``.
+    Values have shape ``(*lead, *batch, *shape)``.
+    """
+
+    key: torch.Tensor
+    t0: float
+    t1: float
+    shape: Tuple[int, ...] = ()
+    dtype: Any = torch.float32
+    tol: float = 2.0 ** -12
+
+    @property
+    def depth(self) -> int:
+        span = self.t1 - self.t0
+        return max(1, min(_MAX_DEPTH, int(math.ceil(math.log2(span / self.tol)))))
+
+    @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.key.shape[:-1])
+
+    def _time(self, t) -> torch.Tensor:
+        return torch.as_tensor(t, dtype=TIME_DTYPE, device=self.key.device)
+
+    def _leaf_eval(self, key, shape, t):
+        """W(t) for one pytree leaf, from that leaf's key (``key.shape[:-1]``
+        broadcasts against ``t``'s shape)."""
+        span = self.t1 - self.t0
+        k = len(shape)
+        tau = torch.clamp((self._time(t) - self.t0) / span, 0.0, 1.0)
+        tau = tau.expand(torch.broadcast_shapes(tau.shape, key.shape[:-1]))
+        w_end = _sqrt_in(span, self.dtype) * prng.normal(
+            prng.fold_in(key, 0), shape, self.dtype)
+        quarter = float(_NP_DTYPE[self.dtype](0.25 * span))
+        s = torch.zeros_like(tau)
+        u = torch.ones_like(tau)
+        ws = torch.zeros(shape, dtype=self.dtype, device=tau.device)
+        wu = w_end
+        node = 1
+        for _ in range(self.depth):
+            m = 0.5 * (s + u)
+            std = torch.sqrt(quarter * (u - s).to(self.dtype))
+            wm = 0.5 * (ws + wu) + _trail(std, k) * prng.normal(
+                prng.fold_in(key, node), shape, self.dtype)
+            right = tau > m
+            s = torch.where(right, m, s)
+            u = torch.where(right, u, m)
+            rk = _trail(right, k)
+            ws = torch.where(rk, wm, ws)
+            wu = torch.where(rk, wu, wm)
+            node = 2 * node + right.to(torch.int64)
+        frac = ((tau - s) / (u - s)).to(self.dtype)
+        return ws + _trail(frac, k) * (wu - ws)
+
+    def weval(self, t):
+        """``W(t) - W(t0)`` as a pytree matching ``shape`` (``W(t0) == 0``
+        exactly)."""
+        if _is_simple_shape(self.shape):
+            return self._leaf_eval(self.key, self.shape, t)
+        leaves, treedef = _shape_leaves(self.shape)
+        subs = prng.split(self.key, len(leaves))
+        return tree_unflatten(treedef, [
+            self._leaf_eval(subs[..., i, :], s, t) for i, s in enumerate(leaves)])
+
+    def increment_over(self, s, t):
+        """``W(t) - W(s)`` for ``t0 <= s <= t <= t1`` (two descents)."""
+        return tree_map(lambda b, a: b - a, self.weval(t), self.weval(s))
+
+    def levy_area(self, s, t):
+        """Space-time Levy area ``DH ~ N(0, (t-s)/12)`` over ``[s, t]``, keyed
+        on the endpoints quantized to the leaf resolution in the salted key
+        family (``fold_in(key, _LEVY_SALT)``): a pure function of
+        ``(key, s, t)``, leaving the ``W`` draws untouched."""
+        span = self.t1 - self.t0
+        res = 2.0 ** self.depth
+        s, t = self._time(s), self._time(t)
+        i0 = torch.round((s - self.t0) / span * res).to(torch.int64)
+        i1 = torch.round((t - self.t0) / span * res).to(torch.int64)
+        sub = prng.fold_in(prng.fold_in(prng.fold_in(self.key, _LEVY_SALT), i0),
+                           i1)
+        scale = torch.sqrt(torch.clamp_min(t - s, 0.0).to(self.dtype) / 12.0)
+        if _is_simple_shape(self.shape):
+            return _trail(scale, len(self.shape)) * prng.normal(
+                sub, self.shape, self.dtype)
+        leaves, treedef = _shape_leaves(self.shape)
+        subs = prng.split(sub, len(leaves))
+        return tree_unflatten(treedef, [
+            _trail(scale, len(sh)) * prng.normal(subs[..., i, :], sh, self.dtype)
+            for i, sh in enumerate(leaves)])
+
+    def levy_increment_over(self, s, t):
+        """The ``(dW, dH)`` pair over ``[s, t]``."""
+        return self.increment_over(s, t), self.levy_area(s, t)
+
+    def grid_increment(self, ts, n: int):
+        """dW over step ``n`` of a grid ``ts``: ``(n_steps + 1,)`` shared by
+        every path, or ``(*batch, n_steps + 1)`` (a realized grid, one row
+        per path)."""
+        return self.increment_over(ts[..., n], ts[..., n + 1])
+
+    def grid_levy_increment(self, ts, n: int):
+        """The ``(dW, dH)`` pair over step ``n`` of ``ts``."""
+        return self.grid_increment(ts, n), self.levy_area(ts[..., n],
+                                                          ts[..., n + 1])
+
+    def _nodes(self, ts, n_rows):
+        """The first ``n_rows + 1`` grid times on a leading node axis,
+        broadcastable against ``batch``."""
+        nodes = ts[..., :n_rows + 1].to(TIME_DTYPE)
+        if nodes.dim() == 1:
+            return nodes.reshape((-1,) + (1,) * len(self.batch_shape))
+        return nodes.movedim(-1, 0)
+
+    def _rows_per_pass(self) -> int:
+        leaves = [self.shape] if _is_simple_shape(self.shape) else \
+            _shape_leaves(self.shape)[0]
+        per_row = math.prod(self.batch_shape) * sum(math.prod(s) for s in leaves)
+        return max(1, BULK_PASS_ELEMENTS // max(per_row, 1))
+
+    def grid_increments(self, ts, n_rows: Optional[int] = None):
+        """The first ``n_rows`` (default: all) step increments of ``ts``,
+        stacked on a leading axis: ``W`` at every grid node in one batched
+        level-sweep (in passes of at most :data:`BULK_PASS_ELEMENTS` values
+        a node), differenced.  Row ``n`` is bitwise-equal to
+        :meth:`grid_increment` ``(ts, n)``."""
+        n_rows = ts.shape[-1] - 1 if n_rows is None else int(n_rows)
+        nodes = self._nodes(ts, n_rows)
+        per = self._rows_per_pass()
+        out, prev = None, None
+        for lo in range(0, n_rows + 1, per):
+            w = self.weval(nodes[lo:lo + per])
+            if prev is not None:
+                w = tree_map(lambda p, x: torch.cat([p, x]), prev, w)
+            diffs = tree_map(lambda x: x[1:] - x[:-1], w)
+            if out is None:
+                out = tree_map(lambda x: x.new_empty((n_rows,) + tuple(x.shape[1:])),
+                               diffs)
+            start = max(lo - 1, 0)
+            tree_map(lambda o, d: o[start:start + d.shape[0]].copy_(d), out, diffs)
+            prev = tree_map(lambda x: x[-1:], w)
+            del w, diffs
+        return out
+
+    def grid_levy_increments(self, ts, n_rows: Optional[int] = None):
+        """The first ``n_rows`` ``(dW, dH)`` pairs of ``ts``, stacked; row
+        ``n`` bitwise-equal to :meth:`grid_levy_increment` ``(ts, n)``."""
+        n_rows = ts.shape[-1] - 1 if n_rows is None else int(n_rows)
+        nodes = self._nodes(ts, n_rows)
+        return (self.grid_increments(ts, n_rows),
+                self.levy_area(nodes[:-1], nodes[1:]))
+
+
+def virtual_brownian_tree(key, t0, t1, shape=(), dtype=torch.float32,
+                          tol=None) -> VirtualBrownianTree:
+    """Build a :class:`VirtualBrownianTree` over ``[t0, t1]``; ``tol`` is the
+    leaf resolution in time units (default ``(t1 - t0) / 4096``)."""
+    if isinstance(shape, list):
+        shape = tuple(shape)
+    if tol is None:
+        tol = (float(t1) - float(t0)) * 2.0 ** -12
+    return VirtualBrownianTree(key, float(t0), float(t1), shape, dtype,
+                               float(tol))

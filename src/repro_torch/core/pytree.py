@@ -11,7 +11,9 @@ an empty subtree, as in jax.  The flatten/unflatten pair here replaces
 * ``tree_blowup`` — the divergence guard's one primitive.  The port writes
   the path batch out as leading axes, so it takes ``batch_dims`` and returns
   one flag per path where the reference, under ``vmap``, returns one per
-  lane.
+  lane;
+* ``tree_select_paths`` — ``tree_select`` with one predicate per path;
+* ``resolve_solver`` — spec string or coefficients to a solver object.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ __all__ = [
     "tree_zeros_like",
     "tree_select",
     "tree_blowup",
+    "tree_select_paths",
+    "resolve_solver",
 ]
 
 _LEAF = "leaf"
@@ -149,6 +153,17 @@ def tree_select(pred, a, b):
     return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
 
 
+def tree_select_paths(pred, a, b):
+    """Leafwise ``where(pred, a, b)`` with ``pred`` one bool per path (shape
+    ``batch``), broadcast over each leaf's trailing axes; a Python bool
+    picks a whole tree."""
+    if not isinstance(pred, torch.Tensor):
+        return a if pred else b
+    return tree_map(lambda x, y: torch.where(
+        pred.reshape(tuple(pred.shape) + (1,) * (x.dim() - pred.dim())), x, y),
+        a, b)
+
+
 def tree_blowup(x, threshold=None, batch_dims: int = 0) -> torch.Tensor:
     """Bool tensor of shape ``batch``: does any floating leaf entry of a path
     go non-finite (or, with a finite ``threshold``, above it in magnitude)?
@@ -174,3 +189,33 @@ def tree_blowup(x, threshold=None, batch_dims: int = 0) -> torch.Tensor:
     if flags is None:
         return torch.tensor(False)
     return flags
+
+
+def resolve_solver(solver, *, require_error_estimate: bool = False):
+    """Spec string / LowStorage coefficients / solver object -> solver object.
+
+    ``require_error_estimate=True`` also demands ``step_with_error`` (the
+    embedded estimator grid realization needs) and raises otherwise;
+    solvers without it (``reversible_heun``, ``mcf-*``) can still solve over
+    an already-realized grid.
+    """
+    if isinstance(solver, str):
+        from .registry import get_solver
+
+        solver = get_solver(solver)
+    from .williamson import LowStorage
+
+    if isinstance(solver, LowStorage):
+        from .solvers import LowStorageSolver
+
+        solver = LowStorageSolver(solver)
+    if require_error_estimate and not hasattr(solver, "step_with_error"):
+        raise ValueError(
+            f"solver {getattr(solver, 'name', solver)!r} has no embedded "
+            "error estimate (step_with_error); adaptive grid realization "
+            "supports the EES 2N schemes and multi-stage Butcher-form RK — "
+            "realize the grid with one of those (or use a fixed grid), then "
+            "any solver, including reversible_heun / mcf-*, can solve over "
+            "the realized grid"
+        )
+    return solver

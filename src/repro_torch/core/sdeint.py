@@ -1,9 +1,13 @@
 """Batched Monte-Carlo SDE integration: one call, many trajectories.
 
-Port of the fixed-grid half of ``repro.core.sdeint``.  ``sdeint`` owns the
-plumbing above the solver layer — Brownian-driver construction, solver
-resolution by registry name, and the path batch — and delegates the
-integration to :func:`repro_torch.core.adjoint.solve`.
+Port of ``repro.core.sdeint``.  ``sdeint`` owns the plumbing above the
+solver layer — Brownian-driver construction, solver resolution by registry
+name, and the path batch — and delegates the integration to
+:func:`repro_torch.core.adjoint.solve`.  An adaptive request
+(``adaptive=True`` or an ``"ees25:adaptive"`` spec) integrates over one
+Virtual Brownian Tree per path key with the PI controller
+(:func:`repro_torch.core.adaptive.integrate_adaptive`): realize-then-solve
+under any adjoint, or one forward-only pass with ``bounded=False``.
 
 Batching is *by key*, as in the reference: path ``i`` draws its own
 counter-based Brownian path from its own key, so a batch gives the same
@@ -26,8 +30,9 @@ import torch
 
 from ..device import not_yet_ported, resolve_device
 from . import prng
+from .adaptive import integrate_adaptive
 from .adjoint import SolveResult, solve
-from .brownian import brownian_path, padded_brownian_path
+from .brownian import brownian_path, padded_brownian_path, virtual_brownian_tree
 from .grid import TimeGrid
 from .pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .registry import get_solver
@@ -68,7 +73,8 @@ def _infer_dtype(y0):
 
 def _check_options(solver, adjoint, adaptive, save_every, save_at, rtol, atol,
                    h0, bm_tol, bounded):
-    """The reference's option validation; adaptive solves are not ported."""
+    """The reference's option validation; returns whether the solve is
+    adaptive."""
     adaptive = adaptive or getattr(solver, "adaptive", False)
     if adjoint not in ("full", "recursive", "reversible"):
         raise ValueError(f"unknown adjoint {adjoint!r}")
@@ -100,8 +106,7 @@ def _check_options(solver, adjoint, adaptive, save_every, save_at, rtol, atol,
                     "adaptive=True or an ':adaptive' solver spec — a "
                     "tolerance request must not silently run a fixed grid"
                 )
-    if adaptive:
-        raise not_yet_ported("adaptive solves (':adaptive' specs)")
+    return adaptive
 
 
 def _batched_y0(y0, batch, device):
@@ -123,13 +128,33 @@ def _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, *, args=None,
     padded: ``n_steps`` steps of exact size ``step_size``, ``n_active``
     live; otherwise ``n_active`` is ignored."""
     solver = get_solver(solver)
-    _check_options(solver, adjoint, adaptive, save_every, save_at, rtol, atol,
-                   h0, bm_tol, bounded)
+    adaptive = _check_options(solver, adjoint, adaptive, save_every, save_at,
+                              rtol, atol, h0, bm_tol, bounded)
     if noise_shape is None:
         noise_shape = _infer_noise_shape(term, y0)
     if dtype is None:
         dtype = _infer_dtype(y0)
     ode = getattr(term, "noise", "diagonal") == "none"
+    if adaptive:
+        if step_size is not None:
+            raise ValueError(
+                "active_steps (padded bucketed dispatch) applies to fixed-grid "
+                "solves only; adaptive requests must dispatch exact"
+            )
+        tols = {k: v for k, v in (("rtol", rtol), ("atol", atol)) if v is not None}
+
+        def adaptive_one(keys: torch.Tensor, n_active: Optional[int] = None):
+            batch = tuple(keys.shape[:-1])
+            vbt = virtual_brownian_tree(keys, t0, t1, shape=noise_shape,
+                                        dtype=dtype, tol=bm_tol)
+            out = integrate_adaptive(
+                solver, term, _batched_y0(y0, batch, keys.device), vbt, args,
+                t0=t0, t1=t1, h0=h0, max_steps=int(n_steps), save_at=save_at,
+                bounded=bounded, adjoint=adjoint, remat_chunk=remat_chunk,
+                bulk_increments=bulk_increments, guard=guard, **tols)
+            return _saves_last(out, batch)
+
+        return adaptive_one
 
     def one(keys: torch.Tensor, n_active: Optional[int] = None):
         batch = tuple(keys.shape[:-1])
@@ -148,13 +173,17 @@ def _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, *, args=None,
                     args, adjoint=adjoint, save_every=save_every,
                     remat_chunk=remat_chunk, bulk_increments=bulk_increments,
                     guard=guard, batch_dims=len(batch))
-        if out.ys is not None and batch:
-            # solve stacks saves first; sdeint's layout is (*batch, n_saves, ...)
-            out = out._replace(ys=tree_map(lambda x: x.movedim(0, len(batch)),
-                                           out.ys))
-        return out
+        return _saves_last(out, batch)
 
     return one
+
+
+def _saves_last(out, batch):
+    """solve stacks saves first; sdeint's layout is ``(*batch, n_saves, ...)``."""
+    if out.ys is not None and batch:
+        out = out._replace(ys=tree_map(lambda x: x.movedim(0, len(batch)),
+                                       out.ys))
+    return out
 
 
 def sdeint(
@@ -198,8 +227,13 @@ def sdeint(
     (checkpointed chunks of ``remat_chunk`` steps, default the reference's
     ``isqrt`` rule) or ``"reversible"`` (O(1) memory in the trajectory);
     the parameters of an ``nn.Module`` ``args`` get their gradients through
-    each.  Adaptive solves, ``save_at`` and mesh fan-out are not ported yet
-    and raise.
+    each.  Adaptive solves (``adaptive=True`` or an ``":adaptive"`` spec)
+    take ``n_steps`` as each path's trial budget, ``rtol``/``atol``/``h0``,
+    ``bm_tol`` (the tree's leaf resolution), ``bounded`` and ``save_at``,
+    and return an :class:`~repro_torch.core.adaptive.AdaptiveResult` with
+    per-path ``t_final``, ``h_final``, ``n_accepted`` and ``n_rejected``
+    (``ys`` is ``(B, len(save_at), ...)``).  Mesh fan-out is not ported yet
+    and raises.
     """
     device = resolve_device(device)
     one = _trajectory_fn(
@@ -221,14 +255,15 @@ def sdeint(
 
 
 def _stack_ticks(outs):
-    """Per-tick results stacked on a leading tick axis (None stays None)."""
+    """Per-tick results (``SolveResult`` or ``AdaptiveResult``) stacked on a
+    leading tick axis (None stays None)."""
     def field(vals):
         if vals[0] is None:
             return None
         return tree_map(lambda *xs: torch.stack(xs), vals[0], *vals[1:])
 
-    return SolveResult(*(field([o[i] for o in outs])
-                         for i in range(len(SolveResult._fields))))
+    return type(outs[0])(*(field([o[i] for o in outs])
+                           for i in range(len(outs[0]))))
 
 
 def sdeint_ticks(

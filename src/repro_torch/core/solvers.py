@@ -309,7 +309,11 @@ class LowStorageSolver:
 
         ``K_s`` (the last stage increment, for the embedded estimator) is
         formed only when ``need_k``: eager torch has no dead-code
-        elimination to drop it from plain steps.
+        elimination to drop it from plain steps.  A fused last stage forms
+        it as the plain path does (``f*h + g.dW``), where the reference
+        recovers it as ``delta' - A*delta``: the estimate, and so every
+        accept decision of an adaptive solve, then equals the plain path's
+        bitwise.
         """
         ls = self.ls
         noise = getattr(term, "noise", "diagonal")
@@ -328,11 +332,10 @@ class LowStorageSolver:
                 if g is None:
                     fused = False  # declared noise but no diffusion
                 else:
-                    delta_prev = delta
                     delta, y = _fused_ops.tree_ws_stage(
                         delta, y, f, g, dW, h, ls.A[l], ls.B[l], noise=noise)
-                    if need_k:
-                        k = tree_axpy(-ls.A[l], delta_prev, delta)
+                    if need_k and l == ls.stages - 1:
+                        k = term.combine(f, g, h, dW)
                     continue
             k = term.increment(t + ls.c[l] * h, y, args, h, dW,
                                use_kernels=self.use_kernels)

@@ -19,9 +19,12 @@ adjoint's replay of a step differentiable through the kernels.
 
 ``noise="prediffused"`` takes ``dW`` as the pre-weighted increment
 ``w = g*dW`` and ignores ``g`` (None in the pytree layer): the additive fast
-path of :func:`repro_torch.core.adjoint.solve`.  The step size ``h`` and
-the coefficients are Python floats (the grid's static step and the scheme's
-constants), so they carry no gradient — the reference drops the grid's
+path of :func:`repro_torch.core.adjoint.solve`.  The coefficients are
+Python floats (the scheme's constants); the step size ``h`` is the grid's
+Python float, or on a realized (adaptive) grid a tensor with one value per
+path shaped to broadcast against the state, which the twins broadcast and
+``ws_stage_diag``/``ws_stage_diag_bwd`` take through their per-path
+entries.  Neither carries a gradient: the reference drops the grid's
 cotangents too.
 
 ``interpret=True``, or the :func:`force_interpret` context, runs every op
@@ -82,6 +85,11 @@ def force_interpret():
 def _impl(interpret: bool):
     """The kernel wrappers, or their twins under ``interpret``."""
     return _TWINS if interpret or _FORCE_INTERPRET else _k
+
+
+def _step_size(h):
+    """A grid's step as the ops take it: a float, or per-path values."""
+    return h if isinstance(h, torch.Tensor) else float(h)
 
 
 def _check_noise(noise: str) -> None:
@@ -156,11 +164,12 @@ def fused_increment(f, g, dW, h, *, noise: str, interpret: bool = False):
     the pre-weighted ``g*dW`` and ``g`` is ignored."""
     _check_noise(noise)
     impl = _impl(interpret)
+    h = _step_size(h)
     if noise == "prediffused":
-        return _IncrementPre.apply(f, dW, float(h), impl)
+        return _IncrementPre.apply(f, dW, h, impl)
     if noise == "general":
-        return _IncrementGeneral.apply(f, g, dW, float(h), impl)
-    return _IncrementDiag.apply(f, g, dW, float(h), impl)
+        return _IncrementGeneral.apply(f, g, dW, h, impl)
+    return _IncrementDiag.apply(f, g, dW, h, impl)
 
 
 # -- fused increment + Williamson 2N stage ------------------------------------
@@ -222,7 +231,7 @@ def fused_ws_stage(delta, y, f, g, dW, h, *, a: float, b: float, noise: str,
     ``noise="prediffused"``: ``dW`` is the pre-weighted ``g*dW`` and ``g``
     is ignored."""
     _check_noise(noise)
-    h, a, b = float(h), float(a), float(b)
+    h, a, b = _step_size(h), float(a), float(b)
     impl = _impl(interpret)
     if noise == "prediffused":
         return _WSStagePre.apply(delta, y, f, dW, h, a, b, impl)

@@ -37,6 +37,15 @@ Each takes tensors of any shape (operands broadcast to the output's shape
 are materialized).  On a CPU tensor it is its plain twin (:mod:`.ref`); on a
 CUDA tensor it launches its kernel or raises.  Each kernel's ``launches``
 counts its launches.
+
+The step size ``h`` is a Python float, or a tensor with one value per path
+(shape: the leading path axes of the state, then unit axes): an adaptive
+solve's per-path steps, which the reference passes to its kernels under
+``vmap``.  :func:`ws_stage_diag` and :func:`ws_stage_diag_bwd` launch their
+second entry for it (``<name>_rows_<dtype>``), which reads
+``h[e / row_len]`` for element ``e`` from a device vector; the other
+kernels have no such entry yet and raise :class:`~repro_torch.NotYetPorted`
+for a tensor ``h`` on the card (their twins take it).
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import ctypes
 
 import torch
 
+from ...device import not_yet_ported
 from .._build import CudaKernel, cuda_operands, is_current, pointer, stream_handle
 from . import ref as _ref
 
@@ -53,7 +63,7 @@ __all__ = ["WS_STAGE_DIAG", "WS_STAGE_DIAG_BWD", "INCREMENT_DIAG",
            "ws_stage_diag_bwd", "increment_diag", "axpy_chain",
            "increment_pre", "ws_stage_pre", "increment_general",
            "ws_stage_general", "GENERAL_ROUTES", "ROW_ROUTE_MAX_BYTES",
-           "general_route", "route_launches"]
+           "general_route", "route_launches", "rows_launches"]
 
 _P, _N, _D, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
 
@@ -63,9 +73,25 @@ def _kernel(name, args):
                       {f"{name}_f32": args, f"{name}_f64": args})
 
 
-WS_STAGE_DIAG = _kernel("ws_stage_diag", [_P] * 7 + [_N] + [_D] * 3 + [_P])
-WS_STAGE_DIAG_BWD = _kernel("ws_stage_diag_bwd",
-                            [_P] * 8 + [_N] + [_D] * 3 + [_P])
+def _rows_kernel(name, args, rows_args):
+    """A kernel with a scalar-``h`` entry and a per-path-``h`` entry per dtype."""
+    return CudaKernel(name, f"{name}.cu", {
+        f"{name}{rows}_{sfx}": a for sfx in ("f32", "f64")
+        for rows, a in (("", args), ("_rows", rows_args))})
+
+
+# (delta, y, f, g, dW, d_out, y_out, n, h, a, b, stream); the rows entry
+# takes (delta, y, f, g, dW, h_vec, d_out, y_out, n, row_len, a, b, stream).
+WS_STAGE_DIAG = _rows_kernel("ws_stage_diag", [_P] * 7 + [_N] + [_D] * 3 + [_P],
+                             [_P] * 8 + [_N, _N] + [_D] * 2 + [_P])
+WS_STAGE_DIAG_BWD = _rows_kernel("ws_stage_diag_bwd",
+                                 [_P] * 8 + [_N] + [_D] * 3 + [_P],
+                                 [_P] * 9 + [_N, _N] + [_D] * 2 + [_P])
+
+
+def rows_launches(kernel: CudaKernel) -> int:
+    """Launches of ``kernel``'s per-path-``h`` entries (read by difference)."""
+    return sum(n for fn, n in kernel.entry_launches.items() if "_rows_" in fn)
 INCREMENT_DIAG = _kernel("increment_diag", [_P] * 4 + [_N, _D, _P])
 #: Increments one axpy_chain launch takes (kMaxIncs in csrc/axpy_chain.cu).
 MAX_INCS = 8
@@ -133,8 +159,32 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
     return False
 
 
-def ws_stage_diag(delta, y, f, g, dW, h: float, *, a: float, b: float):
-    """Fused stage; returns ``(delta', y')`` shaped like ``delta``."""
+def _path_steps(name: str, h: torch.Tensor, like: torch.Tensor):
+    """A per-path step size as a rows entry takes it: ``(h_vec, row_len)``,
+    ``h`` flattened to one value per path (in ``like``'s dtype, on its
+    device) and the number of ``like``'s elements in a path's row.  ``h``
+    must be shaped as leading axes of ``like`` followed by unit axes."""
+    lead = list(h.shape)
+    while lead and lead[-1] == 1:
+        lead.pop()
+    if h.dim() > like.dim() or tuple(like.shape[:len(lead)]) != tuple(lead):
+        raise ValueError(
+            f"{name}: per-path h of shape {tuple(h.shape)} does not lead the "
+            f"state's shape {tuple(like.shape)}")
+    h_vec = h.to(device=like.device, dtype=like.dtype).contiguous().reshape(-1)
+    return h_vec, like.numel() // max(h_vec.numel(), 1)
+
+
+def _scalar_h_only(name: str, h) -> None:
+    """Raise for a per-path ``h`` on the card: ``name`` has no rows entry."""
+    if isinstance(h, torch.Tensor):
+        raise not_yet_ported(f"per-path step sizes (a tensor h) in the CUDA "
+                             f"{name} kernel")
+
+
+def ws_stage_diag(delta, y, f, g, dW, h, *, a: float, b: float):
+    """Fused stage; returns ``(delta', y')`` shaped like ``delta``.  ``h`` is
+    a float or one value per path (the rows entry)."""
     if not _on_cuda("ws_stage_diag", delta):
         return _ref.ws_stage_diag_ref(delta, y, f, g, dW, h, a, b)
     delta, y, f, g, dW = cuda_operands(delta, y, f, g, dW)
@@ -142,6 +192,15 @@ def ws_stage_diag(delta, y, f, g, dW, h: float, *, a: float, b: float):
     y_out = torch.empty_like(delta)
     n = delta.numel()
     if n == 0:
+        return d_out, y_out
+    if isinstance(h, torch.Tensor):
+        h_vec, row_len = _path_steps("ws_stage_diag", h, delta)
+        with torch.cuda.device(delta.device):
+            WS_STAGE_DIAG.launch(
+                f"ws_stage_diag_rows_{_SUFFIX[delta.dtype]}", pointer(delta),
+                pointer(y), pointer(f), pointer(g), pointer(dW), pointer(h_vec),
+                pointer(d_out), pointer(y_out), n, row_len, float(a), float(b),
+                stream_handle(delta))
         return d_out, y_out
     with torch.cuda.device(delta.device):
         WS_STAGE_DIAG.launch(f"ws_stage_diag_{_SUFFIX[delta.dtype]}",
@@ -151,15 +210,25 @@ def ws_stage_diag(delta, y, f, g, dW, h: float, *, a: float, b: float):
     return d_out, y_out
 
 
-def ws_stage_diag_bwd(ct_d2, ct_y2, g, dW, h: float, *, a: float, b: float):
+def ws_stage_diag_bwd(ct_d2, ct_y2, g, dW, h, *, a: float, b: float):
     """Stage VJP; returns ``(ct_delta, ct_f, ct_g, ct_dW)`` shaped like
-    ``ct_d2`` (``g`` and ``dW`` broadcast to it are materialized)."""
+    ``ct_d2`` (``g`` and ``dW`` broadcast to it are materialized).  ``h`` is
+    a float or one value per path (the rows entry)."""
     if not _on_cuda("ws_stage_diag_bwd", ct_d2):
         return _ref.ws_stage_diag_bwd_ref(ct_d2, ct_y2, g, dW, h, a, b)
     ct_d2, ct_y2, g, dW = cuda_operands(ct_d2, ct_y2, g, dW)
     outs = [torch.empty_like(ct_d2) for _ in range(4)]
     n = ct_d2.numel()
     if n == 0:
+        return tuple(outs)
+    if isinstance(h, torch.Tensor):
+        h_vec, row_len = _path_steps("ws_stage_diag_bwd", h, ct_d2)
+        with torch.cuda.device(ct_d2.device):
+            WS_STAGE_DIAG_BWD.launch(
+                f"ws_stage_diag_bwd_rows_{_SUFFIX[ct_d2.dtype]}", pointer(ct_d2),
+                pointer(ct_y2), pointer(g), pointer(dW), pointer(h_vec),
+                *map(pointer, outs), n, row_len, float(a), float(b),
+                stream_handle(ct_d2))
         return tuple(outs)
     with torch.cuda.device(ct_d2.device):
         WS_STAGE_DIAG_BWD.launch(
@@ -173,6 +242,7 @@ def increment_diag(f, g, dW, h: float):
     """``k = f*h + g*dW`` shaped like ``f``."""
     if not _on_cuda("increment_diag", f):
         return _ref.increment_diag_ref(f, g, dW, h)
+    _scalar_h_only("increment_diag", h)
     f, g, dW = cuda_operands(f, g, dW)
     out = torch.empty_like(f)
     n = f.numel()
@@ -218,6 +288,7 @@ def increment_pre(f, w, h: float):
     """``k = f*h + w`` shaped like ``f`` (``w`` is the prediffused ``g*dW``)."""
     if not _on_cuda("increment_pre", f):
         return _ref.increment_pre_ref(f, w, h)
+    _scalar_h_only("increment_pre", h)
     if not is_current(f):
         with torch.cuda.device(f.device):
             return increment_pre(f, w, h)
@@ -235,6 +306,7 @@ def ws_stage_pre(delta, y, f, w, h: float, *, a: float, b: float):
     """Prediffused fused stage; returns ``(delta', y')`` shaped like ``delta``."""
     if not _on_cuda("ws_stage_pre", delta):
         return _ref.ws_stage_pre_ref(delta, y, f, w, h, a, b)
+    _scalar_h_only("ws_stage_pre", h)
     delta, y, f, w = cuda_operands(delta, y, f, w)
     d_out = torch.empty_like(delta)
     y_out = torch.empty_like(delta)
@@ -271,6 +343,7 @@ def increment_general(f, g, dW, h: float):
     ``g (..., d, m)`` and ``dW (..., m)``."""
     if not _on_cuda("increment_general", f):
         return _ref.increment_general_ref(f, g, dW, h)
+    _scalar_h_only("increment_general", h)
     if not is_current(f):
         with torch.cuda.device(f.device):
             return increment_general(f, g, dW, h)
@@ -292,6 +365,7 @@ def ws_stage_general(delta, y, f, g, dW, h: float, *, a: float, b: float):
     ``(..., d)`` like the state."""
     if not _on_cuda("ws_stage_general", delta):
         return _ref.ws_stage_general_ref(delta, y, f, g, dW, h, a, b)
+    _scalar_h_only("ws_stage_general", h)
     if not is_current(delta):
         with torch.cuda.device(delta.device):
             return ws_stage_general(delta, y, f, g, dW, h, a=a, b=b)

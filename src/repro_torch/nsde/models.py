@@ -53,9 +53,11 @@ def init_lsde(key, d_obs: int, d_z: int = 32, width: int = 32, *,
 def lsde_term() -> SDETerm:
     """Drift ``g(z)`` and diffusion ``softplus(f(t)) * 0.5 + 0.05``.
 
-    The diffusion depends on ``t`` only, so it is evaluated once on a
-    ``(1, ..., 1)`` time input and broadcast over the (batched) state —
-    the reference evaluates the same MLP on every path's copy of ``t``.
+    The diffusion depends on ``t`` only.  A time shared by every path (a
+    float, or a one-element tensor) is evaluated once on a ``(1, ..., 1)``
+    input and broadcast over the (batched) state; per-path times (an
+    adaptive solve's, shaped ``(*batch, 1)``) are evaluated per path — the
+    reference evaluates the same MLP on every path's own ``t``.
     """
 
     def drift(t, z, p):
@@ -63,6 +65,11 @@ def lsde_term() -> SDETerm:
 
     def diffusion(t, z, p):
         shape = (1,) * z.dim()
+        if isinstance(t, torch.Tensor) and t.numel() > 1:
+            tvec = t.to(dtype=z.dtype, device=z.device).expand(
+                tuple(z.shape[:-1]) + (1,))
+            g = p.diff(tvec)
+            return torch.logaddexp(g, torch.zeros_like(g)) * 0.5 + 0.05
         if isinstance(t, torch.Tensor):
             tvec = t.to(dtype=z.dtype, device=z.device).reshape(shape)
         else:  # a host float (t0): filled on the device, no host copy

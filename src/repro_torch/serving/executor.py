@@ -5,7 +5,8 @@ requests or queues: its unit of work is a **tick stack** — a
 ``(n_ticks, slots, 2)`` tensor of per-path keys on the device, every tick
 sharing one request signature or one padded bucket — which it runs through
 :func:`repro_torch.core.sdeint_ticks`.  ``n_dispatches`` / ``n_ticks`` count
-host round trips and the ticks they served.
+host round trips and the ticks they served.  Adaptive requests dispatch as
+one forward-only controller pass (``bounded=False``), as in the reference.
 
 There is no jit and no buffer donation: PyTorch runs eagerly, so the cached
 callable per ``(signature-or-BucketKey, n_ticks)`` only closes over the
@@ -155,15 +156,19 @@ class TickExecutor:
                         step_size=bk.h, **common)
             else:
                 solver, t0, t1, n_steps, save_every, rtol, atol, save_at = key
-                if (parse_solver_spec(solver)[1].get("adaptive", False)
-                        or rtol is not None or atol is not None
-                        or save_at is not None):
-                    raise not_yet_ported("adaptive serving requests")
+                extra = {k: v for k, v in (("rtol", rtol), ("atol", atol),
+                                           ("save_at", save_at))
+                         if v is not None}
+                if parse_solver_spec(solver)[1].get("adaptive", False):
+                    # Serving is forward-only: one controller pass, which
+                    # stops once every path reaches t1 (bitwise equal to
+                    # realize-then-solve).
+                    extra["bounded"] = False
 
                 def stack(tick_keys):
                     return sdeint_ticks(
                         self.term, solver, t0, t1, n_steps, self.y0,
-                        tick_keys, save_every=save_every, **common)
+                        tick_keys, save_every=save_every, **common, **extra)
 
             self._callables[cache_key] = stack
         return self._callables[cache_key]

@@ -32,7 +32,12 @@ libraries where a later process loads them (see
 :class:`~repro_torch.serving.async_engine.AsyncSDESampleEngine` serves a
 continuous request stream over this engine.
 
-Not ported yet (they raise): adaptive requests and mesh-sharded slots.
+Adaptive requests (an ``"ees25:adaptive"``-style spec with ``rtol`` /
+``atol`` / ``save_at``) run one forward-only controller pass per tick over
+a Virtual Brownian Tree per path; their results carry per-path
+``t_final``, ``n_accepted`` and ``n_rejected``.
+
+Not ported yet (it raises): mesh-sharded slots.
 """
 from __future__ import annotations
 
@@ -201,8 +206,6 @@ class SDESampleEngine:
             save_every=save_every, seed=seed, rtol=rtol, atol=atol,
             save_at=save_at, priority=priority, deadline_ms=deadline_ms,
         )
-        if parse_solver_spec(req.solver)[1].get("adaptive", False):
-            raise not_yet_ported("adaptive serving requests")
         rid = self.scheduler.enqueue(req)
         self._req_by_id[rid] = req
         if deadline_ms is not None:

@@ -36,7 +36,6 @@ from repro.core import sdeint as jsdeint
 from repro.core.sdeint import path_keys as jpath_keys
 from repro.nsde import init_lsde as jinit, lsde_term as jterm
 from repro_torch.core import PRNGKey, get_solver, path_keys, sdeint, sdeint_ticks, solve
-from repro_torch.device import NotYetPorted
 from repro_torch.nsde import lsde_params_from_jax, lsde_term
 
 D_Z, WIDTH, N_PATHS, N_STEPS = 4, 8, 16, 8
@@ -349,11 +348,17 @@ def test_recursive_chunk_errors(model):
         run(remat_chunk=2)
     with pytest.raises(ValueError, match="positive"):
         run(adjoint="recursive", remat_chunk=0)
-    with pytest.raises(NotYetPorted, match="save_at"):
+    # save_at dense output runs under the recursive adjoint now; its chunks
+    # must divide the grid
+    with pytest.raises(ValueError, match="segment length must be divisible by remat_chunk"):
         solve(get_solver("ees25"), lsde_term(), y,
               __import__("repro_torch.core.brownian", fromlist=["x"]).brownian_path(
                   key, 0.0, 1.0, 8, shape=(D_Z,), dtype=torch.float64),
-              tp, adjoint="recursive", save_at=torch.tensor([0.5]))
+              tp, adjoint="recursive", save_at=torch.tensor([0.5]), remat_chunk=3)
+    assert solve(get_solver("ees25"), lsde_term(), y,
+                 __import__("repro_torch.core.brownian", fromlist=["x"]).brownian_path(
+                     key, 0.0, 1.0, 8, shape=(D_Z,), dtype=torch.float64),
+                 tp, adjoint="recursive", save_at=torch.tensor([0.5])).ys.shape == (1, D_Z)
     # the rest of the run is unchanged: n_steps must divide into segments
     with pytest.raises(ValueError, match="not divisible by save_every"):
         run(adjoint="recursive", save_every=3)

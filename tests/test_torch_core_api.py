@@ -4,8 +4,7 @@ helpers against the reference's (float64, exact).
 
 Every name the reference's modules export is exported by the port, except
 those still to be ported, listed here with the queue item that brings them:
-adaptive grids on a Virtual Brownian Tree (A12) and the manifold solvers and
-models (A15).
+the manifold solvers and models (A15).
 """
 import numpy as np
 import pytest
@@ -20,8 +19,6 @@ from repro.core import tableaux as jtab
 from repro_torch.core import tableaux as ttab
 
 WAITING = {
-    "A12": {"AdaptiveResult", "RealizedGrid", "VirtualBrownianTree",
-            "integrate_adaptive", "realize_grid", "virtual_brownian_tree"},
     "A15": {"CFLowStorageSolver", "CrouchGrossman2", "Euclidean",
             "GeoEulerMaruyama", "Group", "ManifoldSDETerm", "Product", "RKMK2",
             "SO3", "SOn", "SphereAction", "Torus", "cfees25_solver",

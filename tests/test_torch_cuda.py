@@ -582,3 +582,28 @@ def test_lm_decode_matches_forward_on_the_card(cuda):
         cache = init_cache(cfg, 2, 32, device=cuda)
         steps = [serve_step(cfg, params, cache, toks[:, i], i)[0] for i in range(32)]
     torch.testing.assert_close(torch.stack(steps, dim=1), full, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d,offset", [(65536, 16, 0), (1001, 3, 0), (1001, 3, 1)])
+def test_rows_entries_equal_twins(cuda, dtype, rows, d, offset):
+    """The per-path-h entries of ws_stage_diag and ws_stage_diag_bwd, h
+    varying per row, bitwise to their twins (d = 3: float32 packs straddle
+    two paths), one launch of each."""
+    from repro_torch.kernels.sde_step.ref import ws_stage_diag_bwd_ref
+    from repro_torch.kernels.sde_step.sde_step import rows_launches
+
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    xs = [torch.randn(rows * d + offset, generator=gen, device=cuda,
+                      dtype=dtype)[offset:].reshape(rows, d) for _ in range(5)]
+    h = torch.rand(rows, 1, generator=gen, device=cuda, dtype=dtype)
+    a, b = EES25_2N.A[1], EES25_2N.B[1]
+    before = (rows_launches(WS_STAGE_DIAG), rows_launches(WS_STAGE_DIAG_BWD))
+    for g, w in zip(ws_stage_diag(*xs, h, a=a, b=b),
+                    ws_stage_diag_ref(*xs, h, a, b)):
+        assert torch.equal(g, w)
+    for g, w in zip(ws_stage_diag_bwd(*xs[:4], h, a=a, b=b),
+                    ws_stage_diag_bwd_ref(*xs[:4], h, a, b)):
+        assert torch.equal(g, w)
+    assert (rows_launches(WS_STAGE_DIAG), rows_launches(WS_STAGE_DIAG_BWD)) == \
+        (before[0] + 1, before[1] + 1)

@@ -618,3 +618,116 @@ def test_tree_axpy_chain_on_tuple_state():
     for g, w in zip(got, want):
         _near(g.numpy(), w, torch.float64)
     assert tops.tree_axpy_chain(y, [], ()) is y
+
+
+# -- per-path step sizes (adaptive solves) ------------------------------------
+
+def _rows_inputs(n_in, rows, d, dtype, seed=3):
+    xs = [torch.from_numpy(x) for x in _inputs(n_in, (rows, d), dtype, seed)]
+    h = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.01, 0.5, size=(rows, 1)).astype(NP[dtype]))
+    return xs, h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [16, 3])
+def test_per_path_twins_equal_scalar_twins_row_by_row(dtype, d):
+    """Every h-taking twin with one h per path equals, row by row, the
+    scalar twin run at that row's h (the rows entries' specification)."""
+    a, b = COEFFS[0]
+    rows = 7
+    xs, h = _rows_inputs(5, rows, d, dtype)
+    g_gen = torch.from_numpy(_inputs(1, (rows, d, 4), dtype, 9)[0])
+    w_gen = torch.from_numpy(_inputs(1, (rows, 4), dtype, 10)[0])
+    cases = [
+        (lambda hh, i=None: tref.ws_stage_diag_ref(*_sel(xs, i), hh, a, b)),
+        (lambda hh, i=None: tref.ws_stage_diag_bwd_ref(*_sel(xs[:4], i), hh, a, b)),
+        (lambda hh, i=None: (tref.increment_diag_ref(*_sel(xs[:3], i), hh),)),
+        (lambda hh, i=None: (tref.increment_pre_ref(*_sel(xs[:2], i), hh),)),
+        (lambda hh, i=None: tref.ws_stage_pre_ref(*_sel(xs[:4], i), hh, a, b)),
+        (lambda hh, i=None: (tref.increment_general_ref(
+            *_sel([xs[0], g_gen, w_gen], i), hh),)),
+        (lambda hh, i=None: tref.ws_stage_general_ref(
+            *_sel([xs[0], xs[1], xs[2], g_gen, w_gen], i), hh, a, b)),
+    ]
+    for case in cases:
+        batched = case(h)
+        for i in range(rows):
+            for got, want in zip(batched, case(float(h[i, 0]), i)):
+                assert torch.equal(got[i], want)
+
+
+def _sel(xs, i):
+    return xs if i is None else [x[i] for x in xs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_ws_stage_with_per_path_h_and_its_backward(dtype):
+    """The autograd layer takes a tensor h: forward equals the twin, and the
+    backward's cotangents are the closed form with h per row."""
+    a, b = COEFFS[1]
+    xs, h = _rows_inputs(5, 6, 3, dtype)
+    xs = [x.requires_grad_() for x in xs]
+    d2, y2 = tops.fused_ws_stage(*xs, h, a=a, b=b, noise="diagonal")
+    want = tref.ws_stage_diag_ref(*[x.detach() for x in xs], h, a, b)
+    assert torch.equal(d2.detach(), want[0]) and torch.equal(y2.detach(), want[1])
+    ct_d, ct_y = torch.ones_like(d2), torch.full_like(y2, 0.5)
+    torch.autograd.backward([d2, y2], [ct_d, ct_y])
+    common = ct_d + b * ct_y
+    assert torch.equal(xs[0].grad, a * common)
+    assert torch.equal(xs[2].grad, h * common)
+    assert torch.equal(xs[3].grad, xs[4].detach() * common)
+    k = tops.fused_increment(xs[2].detach(), xs[3].detach(), xs[4].detach(), h,
+                             noise="diagonal")
+    assert torch.equal(k, tref.increment_diag_ref(*[x.detach() for x in xs[2:]], h))
+
+
+def test_rows_entry_layout(monkeypatch):
+    """The wrappers' host side, without a card: a tensor h launches the rows
+    entry with h flattened to one value per path and the row length; the
+    scalar entry keeps its arguments; the other h-taking kernels raise."""
+    calls = []
+    monkeypatch.setattr(sde_step_module, "_on_cuda", lambda name, x: True)
+    monkeypatch.setattr(sde_step_module, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(sde_step_module, "cuda_operands", lambda *ts, **k: list(ts))
+    monkeypatch.setattr(sde_step_module.torch.cuda, "device", lambda d: _Null())
+    for kern in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD):
+        monkeypatch.setattr(kern, "launch", lambda fn, *args: calls.append((fn, args)))
+    xs = [torch.zeros(5, 3) for _ in range(5)]
+    h = torch.arange(5, dtype=torch.float32).reshape(5, 1)
+    ws_stage_diag(*xs, h, a=0.5, b=0.25)
+    ws_stage_diag_bwd(*xs[:4], h, a=0.5, b=0.25)
+    ws_stage_diag(*xs, 0.125, a=0.5, b=0.25)
+    (f1, a1), (f2, a2), (f3, a3) = calls
+    assert (f1, f2, f3) == ("ws_stage_diag_rows_f32", "ws_stage_diag_bwd_rows_f32",
+                            "ws_stage_diag_f32")
+    assert a1[8:12] == (15, 3, 0.5, 0.25) and a2[9:13] == (15, 3, 0.5, 0.25)
+    assert a3[7:11] == (15, 0.125, 0.5, 0.25)
+    for fn, args in calls:
+        assert len(WS_STAGE_DIAG.functions.get(fn) or WS_STAGE_DIAG_BWD.functions[fn]) \
+            == len(args)
+    with pytest.raises(ValueError, match="does not lead"):
+        ws_stage_diag(*xs, torch.zeros(3, 1), a=0.5, b=0.25)
+    for fn, args in [(increment_diag, xs[:3]), (increment_pre, xs[:2]),
+                     (increment_general, [xs[0], torch.zeros(5, 3, 2), torch.zeros(5, 2)])]:
+        with pytest.raises(NotImplementedError, match="per-path step sizes"):
+            fn(*args, h)
+    for fn, args in [(ws_stage_pre, xs[:4]),
+                     (ws_stage_general, xs[:3] + [torch.zeros(5, 3, 2), torch.zeros(5, 2)])]:
+        with pytest.raises(NotImplementedError, match="per-path step sizes"):
+            fn(*args, h, a=0.5, b=0.25)
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_rows_entries_are_in_the_sources():
+    for kern in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD):
+        text = kern.source.read_text()
+        for fn in kern.functions:
+            assert f'extern "C" int {fn}(' in text, fn

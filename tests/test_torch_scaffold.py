@@ -108,8 +108,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
 
 
 @pytest.mark.parametrize("what", [
-    "trainer microbatches", "adjoint=recursive", "adaptive spec", "adaptive flag",
-    "mesh", "trainer mesh", "engine adaptive", "engine mesh"])
+    "trainer microbatches", "mesh", "trainer mesh", "engine mesh"])
 def test_unported_features_raise_not_yet_ported(what):
     key = PRNGKey(0, device="cpu")
     y0 = torch.zeros(2)
@@ -117,26 +116,44 @@ def test_unported_features_raise_not_yet_ported(what):
         "trainer microbatches": lambda: _train_step(microbatches=2, device="cpu"),
         "trainer mesh": lambda: _train_step(mesh=object(), mesh_axis="dp",
                                             device="cpu"),
-        # the recursive adjoint is ported; its save_at dense output is not
-        "adjoint=recursive": lambda: solve(
-            get_solver("ees25"), _term(), y0,
-            brownian_path(key, 0.0, 1.0, 2, shape=(2,)), adjoint="recursive",
-            save_at=torch.tensor([0.5])),
-        "adaptive spec": lambda: sdeint(_term(), "ees25:adaptive", 0.0, 1.0, 2,
-                                        y0, key, device="cpu"),
-        "adaptive flag": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, key,
-                                        adaptive=True, device="cpu"),
         "mesh": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, device="cpu",
                                batch_keys=path_keys(key, 2), mesh_axis="mc",
                                mesh=object()),
-        "engine adaptive": lambda: SDESampleEngine(_term(), y0, device="cpu").submit(
-            "ees25:adaptive", t1=1.0, n_steps=2, n_paths=1),
         "engine mesh": lambda: SDESampleEngine(
             _term(), y0, SDESampleConfig(mesh=object(), mesh_axis="mc"),
             device="cpu"),
     }
     with pytest.raises(NotYetPorted, match="not yet ported"):
         run[what]()
+
+
+@pytest.mark.parametrize("what", [
+    "adjoint=recursive", "adaptive spec", "adaptive flag", "engine adaptive"])
+def test_features_ported_since_now_run(what):
+    """What these cases asserted NotYetPorted for runs now: save_at dense
+    output under the recursive adjoint, ':adaptive' specs and the adaptive
+    flag, and adaptive serving requests."""
+    key = PRNGKey(0, device="cpu")
+    y0 = torch.zeros(2)
+    run = {
+        "adjoint=recursive": lambda: solve(
+            get_solver("ees25"), _term(), y0,
+            brownian_path(key, 0.0, 1.0, 2, shape=(2,)), adjoint="recursive",
+            save_at=torch.tensor([0.5])).ys,
+        "adaptive spec": lambda: sdeint(_term(), "ees25:adaptive", 0.0, 1.0, 2,
+                                        y0, key, device="cpu").y_final,
+        "adaptive flag": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, key,
+                                        adaptive=True, device="cpu").y_final,
+        "engine adaptive": lambda: _serve_adaptive(y0),
+    }
+    out = run[what]()
+    assert out.shape[-1] == 2 and bool(torch.isfinite(torch.as_tensor(out)).all())
+
+
+def _serve_adaptive(y0):
+    eng = SDESampleEngine(_term(), y0, device="cpu")
+    rid = eng.submit("ees25:adaptive", t1=1.0, n_steps=2, n_paths=1)
+    return eng.run()[rid].y_final
 
 
 def test_engine_compile_cache_is_ported(tmp_path, monkeypatch):
@@ -152,8 +169,8 @@ def test_engine_compile_cache_is_ported(tmp_path, monkeypatch):
 
 def test_engine_rejected_submit_burns_no_id():
     eng = SDESampleEngine(_term(), torch.zeros(2), device="cpu")
-    with pytest.raises(NotYetPorted):
-        eng.submit("ees25:adaptive", t1=1.0, n_steps=2, n_paths=1)
+    with pytest.raises(ValueError, match="adaptive"):
+        eng.submit("ees25", t1=1.0, n_steps=2, n_paths=1, rtol=1e-3)
     assert eng.submit("ees25", t1=1.0, n_steps=2, n_paths=1) == 0
 
 
