@@ -14,8 +14,9 @@ training run with the reversible adjoint, the serving and training of
 additive- and general-noise SDEs, the LM substrate's prefill and decode of
 zamba2-7b at full width, and the paper's Tables 7 and 2 and its stability
 frontier, the async serving plane under faults, with warmup into a
-persistent kernel cache, and adaptive solves on Virtual Brownian Trees,
-served and differentiated — and checks what comes out:
+persistent kernel cache, adaptive solves on Virtual Brownian Trees,
+served and differentiated, and scanned training steps captured as CUDA
+graphs under the train loops — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -141,20 +142,40 @@ served and differentiated — and checks what comes out:
    adjoint's with per-step increments.  Phase 3 also
    holds the two per-path entries bitwise to their twins (h varying per
    row; d = 16, d = 3 whose float32 packs straddle paths, unaligned) and
-   times them beside the scalar entries.
+   times them beside the scalar entries;
+16. the training pipeline on the Table-1 model (d_z = 16, width 32, 256
+   paths, float32): (a) the four Table-1 specs under the reversible adjoint
+   and EES(2,5) under the full and recursive ones, 2 chunks of
+   ``make_scanned_step(step, 8)`` — each one CUDA graph, captured once and
+   replayed — bitwise equal to 16 sequential steps (parameters, optimizer
+   state, losses, skips, counters); ms a step sequential against a replay,
+   the capture's seconds, EES(2,5)'s device busy share of each; a
+   replay-only call launches nothing from Python while the replayed count
+   rises by the graph's record; an adaptive step stays eager
+   (``graphed == False``); (b) one EES(2,5) step at 65,536 paths x 8 steps,
+   8 steps graphed bitwise to 8 eager ones, and the peak memory of each;
+   (c) ``microbatches = 4`` against 1 in float64 within the reference's
+   tolerance, and the microbatched step graphed bitwise; (d)
+   ``resilient_train_loop`` with NaN losses at fixed steps (K = 4, graphed,
+   checkpoints in a temporary directory): skips, rollbacks and goodput equal
+   the CPU's and the stepwise loop's; fault-free, chunked bitwise to
+   stepwise; (e) ``train_loop`` with K = 4 bitwise to K = 1, with
+   ceil(steps / K) dispatches.
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
 m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
-runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient)
-and read just after; a
+runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient,
+phase 16) and read just after; a
 kernel of the path with no launch there fails the run.  The second-to-last
 line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
 kernel was first held to, as in earlier runs — for the per-path entries
 ``ws_stage_diag_rows`` and ``ws_stage_diag_bwd_rows``, request O and 15c's
 kernel gradient; the general-noise kernels add ``launches_by_route``, the
 Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
-``launches_phase_14``) and the last line
+``launches_phase_14``, the four kernels of phase 16 ``launches_phase_16``
+(eager launches plus each graph's captured launches times its replays) and
+``replayed_phase_16``) and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
@@ -2790,6 +2811,381 @@ def adaptive_phase(torch, timer, params, y0):
     return launches
 
 
+# Phase 16: scanned training steps as CUDA graphs, microbatches, train_loop
+# and resilient_train_loop with checkpoints, on the Table-1 model.
+SCAN_K, SCAN_CHUNKS = 8, 2      # 16a-b: graphed chunks of 8 steps
+FAULT_STEPS = (2, 3, 4, 9)      # 16d: a streak of three (a rollback at 4), then one
+RESILIENT_STEPS, RESILIENT_K = 12, 4
+LOOP_STEPS, LOOP_K = 10, 4      # 16e
+MICROBATCHES = 4                # 16c
+PHASE16_KERNELS = ("ws_stage_diag", "ws_stage_diag_bwd", "increment_diag",
+                   "axpy_chain")
+
+
+def _pair_equal(torch, a, b) -> bool:
+    """Bitwise equality of two (LSDE, optimizer state) pairs."""
+    from repro_torch.core.pytree import tree_leaves
+
+    (pa, oa), (pb, ob) = a, b
+    return (all(torch.equal(x, y) for x, y in zip(pa.parameters(), pb.parameters()))
+            and all(torch.equal(x, y)
+                    for x, y in zip(tree_leaves(oa), tree_leaves(ob))))
+
+
+def _wall_s(torch, fn) -> float:
+    """Host wall seconds of ``fn`` up to the end of its device work."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - start
+
+
+def _device_ms(timer, fn):
+    """Device kernel ms and kernel count of one profiled call of ``fn``
+    ((None, 0) when the profiler saw no device time)."""
+    totals = timer.kernels_us(fn, reps=1, flush=False, warm=False)
+    us = sum(t for t, _ in totals.values())
+    return (us / 1e3 if us > 0 else None), sum(n for _, n in totals.values())
+
+
+def _lsde_step(torch, spec, device, *, dtype=None, n_paths=256, loss=None,
+               **kw):
+    """A Table-1 LSDE step on ``device`` (weights ``init_lsde(0)``; key
+    ``PRNGKey(1)``; ``loss(p, r)`` defaults to the moment MSE against the
+    Table-1 target); returns (step, optimizer, params, state, key)."""
+    from repro_torch.benchmarks import table1_ou as t1
+    from repro_torch.core import prng
+    from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_sde_train_step
+
+    dtype = dtype or torch.float32
+    params = init_lsde(0, t1.D_OBS, t1.D_Z, t1.WIDTH, dtype=dtype, device=device)
+    if loss is None:
+        tgt = torch.as_tensor(t1.target_paths(), dtype=dtype, device=device)
+        loss = lambda p, r: moment_mse(lsde_readout(p, r.ys)[..., 0], tgt)  # noqa: E731
+    opt = adamw(1e-2)
+    step = make_sde_train_step(
+        spec, lsde_term(), opt,
+        y0_fn=lambda p: torch.zeros(t1.D_Z, dtype=dtype, device=device) + p.encoder.b,
+        loss_fn_result=loss, t0=0.0, t1=t1.T, n_paths=n_paths, device=device,
+        **kw)
+    return (step, opt, params, opt.init(list(params.parameters())),
+            prng.PRNGKey(1, device=device))
+
+
+def _launch_counts():
+    from repro_torch.kernels import KERNELS
+
+    return {k.name: (k.host_launches, k.replayed_launches) for k in KERNELS}
+
+
+def scan_graph_phase(torch, timer):
+    """16a: every Table-1 spec (and EES(2,5) under the full and recursive
+    adjoints), 2 graphed chunks of 8 against 16 sequential steps, bitwise;
+    ms a step, busy share, capture seconds; a replay's launch bookkeeping;
+    an adaptive step stays eager."""
+    from repro_torch.benchmarks import table1_ou as t1
+    from repro_torch.core import prng
+    from repro_torch.train import init_scan_counters, make_scanned_step
+
+    n_total = SCAN_K * SCAN_CHUNKS
+    cases = [(name, spec, n, "reversible") for name, spec, n in t1.solvers()]
+    _, ees_spec, ees_n, _ = next(c for c in cases if c[1].startswith("ees25"))
+    cases += [(f"EES(2,5) {adj}", ees_spec, ees_n, adj) for adj in ("full", "recursive")]
+    for name, spec, n_steps, adjoint in cases:
+        t_case = time.perf_counter()
+        kw = dict(n_steps=n_steps, save_every=n_steps // 2, adjoint=adjoint)
+        step, _, params, state, key = _lsde_step(torch, spec, "cuda", **kw)
+        losses, skipped = [], []
+
+        def sequential(steps, offset=0):
+            nonlocal params, state
+            for i in range(offset, offset + steps):
+                params, state, m = step(params, state, prng.fold_in(key, i))
+                losses.append(m["loss"])
+                skipped.append(m["skipped"])
+
+        # The first chunk's steps warm the path up; the second's are timed.
+        sequential(n_total - SCAN_K)
+        seq_s = _wall_s(torch, lambda: sequential(SCAN_K, n_total - SCAN_K))
+        step_g, _, params_g, state_g, key_g = _lsde_step(torch, spec, "cuda", **kw)
+        scanned = make_scanned_step(step_g, SCAN_K)
+        counters = init_scan_counters("cuda")
+        hists = []
+        for c in range(SCAN_CHUNKS):
+            params_g, state_g, counters, h = scanned(params_g, state_g, counters,
+                                                     key_g, c * SCAN_K)
+            hists.append(h)
+        torch.cuda.synchronize()
+        check(scanned.graphed, f"16a {name}: the scanned step did not run as a "
+              "CUDA graph")
+        n_skipped = int(torch.stack(skipped).sum())
+        same = (_pair_equal(torch, (params, state), (params_g, state_g))
+                and torch.equal(torch.stack(losses),
+                                torch.cat([h["loss"] for h in hists]))
+                and torch.equal(torch.stack(skipped),
+                                torch.cat([h["skipped"] for h in hists]))
+                and int(counters["steps"]) == n_total
+                and int(counters["skipped"]) == n_skipped)
+        counted = (int(counters["steps"]), int(counters["skipped"]))
+        # A call that only replays: the wrappers launch nothing from Python,
+        # and the replayed count rises by the captured record.
+        before = _launch_counts()
+        replay_s = _wall_s(torch, lambda: scanned(params_g, state_g, counters,
+                                                  key_g, n_total))
+        after = _launch_counts()
+        record = scanned.chunk.record.by_kernel()
+        flat = all(after[k][0] == before[k][0] for k in after)
+        rose = all(after[k][1] - before[k][1] == record.get(k, 0) for k in after)
+        seq_ms, graph_ms = seq_s / SCAN_K * 1e3, replay_s / SCAN_K * 1e3
+        busy = ""
+        if spec == ees_spec and adjoint == "reversible":
+            # Kernel time from the profiler over the host wall of the same
+            # work unprofiled: 4 sequential steps, one replay of 8.
+            seq_dev, seq_n = _device_ms(timer, lambda: sequential(4, n_total))
+            graph_dev, graph_n = _device_ms(timer, lambda: scanned(
+                params_g, state_g, counters, key_g, 2 * n_total))
+            busy = ("; device kernel ms a step (profiler), kernels a step, busy "
+                    "share: sequential " + (
+                        f"{seq_dev / 4:.3f}, {seq_n / 4:.0f}, {seq_dev / 4 / seq_ms:.1%}"
+                        if seq_dev else "not measured") + ", graphed " + (
+                        f"{graph_dev / SCAN_K:.3f}, {graph_n / SCAN_K:.0f}, "
+                        f"{graph_dev / SCAN_K / graph_ms:.1%}" if graph_dev
+                        else "not measured (no kernel of the replay profiled)"))
+        print(f"  16a {name} ({spec}, {n_steps} steps, adjoint={adjoint}): "
+              f"{SCAN_CHUNKS} graphed chunks of {SCAN_K} vs {n_total} sequential "
+              f"steps bitwise={same} (params, optimizer state, losses, skipped, "
+              f"counters {counted[0]}/{counted[1]}); "
+              f"ms a step (host wall) sequential {seq_ms:.3f} (the warm second "
+              f"{SCAN_K}), graphed {graph_ms:.3f} (a replay); capture "
+              f"{scanned.chunk.capture_seconds:.3f} s{busy}; captured launches "
+              f"{record}; a replay: host launches flat={flat}, replayed launches "
+              f"rose by the record={rose} ({time.perf_counter() - t_case:.1f} s)",
+              flush=True)
+        check(same, f"16a {name}: graphed chunks differ from sequential steps")
+        check(record and flat and rose, f"16a {name}: the replay's launch "
+              "bookkeeping is wrong")
+
+    # An adaptive step reads its loop condition on the host: not capturable,
+    # so the scanned step runs it eagerly and says so.
+    step, _, params, state, key = _lsde_step(
+        torch, "ees25:adaptive,use_kernels=True", "cuda", n_paths=16,
+        n_steps=64, rtol=1e-2, atol=1e-4, save_at=(1.0, 2.0),
+        loss=lambda p, r: torch.mean(r.ys ** 2))
+    scanned = make_scanned_step(step, 2)
+    _, _, counters, h = scanned(params, state, init_scan_counters("cuda"), key, 0)
+    ok = (not step.capturable and not scanned.graphed
+          and bool(torch.isfinite(h["loss"]).all()) and int(counters["steps"]) == 2)
+    print(f"  16a adaptive EES(2,5) step: capturable={step.capturable}, "
+          f"graphed={scanned.graphed}, losses {h['loss'].tolist()}", flush=True)
+    check(ok, "16a: the adaptive step was captured or did not run")
+
+
+def scan_memory_phase(torch):
+    """16b: one EES(2,5) step widened to 65,536 paths x 8 steps, 8 steps
+    graphed against 8 eager ones: bitwise, and peak memory."""
+    from repro_torch.core import prng
+    from repro_torch.train import init_scan_counters, make_scanned_step
+
+    kw = dict(n_paths=SERVE_SLOTS, n_steps=8, save_every=4)
+    step, _, params, state, key = _lsde_step(torch, "ees25:use_kernels=True",
+                                             "cuda", **kw)
+
+    def eager():
+        nonlocal params, state
+        for i in range(SCAN_K):
+            params, state, _ = step(params, state, prng.fold_in(key, i))
+
+    eager_mib, _ = _peak_mib(torch, eager)
+    step_g, _, params_g, state_g, key_g = _lsde_step(
+        torch, "ees25:use_kernels=True", "cuda", **kw)
+    scanned = make_scanned_step(step_g, SCAN_K)
+    counters = init_scan_counters("cuda")
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    first_mib, out = _peak_mib(torch, lambda: scanned(params_g, state_g, counters,
+                                                      key_g, 0))
+    torch.cuda.empty_cache()  # what stays reserved is the graph's pool
+    held_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    same = _pair_equal(torch, (params, state), (out[0], out[1]))
+    replay_mib, _ = _peak_mib(torch, lambda: scanned(out[0], out[1], out[2],
+                                                     key_g, SCAN_K))
+    print(f"  16b EES(2,5), {SERVE_SLOTS} paths x 8 steps: {SCAN_K} steps graphed "
+          f"bitwise to {SCAN_K} eager steps={same}; peak device memory above "
+          f"the inputs: eager {eager_mib:.1f} MiB (phase 8's one step: 337.0 MiB "
+          f"in earlier runs), graphed {first_mib:.1f} MiB at capture and first "
+          f"replay, {replay_mib:.1f} MiB a replay; the graph's pool holds "
+          f"{held_mib:.1f} MiB of reserved memory after capture", flush=True)
+    check(same, "16b: the graphed steps at 65,536 paths differ from eager steps")
+
+
+def microbatch_phase(torch):
+    """16c: microbatches = 4 against 1 at 256 paths in float64 (a
+    path-decomposable loss), within the reference's own tolerance; the
+    microbatched step graphed, bitwise to its sequential steps."""
+    from repro_torch.core import prng
+    from repro_torch.train import init_scan_counters, make_scanned_step
+
+    def make(mb):
+        return _lsde_step(torch, "ees25:use_kernels=True", "cuda",
+                          dtype=torch.float64, n_steps=8, save_every=4,
+                          microbatches=mb, loss=lambda p, r: torch.mean(r.y_final ** 2))
+
+    runs = {}
+    for mb in (1, MICROBATCHES):
+        step, _, params, state, key = make(mb)
+        params, state, m = step(params, state, key)
+        runs[mb] = (float(m["loss"]), [p.detach().clone() for p in params.parameters()])
+    (l1, p1), (l4, p4) = runs[1], runs[MICROBATCHES]
+    loss_rel = abs(l4 - l1) / abs(l1)
+    par_ok = all(torch.allclose(a, b, rtol=1e-9, atol=1e-12) for a, b in zip(p4, p1))
+    par_rel = max(((a - b).abs() / b.abs().clamp_min(1e-300)).max().item()
+                  for a, b in zip(p4, p1))
+    step, _, params, state, key = make(MICROBATCHES)
+    seq = []
+    for i in range(2):
+        params, state, m = step(params, state, prng.fold_in(key, i))
+        seq.append(m["loss"])
+    step_g, _, params_g, state_g, key_g = make(MICROBATCHES)
+    scanned = make_scanned_step(step_g, 2)
+    params_g, state_g, _, h = scanned(params_g, state_g, init_scan_counters("cuda"),
+                                      key_g, 0)
+    same = (scanned.graphed and _pair_equal(torch, (params, state), (params_g, state_g))
+            and torch.equal(torch.stack(seq), h["loss"]))
+    print(f"  16c microbatches={MICROBATCHES} vs 1, float64, 256 paths: loss "
+          f"{l4:.17g} vs {l1:.17g} (rel {loss_rel:.2e}, tolerance 1e-12), updated "
+          f"params max rel {par_rel:.2e} (rtol 1e-9, atol 1e-12: {par_ok}); the "
+          f"microbatched step graphed (K=2) bitwise to sequential={same}", flush=True)
+    check(loss_rel <= 1e-12 and par_ok, "16c: microbatches differ from the full batch")
+    check(same, "16c: the graphed microbatched step differs from sequential steps")
+
+
+def _gated_step(torch, device, faults):
+    """A four-argument Table-1 EES(2,5) step whose loss is NaN at the global
+    steps in ``faults`` (a gate set on the device from the step index)."""
+    from repro_torch.benchmarks import table1_ou as t1
+    from repro_torch.nsde import lsde_readout, moment_mse
+
+    tgt = torch.as_tensor(t1.target_paths(), dtype=torch.float32, device=device)
+    gate = torch.ones((), device=device)
+    fault_t = torch.tensor(faults, dtype=torch.int64, device=device)
+    base, opt, params, state, key = _lsde_step(
+        torch, "ees25:use_kernels=True", device, n_steps=8, save_every=4,
+        loss=lambda p, r: moment_mse(lsde_readout(p, r.ys)[..., 0], tgt) * gate)
+
+    def faulty(p, o, k, s):
+        gate.copy_(torch.where(torch.isin(s, fault_t), float("nan"), 1.0))
+        return base(p, o, k)
+
+    faulty.capturable = base.capturable
+    return faulty, params, state, key
+
+
+def resilient_phase(torch):
+    """16d: resilient_train_loop with NaN losses at fixed steps, chunked
+    (K = 4, graphed) against the same run on the CPU and stepwise; the
+    fault-free chunked run against the stepwise run, bitwise."""
+    import tempfile
+
+    from repro_torch.train import ResilienceConfig, resilient_train_loop
+
+    def run(device, faults, k):
+        step, params, state, key = _gated_step(torch, device, faults)
+        with tempfile.TemporaryDirectory() as d:
+            return resilient_train_loop(
+                step, params, state, key,
+                res=ResilienceConfig(steps=RESILIENT_STEPS, ckpt_every=2, ckpt_dir=d,
+                                     skip_patience=3, steps_per_call=k))
+
+    card = run("cuda", FAULT_STEPS, RESILIENT_K)
+    cpu = run("cpu", FAULT_STEPS, RESILIENT_K)
+    stepwise = run("cuda", FAULT_STEPS, 1)
+    summary = lambda r: (r["skipped"], r["rollbacks"], r["goodput"])  # noqa: E731
+    print(f"  16d faults at steps {FAULT_STEPS}, {RESILIENT_STEPS} steps, K="
+          f"{RESILIENT_K}: card skipped {card['skipped']}, rollbacks "
+          f"{card['rollbacks']}, goodput {card['goodput']}; the CPU's "
+          f"{summary(cpu)[1:]}, equal={summary(card) == summary(cpu)}; stepwise on "
+          f"the card equal={summary(card) == summary(stepwise)}", flush=True)
+    check(summary(card) == summary(cpu) and card["rollbacks"] >= 1,
+          "16d: the card's rollbacks differ from the CPU's")
+    check(summary(card) == summary(stepwise),
+          "16d: the chunked loop's skips differ from the stepwise loop's")
+    clean_k = run("cuda", (-1,), RESILIENT_K)
+    clean_1 = run("cuda", (-1,), 1)
+    same = (_pair_equal(torch, (clean_k["params"], clean_k["opt_state"]),
+                        (clean_1["params"], clean_1["opt_state"]))
+            and clean_k["losses"] == clean_1["losses"]
+            and clean_k["skipped"] == clean_1["skipped"]
+            and clean_k["goodput"] == clean_1["goodput"] == 1.0)
+    print(f"  16d fault-free: chunked (K={RESILIENT_K}) bitwise to stepwise={same}",
+          flush=True)
+    check(same, "16d: the fault-free chunked loop differs from the stepwise loop")
+
+
+class _StepIndex:
+    """A step-pure data source whose batch is the step's own index."""
+
+    def batch_at(self, step):
+        return np.array([step], dtype=np.int64)
+
+
+def train_loop_phase(torch):
+    """16e: train_loop chunked (graphed) against stepwise, bitwise, and its
+    dispatch count."""
+    from repro_torch.core import prng
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    outs = {}
+    for k in (1, LOOP_K):
+        base, opt, params, _, key = _lsde_step(torch, "ees25:use_kernels=True",
+                                               "cuda", n_steps=8, save_every=4)
+
+        def step_fn(p, o, batch):
+            return base(p, o, prng.fold_in(key, batch[0]))
+
+        step_fn.capturable = base.capturable
+        outs[k] = train_loop(None, params, _StepIndex(), optimizer=opt,
+                             step_fn=step_fn,
+                             loop=TrainLoopConfig(steps=LOOP_STEPS, log_every=1,
+                                                  steps_per_call=k))
+    a, b = outs[1], outs[LOOP_K]
+    same = (_pair_equal(torch, (a["params"], a["opt_state"]),
+                        (b["params"], b["opt_state"]))
+            and a["losses"] == b["losses"])
+    want = -(-LOOP_STEPS // LOOP_K)
+    print(f"  16e train_loop, {LOOP_STEPS} steps: K={LOOP_K} bitwise to K=1="
+          f"{same}; n_dispatches {b['n_dispatches']} (ceil(steps / K) = {want}) vs "
+          f"{a['n_dispatches']}", flush=True)
+    check(same, "16e: the chunked train_loop differs from the stepwise one")
+    check(b["n_dispatches"] == want and a["n_dispatches"] == LOOP_STEPS,
+          "16e: train_loop's dispatch count is wrong")
+
+
+def training_pipeline_phase(torch, timer):
+    """Phase 16 (a-e); returns the launches of its paths by kernel, device
+    launches (eager plus replayed) and the replayed part."""
+    from repro_torch.kernels import KERNELS
+
+    for kern in KERNELS:
+        kern.launches = kern.host_launches = kern.replayed_launches = 0
+    for label, fn in (("16a", lambda: scan_graph_phase(torch, timer)),
+                      ("16b", lambda: scan_memory_phase(torch)),
+                      ("16c", lambda: microbatch_phase(torch)),
+                      ("16d", lambda: resilient_phase(torch)),
+                      ("16e", lambda: train_loop_phase(torch))):
+        start = time.perf_counter()
+        fn()
+        print(f"  ({label}: {time.perf_counter() - start:.1f} s)", flush=True)
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    replayed = {k.name: k.replayed_launches for k in KERNELS if k.replayed_launches}
+    for name in PHASE16_KERNELS:
+        check(replayed.get(name, 0) > 0,
+              f"{name} was not launched by a graph replay on phase 16's paths")
+    return launches, replayed
+
+
 def main() -> int:
     try:
         import torch
@@ -2917,6 +3313,11 @@ def main() -> int:
     print(f"  launched on phase 15's paths: {adaptive_launches}", flush=True)
     launches.update({name: adaptive_launches[name] for name in
                      ("ws_stage_diag_rows", "ws_stage_diag_bwd_rows")})
+
+    phase("phase 16: scanned training steps, loops and checkpoints (CUDA graphs)")
+    pipeline_launches, pipeline_replayed = training_pipeline_phase(torch, timer)
+    print(f"  launched on phase 16's paths (eager + replayed): {pipeline_launches}; "
+          f"by graph replays: {pipeline_replayed}", flush=True)
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -2948,7 +3349,10 @@ def main() -> int:
          **({"launches_phase_13": table_launches[name]}
             if name in table_launches else {}),
          **({"launches_phase_14": async_launches}
-            if name == "ws_stage_diag" else {})}
+            if name == "ws_stage_diag" else {}),
+         **({"launches_phase_16": pipeline_launches.get(name, 0),
+             "replayed_phase_16": pipeline_replayed.get(name, 0)}
+            if name in PHASE16_KERNELS else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

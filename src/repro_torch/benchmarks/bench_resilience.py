@@ -1,7 +1,6 @@
 """Resilience benchmark: the guard's overhead and goodput under faults.
 
-Port of ``benchmarks/bench_resilience.py``, sections 1 and 2 (its trainer
-section waits for the port's ``resilient_train_loop``):
+Port of ``benchmarks/bench_resilience.py``, its three sections:
 
 * **guard_overhead** — the blow-up guard is on by default in every serving
   drain, so its cost on *clean* traffic is the tax every request pays.  The
@@ -17,12 +16,18 @@ section waits for the port's ``resilient_train_loop``):
   passes each, alternating), p50/p99 latency of each (host wall clock from
   submit to a result on the device, over the 3 passes' requests) and the
   engine's retry and divergence counters.
+* **trainer** — :func:`repro_torch.train.resilient_train_loop` on the OU
+  term (float32, 8 paths, 32 steps) under a deterministic fault schedule:
+  a 3-step NaN streak every 7 steps, long enough to trip the default
+  ``skip_patience = 3`` rollback each cycle.  Records skips, rollbacks,
+  goodput (productive / total steps), the final loss and the seconds.
 
 The sizes are the reference's (8 slots, 8 requests, 1024 steps; 4096 steps
-for the overhead drains; dimension 16, NaN rate 0.3, seed 0).  ``--check``
-applies the reference's gates that these sections carry: every field
-finite, clean goodput at least the faulty one, injected NaNs and retries
-seen, overhead below 5%.
+for the overhead drains; dimension 16, NaN rate 0.3, seed 0; 21 training
+steps).  ``--check`` applies the reference's gates: every field finite,
+clean goodput at least the faulty one, injected NaNs and retries seen,
+overhead below 5%, every blown batch skipped, at least one rollback and a
+training goodput strictly between 0 and 1.
 
 Run on the card: ``python -m repro_torch.benchmarks.bench_resilience
 [--reps N] [--out PATH] [--check]``; ``--device cpu`` off the GPU.  It
@@ -43,7 +48,7 @@ from ..serving import (AsyncSDESampleEngine, FaultConfig, SDESampleConfig,
 from .bench_serving import ou_term, term_args
 from .common import check_out, device_record, emit, percentile, write_out
 
-__all__ = ["run_guard_overhead", "run_serving", "run", "check"]
+__all__ = ["run_guard_overhead", "run_serving", "run_trainer", "run", "check"]
 
 SLOTS = 8
 N_REQUESTS = 8
@@ -57,6 +62,7 @@ NAN_RATE = 0.3
 SEED = 0
 REPS = 5
 PASSES = 3
+TRAIN_STEPS = 21
 
 
 # ---------------------------------------------------------------- section 1
@@ -214,11 +220,68 @@ def run_serving(*, device=None, slots: int = SLOTS, requests: int = N_REQUESTS,
     return section
 
 
+# ---------------------------------------------------------------- section 3
+
+def run_trainer(*, device=None, train_steps: int = TRAIN_STEPS,
+                dim: int = DIM) -> dict:
+    import tempfile
+
+    from ..core import prng
+    from ..optim import adamw, cosine_schedule
+    from ..train import ResilienceConfig, make_sde_train_step, resilient_train_loop
+    from .bench_training import OUParams
+
+    device = resolve_device(device)
+    params = OUParams(device)
+    optimizer = adamw(cosine_schedule(1e-3, 5, train_steps))
+    opt_state = optimizer.init(list(params.parameters()))
+
+    def loss(p, r):
+        return torch.mean(r.y_final ** 2)
+
+    common = dict(t0=0.0, t1=1.0, n_steps=32, n_paths=8, device=device)
+    y0_fn = lambda p: torch.zeros(dim, device=device)  # noqa: E731
+    clean_step = make_sde_train_step(SOLVER, ou_term(), optimizer, y0_fn, loss,
+                                     **common)
+    blown_step = make_sde_train_step(SOLVER, ou_term(), optimizer, y0_fn,
+                                     lambda p, r: loss(p, r) * float("nan"),
+                                     **common)
+    # Deterministic fault schedule: a 3-step NaN streak every 7 steps.
+    fault_steps = {s for s in range(train_steps) if s % 7 in (3, 4, 5)}
+    counter = {"step": 0}
+
+    def step_fn(p, s, key):
+        step = counter["step"]
+        counter["step"] += 1
+        return (blown_step if step in fault_steps else clean_step)(p, s, key)
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        out = resilient_train_loop(
+            step_fn, params, opt_state, prng.PRNGKey(0, device=device),
+            res=ResilienceConfig(steps=train_steps, ckpt_every=2,
+                                 ckpt_dir=ckpt_dir))
+        secs = time.perf_counter() - t0
+    section = {
+        "steps": train_steps,
+        "fault_steps": sorted(fault_steps),
+        "skips": int(sum(out["skipped"])),
+        "rollbacks": out["rollbacks"],
+        "goodput": out["goodput"],
+        "final_loss": out["losses"][-1],
+        "seconds": secs,
+    }
+    emit(f"bench_resilience/trainer/T{train_steps}", secs * 1e6 / train_steps,
+         f"skips={section['skips']} rollbacks={section['rollbacks']} "
+         f"goodput={section['goodput']:.2f}")
+    return section
+
+
 # ------------------------------------------------------------------ run all
 
 def run(*, device=None, slots: int = SLOTS, requests: int = N_REQUESTS,
         n_steps: int = N_STEPS, dim: int = DIM, nan_rate: float = NAN_RATE,
-        seed: int = SEED, reps: int = REPS,
+        seed: int = SEED, reps: int = REPS, train_steps: int = TRAIN_STEPS,
         guard_n_steps: int = GUARD_N_STEPS) -> dict:
     device = resolve_device(device)
     return {
@@ -229,6 +292,7 @@ def run(*, device=None, slots: int = SLOTS, requests: int = N_REQUESTS,
         "serving": run_serving(device=device, slots=slots, requests=requests,
                                n_steps=n_steps, dim=dim, nan_rate=nan_rate,
                                seed=seed),
+        "trainer": run_trainer(device=device, train_steps=train_steps, dim=dim),
     }
 
 
@@ -251,6 +315,10 @@ def check(data: dict) -> None:
         f"{s['goodput_clean']:.2f}: timing is broken")
     assert s["n_injected_nans"] > 0, "fault schedule injected nothing"
     assert s["retries"] > 0, "injected NaNs produced no retries"
+    t = data["trainer"]
+    assert t["skips"] == len(t["fault_steps"]), "guard missed a blown batch"
+    assert t["rollbacks"] >= 1, "skip streak never tripped a rollback"
+    assert 0 < t["goodput"] < 1, f"trainer goodput {t['goodput']} out of range"
 
 
 def main(argv=None) -> None:
@@ -265,13 +333,15 @@ def main(argv=None) -> None:
     ap.add_argument("--nan-rate", type=float, default=NAN_RATE)
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--reps", type=int, default=REPS)
+    ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS)
     ap.add_argument("--check", action="store_true",
                     help="apply the reference's gates to the fresh results")
     a = ap.parse_args(argv)
     check_out(a.out)
     data = run(device=a.device, slots=a.slots, requests=a.requests,
                n_steps=a.n_steps, dim=a.dim, nan_rate=a.nan_rate, seed=a.seed,
-               reps=a.reps, guard_n_steps=a.guard_n_steps)
+               reps=a.reps, train_steps=a.train_steps,
+               guard_n_steps=a.guard_n_steps)
     write_out(a.out, data)
     if a.check:
         check(data)

@@ -250,7 +250,7 @@ def sdeint(
             raise ValueError("pass key= for a single trajectory or batch_keys= for a batch")
         return one(key.to(device))
     if mesh_axis is not None or mesh is not None:
-        raise not_yet_ported("mesh fan-out (mesh/mesh_axis)")
+        raise not_yet_ported("mesh fan-out (mesh/mesh_axis; ROADMAP A14b)")
     return one(batch_keys.to(device))
 
 
@@ -301,7 +301,7 @@ def sdeint_ticks(
             "sdeint(..., batch_keys=keys)"
         )
     if mesh_axis is not None or mesh is not None:
-        raise not_yet_ported("mesh fan-out (mesh/mesh_axis)")
+        raise not_yet_ported("mesh fan-out (mesh/mesh_axis; ROADMAP A14b)")
     device = resolve_device(device)
     tick_keys = tick_keys.to(device)
     n_ticks = tick_keys.shape[0]

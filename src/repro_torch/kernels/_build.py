@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,8 +30,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "build_all", "cuda_operands", "is_current", "pointer",
-           "stream_handle", "set_library_dir", "CSRC_DIR", "BUILD_DIR"]
+__all__ = ["CudaKernel", "GraphLaunches", "build_all", "cuda_operands", "is_current",
+           "pointer", "stream_handle", "set_library_dir", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
@@ -44,6 +45,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # wrappers around them; absent from CPU builds of torch.
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 _CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+# The record of the CUDA graph being captured (one capture at a time).
+_capture_record = None
+_capture_lock = threading.Lock()
 
 
 def set_library_dir(path) -> None:
@@ -76,12 +80,16 @@ class CudaKernel:
 
     ``functions`` maps each exported C function to its ctypes ``argtypes``
     (every exported function returns a ``cudaError_t`` as int).  ``launches``
-    is incremented by the Python wrapper each time it launches the kernel,
-    and nowhere else; callers reset it to count the launches of one run.
-    ``entry_launches`` counts the same launches by exported function (a
-    kernel's specialisations, its routes); callers read it by difference.
-    ``nvcc_runs`` counts the builds this process ran (0 when the library
-    was found built).
+    counts the kernel's launches on the device: the Python wrapper adds one
+    each time it launches the kernel on a stream that is not being captured,
+    and a :class:`GraphLaunches` record adds its captured launches each time
+    its CUDA graph is replayed (``replayed_launches`` counts those alone).
+    ``host_launches`` counts the wrapper's calls of the C launcher, captured
+    ones included: it stays flat while a graph replays.  Callers reset the
+    counts to count the launches of one run.  ``entry_launches`` counts the
+    device launches by exported function (a kernel's specialisations, its
+    routes); callers read it by difference.  ``nvcc_runs`` counts the builds
+    this process ran (0 when the library was found built).
     """
 
     def __init__(self, name: str, source: str,
@@ -90,6 +98,8 @@ class CudaKernel:
         self.source = CSRC_DIR / source
         self.functions = dict(functions)
         self.launches = 0
+        self.host_launches = 0
+        self.replayed_launches = 0
         self.entry_launches = collections.Counter()
         self.build_log = ""
         self.nvcc_runs = 0
@@ -141,7 +151,9 @@ class CudaKernel:
             return self._lib
 
     def launch(self, fn: str, *args) -> None:
-        """Call the C launcher ``fn``, raise on a CUDA error, count the launch."""
+        """Call the C launcher ``fn``, raise on a CUDA error, count the launch
+        (into the record of the graph being captured, if the current stream
+        is capturing one)."""
         func = self._bound.get(fn)
         if func is None:
             func = self._bound.setdefault(fn, getattr(self.lib(), fn))
@@ -150,8 +162,54 @@ class CudaKernel:
             msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
                                f"(cudaError {code})")
+        self.host_launches += 1
+        record = _capture_record
+        if record is not None and torch.cuda.is_current_stream_capturing():
+            record.counts[(self, fn)] += 1
+            return
         self.launches += 1
         self.entry_launches[fn] += 1
+
+
+class GraphLaunches:
+    """The kernel launches one CUDA graph captured, by kernel and entry.
+
+    A launch made while the graph is captured runs nothing, so the wrapper
+    counts it here (``counts[(kernel, entry)]``) and not in the kernel's
+    ``launches``; :meth:`replay` adds the record to ``launches``,
+    ``replayed_launches`` and ``entry_launches`` each time the graph runs.
+    Launches from any thread whose current stream is capturing count
+    (autograd runs the backward pass in its own thread)."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Record the launches made on capturing streams while inside."""
+        global _capture_record
+        with _capture_lock:
+            if _capture_record is not None:
+                raise RuntimeError("another CUDA graph is being captured")
+            _capture_record = self
+        try:
+            yield self
+        finally:
+            _capture_record = None
+
+    def by_kernel(self) -> Dict[str, int]:
+        """Captured launches by kernel name."""
+        out = collections.Counter()
+        for (kernel, _), n in self.counts.items():
+            out[kernel.name] += n
+        return dict(out)
+
+    def replay(self) -> None:
+        """Count one replay of the graph."""
+        for (kernel, fn), n in self.counts.items():
+            kernel.launches += n
+            kernel.replayed_launches += n
+            kernel.entry_launches[fn] += n
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

@@ -118,7 +118,7 @@ class TickExecutor:
                 f"mesh_axis={mesh_axis!r}"
             )
         if mesh is not None:
-            raise not_yet_ported("sharded dispatch (mesh/mesh_axis)")
+            raise not_yet_ported("sharded dispatch (mesh/mesh_axis; ROADMAP A14b)")
         self.term = term
         self.y0 = y0
         self.args = args

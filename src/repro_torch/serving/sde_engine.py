@@ -125,7 +125,7 @@ class SDESampleEngine:
                 "both in SDESampleConfig (e.g. make_sample_mesh() + 'mc')"
             )
         if cfg.mesh is not None:
-            raise not_yet_ported("mesh-sharded serving slots")
+            raise not_yet_ported("mesh-sharded serving slots (ROADMAP A14b)")
         self.device = resolve_device(device)
         self.term = term
         self.y0 = y0

@@ -1,10 +1,14 @@
-"""The public names of ``repro_torch.core``, ``repro_torch.serving`` and
-``repro_torch.nsde`` against the reference's, and the port's tableaux
-helpers against the reference's (float64, exact).
+"""The public names of ``repro_torch.core``, ``repro_torch.serving``,
+``repro_torch.nsde``, ``repro_torch.train`` and ``repro_torch.data``
+against the reference's, and the port's tableaux helpers against the
+reference's (float64, exact).
 
 Every name the reference's modules export is exported by the port, except
 those still to be ported, listed here with the queue item that brings them:
-the manifold solvers and models (A15).
+the manifold solvers and models (A15) and the LM's accumulating train step
+(A16).  ``repro_torch.train`` re-exports the names of the reference's
+``train/trainer.py``, ``checkpoint.py`` and ``fault_tolerance.py`` (the
+reference has no ``train/__init__.py``).
 """
 import numpy as np
 import pytest
@@ -12,10 +16,20 @@ import pytest
 import repro.core as jcore
 import repro.nsde as jnsde
 import repro.serving as jserving
+import repro_torch.data as tdata
+import repro_torch.train as ttrain
 import repro_torch.core as tcore
 import repro_torch.nsde as tnsde
 import repro_torch.serving as tserving
 from repro.core import tableaux as jtab
+from repro.data import pipeline as jpipeline
+from repro.train import checkpoint as jcheckpoint
+from repro.train import fault_tolerance as jfault_tolerance
+from repro.train import trainer as jtrainer
+from repro_torch.data import pipeline as tpipeline
+from repro_torch.train import checkpoint as tcheckpoint
+from repro_torch.train import fault_tolerance as tfault_tolerance
+from repro_torch.train import trainer as ttrainer
 from repro_torch.core import tableaux as ttab
 
 WAITING = {
@@ -30,7 +44,18 @@ MODULE_WAITING = {
     "nsde": (jnsde, tnsde, {"A15": {"init_kuramoto_nsde", "kuramoto_nsde_term",
                                     "init_sphere_nsde", "sphere_nsde_term",
                                     "wrapped_energy_score"}}),
+    "train.trainer": (jtrainer, ttrainer, {"A16": {"make_accum_train_step"}}),
+    "train (package) / trainer": (jtrainer, ttrain, {"A16": {"make_accum_train_step"}}),
+    "train.checkpoint": (jcheckpoint, tcheckpoint, {}),
+    "train (package) / checkpoint": (jcheckpoint, ttrain, {}),
+    "train.fault_tolerance": (jfault_tolerance, tfault_tolerance, {}),
+    "train (package) / fault_tolerance": (jfault_tolerance, ttrain, {}),
+    "data.pipeline": (jpipeline, tpipeline, {}),
+    "data (package)": (jpipeline, tdata, {}),
 }
+# The names ROADMAP A14 brought to train, held here by name as well.
+A14_NAMES = ("make_scanned_step", "init_scan_counters", "train_loop",
+             "TrainLoopConfig", "resilient_train_loop", "ResilienceConfig")
 TABLEAUX = ["euler", "heun", "midpoint", "rk3", "rk4", "ees25", "ees27_tableau"]
 
 
@@ -60,6 +85,12 @@ def test_module_exports_every_name_of_the_reference(module):
     assert not waiting & set(port.__all__)
     for name in set(ref.__all__) - waiting:
         assert hasattr(port, name), name
+
+
+@pytest.mark.parametrize("name", A14_NAMES)
+def test_train_exports_the_training_pipeline(name):
+    assert name in ttrain.__all__ and name in jtrainer.__all__
+    assert getattr(ttrain, name) is getattr(ttrainer, name)
 
 
 def test_tableaux_import_from_core():

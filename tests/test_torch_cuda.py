@@ -607,3 +607,58 @@ def test_rows_entries_equal_twins(cuda, dtype, rows, d, offset):
         assert torch.equal(g, w)
     assert (rows_launches(WS_STAGE_DIAG), rows_launches(WS_STAGE_DIAG_BWD)) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("spec,adjoint,donate", [
+    ("ees25:use_kernels=True", "reversible", True),
+    ("mcf-midpoint:use_kernels=True", "reversible", True),
+    ("ees25:use_kernels=True", "full", True),
+    ("ees25:use_kernels=True", "reversible", False)])
+def test_scanned_step_graph_equals_sequential_steps(cuda, spec, adjoint, donate):
+    """K = 4 steps captured into one CUDA graph and replayed twice equal 8
+    sequential steps bitwise; the replays launch nothing from Python and
+    count their captured launches.  The optimizer state returned is the
+    graph's static buffer (donated), or a copy with ``donate=False``."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.train import init_scan_counters, make_scanned_step
+
+    def make():
+        params = init_lsde(0, 1, 4, 8, device=cuda)
+        tgt = torch.linspace(-1.0, 1.0, 64, device=cuda).reshape(32, 2)
+        opt = adamw(1e-2)
+        step = make_sde_train_step(
+            spec, lsde_term(), opt, y0_fn=lambda p: torch.zeros(4, device=cuda) + p.encoder.b,
+            loss_fn_result=lambda p, r: moment_mse(lsde_readout(p, r.ys)[..., 0], tgt),
+            t0=0.0, t1=2.0, n_steps=4, n_paths=32, save_every=2, adjoint=adjoint,
+            device=cuda)
+        return step, params, opt.init(list(params.parameters()))
+
+    key = PRNGKey(3, device=cuda)
+    step, params, state = make()
+    losses = []
+    for i in range(8):
+        params, state, m = step(params, state, prng.fold_in(key, i))
+        losses.append(m["loss"])
+    step_g, params_g, state_g = make()
+    scanned = make_scanned_step(step_g, 4, donate=donate)
+    counters = init_scan_counters(cuda)
+    params_g, state_g, counters, h1 = scanned(params_g, state_g, counters, key, 0)
+    host = {k.name: k.host_launches for k in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
+                                             AXPY_CHAIN)}
+    device = {k.name: k.launches for k in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
+                                          AXPY_CHAIN)}
+    params_g, state_g, counters, h2 = scanned(params_g, state_g, counters, key, 4)
+    torch.cuda.synchronize()
+    assert scanned.graphed
+    assert torch.equal(torch.stack(losses), torch.cat([h1["loss"], h2["loss"]]))
+    for a, b in zip(list(params.parameters()) + tree_leaves(state),
+                    list(params_g.parameters()) + tree_leaves(state_g)):
+        assert torch.equal(a, b)
+    assert int(counters["steps"]) == 8 and int(counters["skipped"]) == 0
+    record = scanned.chunk.record.by_kernel()
+    assert record
+    static_step = scanned.chunk.state[1].step
+    assert (state_g.step.data_ptr() == static_step.data_ptr()) == donate
+    for k in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, INCREMENT_DIAG, AXPY_CHAIN):
+        assert k.host_launches == host[k.name]
+        assert k.launches == device[k.name] + record.get(k.name, 0)

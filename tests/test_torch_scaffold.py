@@ -32,7 +32,8 @@ def _port_files():
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.nsde, repro_torch.serving, repro_torch.train, "
-            "repro_torch.optim, repro_torch.benchmarks.table1_ou, "
+            "repro_torch.optim, repro_torch.data, repro_torch.benchmarks.table1_ou, "
+            "repro_torch.benchmarks.bench_training, "
             "repro_torch.benchmarks.table2_vol, repro_torch.benchmarks.table7_gbm, "
             "repro_torch.benchmarks.bench_stability, "
             "repro_torch.benchmarks.step_memory; "
@@ -107,13 +108,12 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     calls[entry](device="cpu")
 
 
-@pytest.mark.parametrize("what", [
-    "trainer microbatches", "mesh", "trainer mesh", "engine mesh"])
+@pytest.mark.parametrize("what", ["mesh", "trainer mesh", "engine mesh"])
 def test_unported_features_raise_not_yet_ported(what):
+    """Mesh data parallelism waits for ROADMAP A14b, and says so."""
     key = PRNGKey(0, device="cpu")
     y0 = torch.zeros(2)
     run = {
-        "trainer microbatches": lambda: _train_step(microbatches=2, device="cpu"),
         "trainer mesh": lambda: _train_step(mesh=object(), mesh_axis="dp",
                                             device="cpu"),
         "mesh": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, device="cpu",
@@ -123,8 +123,9 @@ def test_unported_features_raise_not_yet_ported(what):
             _term(), y0, SDESampleConfig(mesh=object(), mesh_axis="mc"),
             device="cpu"),
     }
-    with pytest.raises(NotYetPorted, match="not yet ported"):
+    with pytest.raises(NotYetPorted, match="not yet ported") as err:
         run[what]()
+    assert "A14b" in str(err.value)
 
 
 @pytest.mark.parametrize("what", [
