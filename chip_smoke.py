@@ -15,8 +15,10 @@ additive- and general-noise SDEs, the LM substrate's prefill and decode of
 zamba2-7b at full width, and the paper's Tables 7 and 2 and its stability
 frontier, the async serving plane under faults, with warmup into a
 persistent kernel cache, adaptive solves on Virtual Brownian Trees,
-served and differentiated, and scanned training steps captured as CUDA
-graphs under the train loops — and checks what comes out:
+served and differentiated, scanned training steps captured as CUDA
+graphs under the train loops, and the paper's manifold experiments
+(Tables 3 and 4, served manifold requests, Fig 8's SO(3) rates) — and
+checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -160,13 +162,34 @@ graphs under the train loops — and checks what comes out:
    checkpoints in a temporary directory): skips, rollbacks and goodput equal
    the CPU's and the stepwise loop's; fault-free, chunked bitwise to
    stepwise; (e) ``train_loop`` with K = 4 bitwise to K = 1, with
-   ceil(steps / K) dispatches.
+   ceil(steps / K) dispatches;
+17. the manifold experiments, float32 (``repro_torch.benchmarks.
+   table3_kuramoto``, ``table4_sphere``, ``fig_convergence``), through no
+   kernel (none lies on the manifold path; the phase checks that none
+   launches): (a) Table 3 at its sizes — the 15 epochs of each case on
+   the card (energy scores, ms a step), their first 2 against the CPU's
+   from the same key (losses within 1e-4), CF-EES(2,5) reversible gradients within 1e-4 of the full
+   adjoint's, and Fig 5b's peak memory at 32 / 128 / 512 steps with
+   per-step increments (gated: the reversible growth below a tenth of the
+   full one's, full at least 8x, recursive below full) and at 32 / 512
+   with bulk ones (printed); (b) Table 4 likewise (25 epochs, accuracies, Fig 6: reversible
+   against full); (c) requests Q (``cfees25``) and R (``cfees27``), 131,072
+   paths each, on ``sphere_nsde_term(8)`` at 65,536 slots (unit norm within
+   1e-5, 256 of Q's paths against the CPU within 1e-4, paths/s, one tick
+   dispatched under ``set_sync_debug_mode("error")``), one torus
+   request inside [-pi, pi], and ``"geo-em"`` refused by phase 4's Langevin
+   engine with the reference's message; (d) Fig 8's SO(3) CF-EES(2,5) rates
+   in float64, the card's errors within 1e-9 of the CPU's, the reference
+   solution within 1e-12 of SO(3).  The memory curves (three processes,
+   each reading its own allocator's peak) and the CPU's side of the checks
+   (one process) run beside the card's training and serving, and are
+   stopped with the phase.
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
 m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
 runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient,
-phase 16) and read just after; a
+phase 16; phase 17, which must launch none) and read just after; a
 kernel of the path with no launch there fails the run.  The second-to-last
 line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
 kernel was first held to, as in earlier runs — for the per-path entries
@@ -3186,6 +3209,398 @@ def training_pipeline_phase(torch, timer):
     return launches, replayed
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 17: manifolds — Tables 3 and 4 with their memory curves, served
+# manifold requests, and the SO(3) convergence rates.
+#
+# Every step of these experiments is host-bound (hundreds of small launches
+# a step), so the parts that need no result of the others run in worker
+# processes beside the main one: the memory curves (three processes; each
+# reads its own allocator's peak) and the CPU cross-checks.  The main process
+# trains, serves and takes the card's rates meanwhile, then gates on what
+# the workers report.
+# ---------------------------------------------------------------------------
+
+MANIFOLD_CHECK_EPOCHS = 2          # epochs of Tables 3 and 4 held against the CPU
+MANIFOLD_PATHS = 2 * SERVE_SLOTS   # requests Q and R (two ticks each)
+MANIFOLD_CPU_PATHS = 256           # Q's paths held against a CPU run
+MANIFOLD_CPU_THREADS = 2           # the CPU worker's share of the host's cores
+TORUS_DIM = 16
+Q_SPEC = ("cfees25", 1.0, 10, 41)  # (spec, t1, n_steps, seed) of request Q
+# The reference's refusal of a manifold spec on a Euclidean term
+# (src/repro/serving/scheduler.py, make_request).
+GEO_EM_MESSAGE = ("solver 'geo-em' is manifold-kind but this engine's term "
+                  "needs a euclidean solver")
+
+
+def _t3_case_keys(prng, device):
+    """The key each Table-3 case starts from: the reference chains one key
+    through the cases, ``EPOCHS`` splits a case."""
+    from repro_torch.benchmarks import table3_kuramoto as t3
+
+    key, keys = prng.PRNGKey(0, device=device), []
+    for _ in t3.cases():
+        keys.append(key)
+        for _ in range(t3.EPOCHS):
+            key = prng.split(key)[0]
+    return keys, key
+
+
+def _sphere_engine(torch, device, slots):
+    """Table 4's parameters and its first trajectory's start on S^7 behind
+    an engine on ``sphere_nsde_term(8)``."""
+    from repro_torch.benchmarks import table4_sphere as t4
+    from repro_torch.core import prng
+    from repro_torch.nsde import sphere_nsde_term
+    from repro_torch.serving import SDESampleConfig, SDESampleEngine
+
+    key = prng.PRNGKey(0, device=device)
+    return SDESampleEngine(sphere_nsde_term(t4.N_SPHERE), t4.data(key)[0][0],
+                           SDESampleConfig(slots=slots), args=t4.init_params(key).sde,
+                           noise_shape=(t4.M_NOISE,), device=device)
+
+
+def _worker_table3_memory(torch):
+    """Fig 5b on the card: the per-step series at 32 / 128 / 512 steps and
+    the bulk one at 32 and 512, on the parameters Table 3's run leaves off
+    at (``init_kuramoto_nsde`` of the chained key)."""
+    from repro_torch.benchmarks import table3_kuramoto as t3
+    from repro_torch.core import prng
+    from repro_torch.nsde import init_kuramoto_nsde
+
+    _, key = _t3_case_keys(prng, "cuda")
+    inputs = t3.data(device="cuda")
+    params = init_kuramoto_nsde(key, t3.N, width=t3.WIDTH, device="cuda")
+    ends = (t3.MEMORY_STEPS[0], t3.MEMORY_STEPS[-1])
+    # A fresh process's first solve allocates what later ones reuse (the
+    # cuBLAS workspace, ~64 MiB): one unread series first, so no reading
+    # of the curve includes it.
+    t3.memory_series(params, key, inputs, steps=ends[:1])
+    return {"per-step": t3.memory_series(params, key, inputs, bulk_increments=False),
+            "bulk": t3.memory_series(params, key, inputs, steps=ends)}
+
+
+def _worker_table4_memory(torch, tag):
+    """Fig 6 on the card, as Table 3's: reversible against full; ``tag``
+    picks the per-step series (32 / 128 / 512) or the bulk one (32, 512),
+    each in a process of its own (CF-EES(2,5)'s reversible backward is the
+    longest host loop of the phase)."""
+    from repro_torch.benchmarks import table4_sphere as t4
+    from repro_torch.core import prng
+
+    key = prng.PRNGKey(0, device="cuda")
+    y0, labels = t4.data(key)
+    params = t4.init_params(key)
+    t4.memory_series(params, key, y0, labels, steps=t4.MEMORY_STEPS[:1])  # as Table 3's
+    if tag == "per-step":
+        return t4.memory_series(params, key, y0, labels, bulk_increments=False)
+    return t4.memory_series(params, key, y0, labels,
+                            steps=(t4.MEMORY_STEPS[0], t4.MEMORY_STEPS[-1]))
+
+
+def _worker_cpu(torch):
+    """The CPU side of phase 17's cross-checks: each case's first epochs of
+    Tables 3 and 4 from the card's keys, request Q's first paths, and the
+    SO(3) rates in float64."""
+    from repro_torch.benchmarks import fig_convergence as fc
+    from repro_torch.benchmarks import table3_kuramoto as t3
+    from repro_torch.benchmarks import table4_sphere as t4
+    from repro_torch.core import prng
+
+    torch.set_num_threads(MANIFOLD_CPU_THREADS)
+    out = {"t3": {}, "t4": {}}
+    inputs = t3.data(device="cpu")
+    keys, _ = _t3_case_keys(prng, "cpu")
+    for (name, spec, adjoint, steps), key in zip(t3.cases(), keys):
+        run, _ = t3.train_case(key, inputs, spec, adjoint, steps,
+                               epochs=MANIFOLD_CHECK_EPOCHS)
+        out["t3"][name] = run.losses
+    key = prng.PRNGKey(0, device="cpu")
+    y0, labels = t4.data(key)
+    out["labels"] = labels.tolist()
+    for name, spec, adjoint, steps in t4.cases():
+        out["t4"][name] = t4.train_case(key, y0, labels, spec, adjoint, steps,
+                                        epochs=MANIFOLD_CHECK_EPOCHS).losses
+    engine = _sphere_engine(torch, "cpu", MANIFOLD_CPU_PATHS)
+    spec, t1, n, seed = Q_SPEC
+    with torch.no_grad():
+        rid = engine.submit(spec, t1=t1, n_steps=n, n_paths=MANIFOLD_CPU_PATHS, seed=seed)
+        out["q"] = engine.run()[rid].y_final.tolist()
+    rates = fc.so3_rates(0.5, device="cpu")
+    out["so3"] = {"errs": rates.errs, "rerrs": rates.rerrs, "fwd": rates.fwd,
+                  "bwd": rates.bwd}
+    return out
+
+
+MANIFOLD_WORKERS = {
+    "table3 memory": _worker_table3_memory,
+    "table4 memory, per-step": lambda torch: _worker_table4_memory(torch, "per-step"),
+    "table4 memory, bulk": lambda torch: _worker_table4_memory(torch, "bulk"),
+    "cpu": _worker_cpu,
+}
+
+
+def manifold_worker(name: str) -> None:
+    """A phase-17 worker's entry (run in its own process): prints one JSON
+    line."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(MANIFOLD_WORKERS[name](torch)), flush=True)
+
+
+def _start_worker(name):
+    code = (f"import sys; sys.path[:0] = [{REPO!r}, {SRC!r}]; import chip_smoke; "
+            f"chip_smoke.manifold_worker({name!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _finish_worker(proc, name):
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"phase 17's {name} worker failed (rc {proc.returncode}): {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _memory_gates(label, series, steps):
+    """Figs 5b / 6 on the per-step series: the reversible peak's growth (or
+    fall) below a tenth of the full adjoint's growth, the full adjoint's peak at least 8x
+    from the first to the last step count, recursive (if run) below full."""
+    rev, full = series["reversible"], series["full"]
+    growth_rev, growth_full = rev[-1] - rev[0], full[-1] - full[0]
+    print(f"  {label} gates (per-step increments): reversible growth "
+          f"{growth_rev / 2**20:.3f} MiB vs full growth {growth_full / 2**20:.3f} MiB "
+          f"(limit a tenth); full {full[-1] / max(full[0], 1):.2f}x from {steps[0]} to "
+          f"{steps[-1]} steps (limit >= 8x)"
+          + (f"; recursive {series['recursive'][-1] / 2**20:.3f} MiB vs full "
+             f"{full[-1] / 2**20:.3f} MiB at {steps[-1]}" if "recursive" in series else ""),
+          flush=True)
+    check(abs(growth_rev) < 0.1 * growth_full,
+          f"{label}: the reversible peak grows by more than a tenth of the full one's")
+    check(full[-1] >= 8 * full[0], f"{label}: the full adjoint's peak grows less than 8x")
+    if "recursive" in series:
+        check(series["recursive"][-1] < full[-1],
+              f"{label}: recursive is not below full at {steps[-1]} steps")
+
+
+def _print_memory(label, result, steps):
+    ends = (steps[0], steps[-1])
+    for tag, at in (("per-step", steps), ("bulk", ends)):
+        for adjoint, s in result[tag].items():
+            print(f"  {label} {adjoint} ({tag} increments): peak MiB at {at} steps "
+                  f"{[round(b / 2**20, 4) for b in s]} (bytes {s}); growth "
+                  f"{s[-1] / max(s[0], 1):.2f}x", flush=True)
+    _memory_gates(label, result["per-step"], steps)
+
+
+def table3_card(torch):
+    """17a on the card: Table 3's 15 epochs (repro_torch.benchmarks.
+    table3_kuramoto) and CF-EES(2,5)'s reversible gradients against the full
+    adjoint's."""
+    from repro_torch.benchmarks import table3_kuramoto as t3
+    from repro_torch.benchmarks.common import value_and_grad
+    from repro_torch.core import prng
+    from repro_torch.nsde import init_kuramoto_nsde
+
+    card_in = t3.data(device="cuda")
+    runs, key = t3.train(prng.PRNGKey(0, device="cuda"), card_in)
+    params = init_kuramoto_nsde(key, t3.N, width=t3.WIDTH, device="cuda")
+    th0, om0, tth, tom = card_in
+    grads = {adj: value_and_grad(t3.make_loss("cfees25", adj, 20, tth, tom), params,
+                                 key, th0, om0)
+             for adj in ("reversible", "full")}
+    err = _leaf_rel(torch, grads["reversible"][1], grads["full"][1])
+    loss_err = abs(float(grads["reversible"][0]) - float(grads["full"][0]))
+    print(f"  CF-EES(2,5), 20 steps: reversible gradients within {err:.2e} of each "
+          f"leaf's max of the full adjoint's (tolerance 1e-4); losses differ by "
+          f"{loss_err:.2e}", flush=True)
+    check(err <= 1e-4, "Table 3: reversible gradients disagree with the full adjoint's")
+    return runs
+
+
+def table4_card(torch):
+    """17b on the card: Table 4's 25 epochs a case and the accuracies."""
+    from repro_torch.benchmarks import table4_sphere as t4
+    from repro_torch.core import prng
+
+    key = prng.PRNGKey(0, device="cuda")
+    y0, labels = t4.data(key)
+    return labels, {name: t4.train_case(key, y0, labels, spec, adjoint, steps)
+                    for name, spec, adjoint, steps in t4.cases()}
+
+
+def _print_runs(label, cases, runs, cpu, epochs, extra):
+    for (name, spec, adjoint, steps), run in zip(cases, runs.values()):
+        err = _loss_err(run.losses[:MANIFOLD_CHECK_EPOCHS], cpu[name])
+        print(f"  {label}/{name} ({spec}, {adjoint}, {steps} steps, {epochs} epochs): "
+              f"{extra(run)}, {run.seconds / epochs * 1e3:.3f} ms a step; first "
+              f"{MANIFOLD_CHECK_EPOCHS} epochs {run.losses[:MANIFOLD_CHECK_EPOCHS]} vs "
+              f"the CPU's {cpu[name]}: {err:.2e} relative (tolerance 1e-4)", flush=True)
+        check(all(np.isfinite(run.losses)), f"{label} {name}: non-finite loss")
+        check(err <= 1e-4, f"{label} {name}: the card disagrees with the CPU")
+
+
+def _drain_paths_per_s(torch, engine, requests):
+    """Submit ``requests`` ((spec, t1, n_steps, n_paths, seed)), drain, and
+    return ({spec: result}, paths/s of the drain)."""
+    ids = {spec: engine.submit(spec, t1=t1, n_steps=n, n_paths=p, seed=seed)
+           for spec, t1, n, p, seed in requests}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return ({spec: done[rid] for spec, rid in ids.items()},
+            sum(r[3] for r in requests) / seconds)
+
+
+def manifold_serve_card(torch, params, y0):
+    """17c on the card: requests Q and R on the sphere term, one torus
+    request, and the Euclidean engine's refusal of a manifold spec; returns
+    Q's samples."""
+    from repro_torch.benchmarks import table4_sphere as t4
+    from repro_torch.core import PRNGKey, ManifoldSDETerm, Torus, path_keys
+    from repro_torch.nsde import lsde_term
+    from repro_torch.serving import SDESampleConfig, SDESampleEngine
+
+    spec, t1, n, seed = Q_SPEC
+    requests = ((spec, t1, n, MANIFOLD_PATHS, seed), ("cfees27", t1, n, MANIFOLD_PATHS, 42))
+    with torch.no_grad():
+        engine = _sphere_engine(torch, "cuda", SERVE_SLOTS)
+        engine.submit("cfees25", t1=1.0, n_steps=10, n_paths=1024, seed=7)
+        engine.run()  # warm-up
+        # A manifold tick (its batched expm included) must not wait on the
+        # device either.
+        tick_keys = path_keys(PRNGKey(7, device="cuda"), SERVE_SLOTS)[None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.executor.dispatch(("cfees25", 0.0, 1.0, 10, None, None, None, None),
+                                     tick_keys)
+        except RuntimeError as exc:
+            fail(f"a sphere dispatch synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("  a sphere-term dispatch (cfees25, 65,536 paths) ran with "
+              "torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
+        done, rate = _drain_paths_per_s(torch, engine, requests)
+        for name, res in done.items():
+            dev = float(np.abs(np.linalg.norm(res.y_final, axis=-1) - 1.0).max())
+            print(f"  sphere S^7 request {name}: {res.y_final.shape} samples, max "
+                  f"| |y| - 1 | = {dev:.2e} (tolerance 1e-5), finite="
+                  f"{bool(np.isfinite(res.y_final).all())}", flush=True)
+            check(res.y_final.shape == (MANIFOLD_PATHS, t4.N_SPHERE), f"{name}: shape")
+            check(dev <= 1e-5, f"served sphere samples of {name} leave the sphere")
+        print(f"  Q + R: {2 * MANIFOLD_PATHS} paths at {rate:.1f} paths/s (65,536 "
+              f"slots, 10 steps, 28 noise channels)", flush=True)
+
+        torus = ManifoldSDETerm(group=Torus(), drift=lambda t, y, a: 1.5 + torch.sin(y),
+                                diffusion=lambda t, y, a: 0.8 + 0.2 * torch.cos(y))
+        start = torch.linspace(-3.0, 3.0, TORUS_DIM, device="cuda")
+        tengine = SDESampleEngine(torus, start, SDESampleConfig(slots=SERVE_SLOTS),
+                                  device="cuda")
+        tdone, trate = _drain_paths_per_s(torch, tengine,
+                                          (("cfees25", 5.0, 20, SERVE_SLOTS, 43),))
+        y = tdone["cfees25"].y_final
+        print(f"  torus T^{TORUS_DIM} request cfees25 (t1 = 5, 20 steps): {y.shape}, "
+              f"range [{y.min():.6f}, {y.max():.6f}] (must lie in [-pi, pi]), "
+              f"{trate:.1f} paths/s", flush=True)
+        check(y.shape == (SERVE_SLOTS, TORUS_DIM) and np.isfinite(y).all(), "torus shape")
+        check(float(np.abs(y).max()) <= np.pi, "served torus samples leave [-pi, pi]")
+
+        langevin = SDESampleEngine(lsde_term(), y0, SDESampleConfig(slots=SERVE_SLOTS),
+                                   args=params, device="cuda")
+        try:
+            langevin.submit("geo-em", t1=1.0, n_steps=4, n_paths=8)
+        except ValueError as exc:
+            print(f"  'geo-em' on phase 4's Langevin engine: ValueError({exc})",
+                  flush=True)
+            check(str(exc) == GEO_EM_MESSAGE, "the refusal differs from the reference's")
+        else:
+            fail("the Langevin engine accepted a manifold solver")
+    return done[spec].y_final
+
+
+def so3_rates_gate(torch, card, cpu):
+    """17d: Fig 8's SO(3) CF-EES(2,5) rates in float64, card against CPU."""
+    from repro_torch.core import SO3
+
+    fwd = max(abs(a - b) / b for a, b in zip(card.errs, cpu["errs"]))
+    bwd = max(abs(a - b) / b for a, b in zip(card.rerrs, cpu["rerrs"]))
+    # A recovery error is a difference of O(1) states: it carries their
+    # rounding (~1e-16 absolute) however small it is.
+    bwd_ok = all(abs(a - b) <= 1e-9 * b + 1e-14 for a, b in zip(card.rerrs, cpu["rerrs"]))
+    dist = float(SO3().distance_from_manifold(card.y_ref))
+    print(f"  SO(3) rates, card: fwd {card.fwd:.6f} bwd {card.bwd:.6f} (CPU "
+          f"{cpu['fwd']:.6f} / {cpu['bwd']:.6f}); errors {card.errs} vs {cpu['errs']}: "
+          f"{fwd:.2e} relative (tolerance 1e-9); recovery errors {card.rerrs} vs "
+          f"{cpu['rerrs']}: {bwd:.2e} relative (tolerance 1e-9, or 1e-14 absolute); "
+          f"the reference solution's distance from SO(3) {dist:.2e} (limit 1e-12)",
+          flush=True)
+    check(fwd <= 1e-9, "SO(3) forward errors: the card disagrees with the CPU")
+    check(bwd_ok, "SO(3) recovery errors: the card disagrees with the CPU")
+    check(dist < 1e-12, "the SO(3) reference solution left the group")
+
+
+def manifold_phase(torch, params, y0):
+    """Phase 17; returns the kernel launches counted over it (none: no TPU
+    kernel lies on the manifold path)."""
+    from repro_torch.benchmarks import fig_convergence as fc
+    from repro_torch.benchmarks import table3_kuramoto as t3
+    from repro_torch.benchmarks import table4_sphere as t4
+
+    before = _read_launches()
+    workers = {name: _start_worker(name) for name in MANIFOLD_WORKERS}
+    card = {}
+    try:
+        for label, key, fn in (
+                ("17a: Table 3, Kuramoto on T*T^16", "t3", lambda: table3_card(torch)),
+                ("17b: Table 4, the latent SDE on S^7", "t4", lambda: table4_card(torch)),
+                ("17c: served manifold requests (Q, R, torus)", "q",
+                 lambda: manifold_serve_card(torch, params, y0)),
+                ("17d: Fig 8's SO(3) rates, float64", "so3",
+                 lambda: fc.so3_rates(0.5, device="cuda"))):
+            start = time.perf_counter()
+            print(f" {label}", flush=True)
+            card[key] = fn()
+            print(f"  ({label[:3]} on the card: {time.perf_counter() - start:.1f} s)",
+                  flush=True)
+        start = time.perf_counter()
+        done = {name: _finish_worker(proc, name) for name, proc in workers.items()}
+        print(f" 17e: the workers (Figs 5b and 6, the CPU's side) ended "
+              f"{time.perf_counter() - start:.1f} s after the card's parts", flush=True)
+    finally:
+        for proc in workers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    cpu = done["cpu"]
+    print(" 17a: Table 3 and Fig 5b", flush=True)
+    _print_runs("table3_kuramoto", t3.cases(), card["t3"], cpu["t3"], t3.EPOCHS,
+                lambda r: f"energy_score={r.losses[-1]:.6f} (first {r.losses[0]:.6f})")
+    _print_memory("Fig 5b", done["table3 memory"], t3.MEMORY_STEPS)
+    print(" 17b: Table 4 and Fig 6", flush=True)
+    labels, runs = card["t4"]
+    check(labels.tolist() == cpu["labels"], "Table 4: labels differ from the CPU's")
+    _print_runs("table4_sphere", t4.cases(), runs, cpu["t4"], t4.EPOCHS,
+                lambda r: (f"loss={r.losses[-1]:.6f} (first {r.losses[0]:.6f}), "
+                           f"acc={r.accuracy:.4f}"))
+    _print_memory("Fig 6", {tag: done[f"table4 memory, {tag}"]
+                            for tag in ("per-step", "bulk")}, t4.MEMORY_STEPS)
+    print(" 17c: request Q against the CPU", flush=True)
+    err = float(np.abs(card["q"][:MANIFOLD_CPU_PATHS] - np.asarray(cpu["q"])).max())
+    print(f"  Q's first {MANIFOLD_CPU_PATHS} paths vs a CPU run: max abs difference "
+          f"{err:.2e} (tolerance 1e-4)", flush=True)
+    check(err <= 1e-4, "request Q disagrees with the CPU")
+    print(" 17d: the SO(3) rates against the CPU", flush=True)
+    so3_rates_gate(torch, card["so3"], cpu["so3"])
+    after = _read_launches()
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3318,6 +3733,14 @@ def main() -> int:
     pipeline_launches, pipeline_replayed = training_pipeline_phase(torch, timer)
     print(f"  launched on phase 16's paths (eager + replayed): {pipeline_launches}; "
           f"by graph replays: {pipeline_replayed}", flush=True)
+
+    phase("phase 17: manifolds (Tables 3 and 4, Figs 5b and 6, served manifold "
+          "requests, Fig 8's SO(3) rates)")
+    manifold_launches = manifold_phase(torch, params, y0)
+    print(f"  kernels launched on phase 17's paths: {manifold_launches} (no TPU "
+          f"kernel lies on the manifold path: the eleven kernels are not launched)",
+          flush=True)
+    check(not manifold_launches, "phase 17 launched a kernel")
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"

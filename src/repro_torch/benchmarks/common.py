@@ -1,6 +1,7 @@
-"""Shared harness of the port's serving benchmarks (port of
-``benchmarks/common.py``): CSV rows, device-synchronised timing, the output
-file rule and the device record every payload carries."""
+"""Shared harness of the port's benchmarks (port of ``benchmarks/common.py``):
+CSV rows, device-synchronised timing, the output file rule, the device
+record every payload carries, and for the paper's tables a value-and-grad,
+one optimizer step on an ``nn.Module`` and the peak memory of a call."""
 from __future__ import annotations
 
 import fnmatch
@@ -12,7 +13,7 @@ from typing import Callable, Optional
 import torch
 
 __all__ = ["emit", "time_fn", "synchronize", "device_record", "percentile",
-           "check_out", "write_out"]
+           "check_out", "write_out", "value_and_grad", "opt_step", "peak_bytes"]
 
 
 def emit(name: str, us_per_call: float, derived) -> None:
@@ -72,3 +73,46 @@ def write_out(path: Optional[str], payload: dict) -> None:
         with open(path, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"# wrote {path}", flush=True)
+
+
+def value_and_grad(loss, params: torch.nn.Module, *inputs):
+    """``(loss, [grad per parameter])`` of ``loss(params, *inputs)``, as
+    ``jax.value_and_grad`` (a parameter the loss does not reach gets
+    zeros)."""
+    leaves = list(params.parameters())
+    val = loss(params, *inputs)
+    grads = torch.autograd.grad(val, leaves, allow_unused=True)
+    return val.detach(), [torch.zeros_like(p) if g is None else g
+                          for p, g in zip(leaves, grads)]
+
+
+def opt_step(loss, params: torch.nn.Module, opt, state, *inputs):
+    """One optimizer step on ``params`` (updated in place): returns the
+    loss before the step and the new optimizer state."""
+    val, grads = value_and_grad(loss, params, *inputs)
+    leaves = list(params.parameters())
+    new, state, _ = opt.update(grads, state, leaves)
+    with torch.no_grad():
+        for p, v in zip(leaves, new):
+            p.copy_(v)
+    return val, state
+
+
+def peak_bytes(fn: Callable, device: torch.device) -> int:
+    """Peak bytes ``fn()`` holds above what was allocated before it: on
+    CUDA ``max_memory_allocated`` after ``reset_peak_memory_stats`` (the
+    allocator's rounding included), elsewhere the live tensor bytes counted
+    op by op (:class:`~repro_torch.benchmarks.step_memory.LiveBytes`)."""
+    if device.type != "cuda":
+        from .step_memory import LiveBytes
+
+        with LiveBytes() as live:
+            fn()
+        return live.peak
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    fn()
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) - base

@@ -32,6 +32,7 @@ import torch
 from ..core import get_solver, prng, solve
 from ..core.brownian import brownian_path
 from ..device import resolve_device
+from .common import value_and_grad
 from ..nsde import LSDE, init_lsde, lsde_readout, lsde_term, rough_vol_paths, signature_mmd
 
 __all__ = ["solvers", "target_paths", "make_loss", "value_and_grad", "run", "Row"]
@@ -81,15 +82,6 @@ def make_loss(spec, n_steps, target, *, batch: int = BATCH,
         return signature_mmd(1.0 + 0.1 * ys, target)
 
     return loss
-
-
-def value_and_grad(loss, params: LSDE, key):
-    """``(loss, [grad per parameter])``, as ``jax.value_and_grad``."""
-    leaves = list(params.parameters())
-    val = loss(params, key)
-    grads = torch.autograd.grad(val, leaves, allow_unused=True)
-    return val.detach(), [torch.zeros_like(p) if g is None else g
-                          for p, g in zip(leaves, grads)]
 
 
 class Row(NamedTuple):

@@ -9,6 +9,10 @@
   grid       — the time grid (uniform / padded uniform / realized) and the
                dense-output helpers
   solvers    — SDETerm; 2N, Butcher, Reversible Heun, MCF, Milstein, SRA1
+  lie        — Lie groups and homogeneous spaces (Euclidean, Torus, SO3, SOn,
+               SphereAction, Product) and ManifoldSDETerm
+  cfees      — CF-EES(2,5)/(2,7) and the geometric baselines (GeoEM, CG2,
+               RKMK2)
   adaptive   — PI-controlled grid realization and adaptive integration
   adjoint    — solve(): the one solve loop (full, recursive and reversible
                adjoints)
@@ -21,7 +25,10 @@ from .adaptive import AdaptiveResult, RealizedGrid, integrate_adaptive, realize_
 from .adjoint import SolveResult, solve
 from .brownian import (BrownianDriver, BrownianPath, PaddedBrownianPath, VirtualBrownianTree,
                        brownian_path, padded_brownian_path, virtual_brownian_tree)
+from .cfees import (RKMK2, CFLowStorageSolver, CrouchGrossman2, GeoEulerMaruyama, cfees25_solver,
+                    cfees27_solver)
 from .grid import TimeGrid, fill_saves, save_mask
+from .lie import SO3, Euclidean, Group, ManifoldSDETerm, Product, SOn, SphereAction, Torus
 from .pytree import resolve_solver
 from .prng import PRNGKey, fold_in, normal, split
 from .registry import (canonical_spec, get_solver, list_solvers, parse_solver_spec, register_solver,
@@ -87,4 +94,18 @@ __all__ = [
     "ees25_2n",
     "bazavov_residuals",
     "butcher_from_2n",
+    "Group",
+    "Euclidean",
+    "Torus",
+    "SO3",
+    "SOn",
+    "SphereAction",
+    "Product",
+    "ManifoldSDETerm",
+    "CFLowStorageSolver",
+    "GeoEulerMaruyama",
+    "CrouchGrossman2",
+    "RKMK2",
+    "cfees25_solver",
+    "cfees27_solver",
 ]

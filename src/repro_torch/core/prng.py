@@ -14,7 +14,10 @@ default of current jax):
   bits to a uniform on ``[nextafter(-1, 0), 1)`` exactly as jax does, then
   applies ``sqrt(2) * erfinv(u)``.  Bits and uniforms are exact; torch's and
   XLA's ``erfinv`` differ, so normals agree to a few ulp over most of the
-  range and to ~1e-5 (float32) / 1e-11 (float64) relative in the far tails.
+  range and to ~1e-5 (float32) / 1e-11 (float64) relative in the far tails;
+* ``randint(key, shape, minval, maxval)`` reduces two bit draws from
+  ``split(key)`` by jax's span multiplier, bit-exact at every span, for
+  32- and 64-bit integer dtypes.
 
 uint32 arithmetic is done in int64 with ``& 0xFFFFFFFF`` after every add;
 shifted words stay below 2**62, so nothing overflows.
@@ -30,7 +33,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
-           "uniform", "normal"]
+           "uniform", "normal", "randint"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -149,3 +152,50 @@ def normal(key, shape, dtype=torch.float32) -> torch.Tensor:
     lo = np.nextafter(np_dtype(-1.0), np_dtype(0.0))
     u = uniform(key, shape, dtype, float(lo), 1.0)
     return torch.erfinv(u) * float(np_dtype(np.sqrt(2.0)))
+
+
+def _urem(x: torch.Tensor, span: int, bits: int) -> torch.Tensor:
+    """Unsigned remainder of ``bits``-wide words held in int64 (64-bit words
+    above 2**63 are negative) by ``0 < span < 2**63``."""
+    r = torch.remainder(x, span)
+    if bits == 64:
+        # x < 0 stands for x + 2**64: add 2**64 % span, mod span, without
+        # leaving int64 (both terms are below span).
+        t = r - (span - (1 << 64) % span)
+        r = torch.where(x < 0, torch.where(t < 0, t + span, t), r)
+    return r
+
+
+def randint(key, shape, minval: int, maxval: int,
+            dtype=torch.int64) -> torch.Tensor:
+    """``jax.random.randint`` on ``[minval, maxval)``, bit-exact: two draws
+    of the dtype's width from ``split(key)``, each reduced mod the span and
+    combined as ``(hi % span) * (2**bits % span) + lo % span`` in wrapping
+    unsigned arithmetic (``2**bits % span`` is itself the wrapped square of
+    ``2**(bits/2) % span``, as in jax).  ``dtype`` is ``torch.int32``
+    (jax's default without x64) or ``torch.int64`` (with x64): the draws
+    differ.  64-bit spans must stay below 2**63."""
+    bits = {torch.int32: 32, torch.int64: 64}.get(dtype)
+    if bits is None:
+        raise ValueError(f"randint supports int32 and int64, got {dtype}")
+    info = torch.iinfo(dtype)
+    lo_v, hi_v = max(int(minval), info.min), min(int(maxval), info.max)
+    # jax: span 1 when maxval <= minval (minval comes back); one more when
+    # maxval lies past the dtype's range.
+    span = 1 if hi_v <= lo_v else hi_v - lo_v + (int(maxval) > info.max)
+    if span >= 1 << 63:
+        raise ValueError(f"randint spans up to 2**63 - 1, got {span}")
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], shape, bits)
+    lower = random_bits(keys[..., 1, :], shape, bits)
+    mask = (1 << bits) - 1
+    half = (1 << (bits // 2)) % span
+    multiplier = ((half * half) & mask) % span
+    if bits == 32:
+        offset = (((_urem(higher, span, 32) * multiplier) & mask)
+                  + _urem(lower, span, 32)) & mask
+        out = _urem(offset, span, 32) + lo_v
+        return (((out + (1 << 31)) & mask) - (1 << 31)).to(dtype)
+    # int64 products and sums wrap as uint64 ones do, bit for bit.
+    offset = _urem(higher, span, 64) * multiplier + _urem(lower, span, 64)
+    return _urem(offset, span, 64) + lo_v

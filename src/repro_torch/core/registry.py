@@ -4,12 +4,15 @@ Same spec grammar as the reference: ``name`` or ``name:key=val,key=val``,
 where a bare word in the tail is a boolean flag (``"ees25:adaptive"``), and
 the same normal form (:func:`canonical_spec`), error messages and
 :func:`select_solver` decision table.  The registered solvers are the
-reference's Euclidean ones — ``ees25`` (``x``, ``use_kernels`` and its legacy
-spelling ``use_kernel``), ``ees27``, ``reversible-heun``, the six Butcher
-tableaux (``euler`` ... ``rk4``) and their ``mcf-*`` couplings (``lam``,
-``use_kernels``), ``ees25-butcher``, ``ees27-butcher``, ``milstein``,
-``strat-milstein`` and ``srk`` — so any other name (the manifold solvers
-among them) fails with the reference's unknown-solver message listing them.
+reference's: the Euclidean ones — ``ees25`` (``x``, ``use_kernels`` and its
+legacy spelling ``use_kernel``), ``ees27``, ``reversible-heun``, the six
+Butcher tableaux (``euler`` ... ``rk4``) and their ``mcf-*`` couplings
+(``lam``, ``use_kernels``), ``ees25-butcher``, ``ees27-butcher``,
+``milstein``, ``strat-milstein`` and ``srk`` — and, with
+``kind="manifold"``, the geometric schemes of
+:mod:`repro_torch.core.cfees`: ``cfees25`` (``x``), ``cfees27``,
+``geo-em``, ``cg2`` and ``rkmk2``.  Any other name fails with the
+reference's unknown-solver message listing them all.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from . import tableaux
+from .cfees import RKMK2, CrouchGrossman2, GeoEulerMaruyama, cfees25_solver, cfees27_solver
 from .solvers import (ButcherSolver, MCFSolver, Milstein, ReversibleHeun, SRKAdditive,
                       ees25_solver, ees27_solver)
 
@@ -224,3 +228,9 @@ def select_solver(noise: str = "diagonal", stiffness: float = 0.0,
     if noise in ("diagonal", "scalar"):
         return "milstein"
     return "ees25"
+
+register_solver("cfees25", cfees25_solver, kind="manifold")
+register_solver("cfees27", cfees27_solver, kind="manifold")
+register_solver("geo-em", lambda: GeoEulerMaruyama(), kind="manifold")
+register_solver("cg2", lambda: CrouchGrossman2(), kind="manifold")
+register_solver("rkmk2", lambda: RKMK2(), kind="manifold")

@@ -1,6 +1,7 @@
 """Synthetic ground-truth dynamics (port of ``repro.nsde.data``): the OU
-paths of Table 1, the stiff GBM of Table 7 (Appendix H.1) and the rough
-volatility paths of Table 2 (Appendix H.2).
+paths of Table 1, the stiff GBM of Table 7 (Appendix H.1), the
+second-order stochastic Kuramoto model of Table 3 (Section 4, eq. (5))
+and the rough volatility paths of Table 2 (Appendix H.2).
 
 Numpy copies of the reference's generators with the same ``rng`` call
 order, so the same seed gives the same arrays in both packages.
@@ -11,7 +12,8 @@ import numpy as np
 
 from .fbm import fbm_increments
 
-__all__ = ["ou_paths", "stiff_gbm_matrix", "gbm_paths", "rough_vol_paths"]
+__all__ = ["ou_paths", "stiff_gbm_matrix", "gbm_paths", "kuramoto_paths",
+           "rough_vol_paths"]
 
 
 def ou_paths(rng, batch: int, n_steps: int, T: float = 10.0,
@@ -54,6 +56,38 @@ def _expm(M):
     """``exp(M)`` by eigendecomposition (M diagonalizable)."""
     vals, vecs = np.linalg.eig(M)
     return (vecs @ np.diag(np.exp(vals)) @ np.linalg.inv(vecs)).real
+
+
+def kuramoto_paths(rng, N: int, batch: int, n_steps: int, T: float = 5.0,
+                   m: float = 1.0, K: float = 2.0, P: float = 0.5, D: float = 0.05,
+                   subsample: int = 1):
+    """Second-order stochastic Kuramoto (eq. (5)); returns (theta, omega)
+    with shapes (batch, n//sub + 1, N).  Heun integration on a fine grid."""
+    h = T / n_steps
+    omega_nat = np.where(np.arange(N) % 2 == 0, P, -P)
+    th = rng.uniform(-np.pi, np.pi, size=(batch, N))
+    om = np.zeros((batch, N))
+    ths = [th.copy()]
+    oms = [om.copy()]
+
+    def drift(th, om):
+        sin_diff = np.sin(th[:, None, :] - th[:, :, None])
+        coupling = K * sin_diff.mean(axis=2)
+        return om, (-om + omega_nat + coupling) / m
+
+    for n in range(n_steps):
+        noise = np.sqrt(2 * D * h) * rng.standard_normal((batch, N)) / m
+        d1_th, d1_om = drift(th, om)
+        th_p = th + h * d1_th
+        om_p = om + h * d1_om + noise
+        d2_th, d2_om = drift(th_p, om_p)
+        th = th + 0.5 * h * (d1_th + d2_th)
+        om = om + 0.5 * h * (d1_om + d2_om) + noise
+        th = np.mod(th + np.pi, 2 * np.pi) - np.pi
+        if (n + 1) % subsample == 0:
+            ths.append(th.copy())
+            oms.append(om.copy())
+    return np.stack(ths, axis=1), np.stack(oms, axis=1)
 
 
 def rough_vol_paths(rng, batch: int, n_steps: int, T: float = 1.0,

@@ -162,6 +162,13 @@ class SDESampleEngine:
             "diverged_paths": 0, "restarts": 0,
         }
 
+    def _term_kind(self) -> str:
+        """The solver kind the served term needs: ``"manifold"`` for a term
+        with an ``algebra_increment`` (a ``ManifoldSDETerm``), else
+        ``"euclidean"``."""
+        return ("manifold" if hasattr(self.term, "algebra_increment")
+                else "euclidean")
+
     @property
     def queue(self):
         return self.scheduler.queue
@@ -201,7 +208,7 @@ class SDESampleEngine:
                 solver = select_solver(
                     dt=(t1 - t0) / max(int(n_steps), 1), **auto_kw)
         req = make_request(
-            self.scheduler.next_request_id, solver, term_kind="euclidean",
+            self.scheduler.next_request_id, solver, term_kind=self._term_kind(),
             t0=t0, t1=t1, n_steps=n_steps, n_paths=n_paths,
             save_every=save_every, seed=seed, rtol=rtol, atol=atol,
             save_at=save_at, priority=priority, deadline_ms=deadline_ms,
@@ -238,9 +245,7 @@ class SDESampleEngine:
             for drop in ("n_paths", "seed", "priority"):
                 spec.pop(drop, None)
             solver = spec.pop("solver")
-            term_kind = ("manifold" if hasattr(self.term, "algebra_increment")
-                         else "euclidean")
-            req = make_request(0, solver, term_kind=term_kind,
+            req = make_request(0, solver, term_kind=self._term_kind(),
                                n_paths=1, seed=0, **spec)
             key = bucket_key(req.signature, self._bucket_cfg)
             if key is None:
@@ -312,7 +317,7 @@ class SDESampleEngine:
         try:
             child = make_request(
                 child_id, overrides.get("solver", req.solver),
-                term_kind="euclidean", t0=req.t0, t1=req.t1, n_steps=n_steps,
+                term_kind=self._term_kind(), t0=req.t0, t1=req.t1, n_steps=n_steps,
                 n_paths=req.n_paths, save_every=save_every, seed=req.seed,
                 rtol=req.rtol, atol=req.atol, save_at=req.save_at,
                 priority=req.priority, deadline_ms=deadline_ms)

@@ -36,7 +36,9 @@ def test_import_leaves_jax_out():
             "repro_torch.benchmarks.bench_training, "
             "repro_torch.benchmarks.table2_vol, repro_torch.benchmarks.table7_gbm, "
             "repro_torch.benchmarks.bench_stability, "
-            "repro_torch.benchmarks.step_memory; "
+            "repro_torch.benchmarks.step_memory, repro_torch.benchmarks.table3_kuramoto, "
+            "repro_torch.benchmarks.table4_sphere, repro_torch.benchmarks.fig_convergence, "
+            "repro_torch.benchmarks.run; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")

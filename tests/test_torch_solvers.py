@@ -186,16 +186,37 @@ PORTED = ("ees25", "ees25-butcher", "ees27", "ees27-butcher", "euler", "heun",
           "rk4", "srk", "strat-milstein")
 
 
-@pytest.mark.parametrize("name", ["cfees25", "cfees27", "geo-em", "cg2", "rkmk2"])
-def test_unported_solvers_fail_with_the_unknown_solver_message(name):
-    """The manifold solvers are the ones left; every Euclidean solver of the
-    reference is registered."""
-    with pytest.raises(KeyError) as got:
-        treg.get_solver(name)
-    assert got.value.args[0] == (f"unknown solver {jreg._canon(name)!r}; "
-                                 "registered: " + ", ".join(PORTED))
-    assert treg.list_solvers() == PORTED == jreg.list_solvers(kind="euclidean")
-    assert jreg.solver_kind(name) == "manifold"
+MANIFOLD = ("cfees25", "cfees25:x=0.3", "cfees27", "geo-em", "cg2", "rkmk2")
+
+
+@pytest.mark.parametrize("spec", MANIFOLD[:1] + MANIFOLD[2:])
+def test_manifold_solvers_match_the_reference(spec):
+    """Every manifold spec of the reference resolves to the port's
+    counterpart, with the reference's name, costs, reversibility and kind."""
+    j, t = jreg.get_solver(spec), treg.get_solver(spec)
+    assert (t.name, t.evals_per_step, t.exps_per_step, t.is_reversible) == (
+        j.name, j.evals_per_step, j.exps_per_step, j.is_reversible)
+    assert treg.solver_kind(spec) == jreg.solver_kind(spec) == "manifold"
+    assert treg.canonical_spec(spec) == jreg.canonical_spec(spec)
+    assert type(t).__name__ == type(j).__name__
+
+
+def test_registry_lists_and_unknown_message_equal_the_reference():
+    assert treg.list_solvers() == jreg.list_solvers()
+    for kind in ("euclidean", "manifold", "other"):
+        assert treg.list_solvers(kind=kind) == jreg.list_solvers(kind=kind)
+    assert treg.list_solvers(kind="euclidean") == PORTED
+    assert treg.list_solvers(kind="manifold") == ("cfees25", "cfees27", "cg2", "geo-em",
+                                                  "rkmk2")
+    ty = treg.get_solver(MANIFOLD[1])
+    jy = jreg.get_solver(MANIFOLD[1])
+    assert (ty.name, ty.ls.A, ty.ls.B, ty.ls.c) == (jy.name, jy.ls.A, jy.ls.B, jy.ls.c)
+    for name in ("cf-ees", "bogus_solver"):
+        with pytest.raises(KeyError) as want:
+            jreg.get_solver(name)
+        with pytest.raises(KeyError) as got:
+            treg.get_solver(name)
+        assert got.value.args[0] == want.value.args[0]
 
 
 def test_solver_objects_match():
