@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's paths through the eleven hand-written CUDA kernels (and
-the per-path step-size entries of two of them) — an
+It drives the port's paths through the thirteen hand-written CUDA kernels
+(and the per-path step-size entries of two of them) — an
 ``SDESampleEngine`` serving EES(2,5) and EES(2,7) Monte-Carlo sampling
 requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
 d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
@@ -16,9 +16,11 @@ zamba2-7b at full width, and the paper's Tables 7 and 2 and its stability
 frontier, the async serving plane under faults, with warmup into a
 persistent kernel cache, adaptive solves on Virtual Brownian Trees,
 served and differentiated, scanned training steps captured as CUDA
-graphs under the train loops, and the paper's manifold experiments
-(Tables 3 and 4, served manifold requests, Fig 8's SO(3) rates) — and
-checks what comes out:
+graphs under the train loops, the paper's manifold experiments
+(Tables 3 and 4, served manifold requests, Fig 8's SO(3) rates), and the LM
+trained at full width through the attention and SSD kernels and their
+backward kernels, with EES(2,5) over residual depth — and checks what comes
+out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -44,7 +46,16 @@ checks what comes out:
    kernel for (1..8) and at 9 and 17 (split into launches), bitwise;
    ``increment_pre`` and ``axpy_chain`` also timed at the Table-1 batch
    (4,096 elements) and at 16,777,216, and their wrappers' host us per call
-   beside ``torch.add``'s at 4,096;
+   beside ``torch.add``'s at 4,096; the two backward kernels against their
+   twins, each run twice (bitwise-equal gradients): ``flash_attention_bwd``
+   at the reference's test shapes in float32 (1e-5 of each gradient's
+   max|.|) and bf16 (against the twin in float32 on the same inputs: one
+   bf16 rounding, 2^-8 |want|, plus 1e-5 of max|.|), qwen3-1.7b's GQA, a
+   ragged 200, d = 1 and 127, zamba2-7b's and olmo-1b's layers in bf16,
+   timed at zamba2-7b's beside the twin and SDPA's backward;
+   ``ssd_scan_bwd`` at the reference's shapes, the decay extremes (also
+   against the float64 twin), zamba2-7b's and mamba2-130m's layers (1e-4 of
+   each gradient's max|.|), timed at zamba2-7b's, with each launch apart;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
@@ -183,14 +194,30 @@ checks what comes out:
    solution within 1e-12 of SO(3).  The memory curves (three processes,
    each reading its own allocator's peak) and the CPU's side of the checks
    (one process) run beside the card's training and serving, and are
-   stopped with the phase.
+   stopped with the phase;
+18. LM training at full width: (a) zamba2-7b cut to 12 of its 81 layers
+   (the shared block at layers 0 and 6), bf16, B = 2 x 2048, each layer
+   rematerialised: four AdamW steps of ``train_loop``'s default step on
+   the synthetic token stream, then four with two microbatches; losses
+   finite, the four LM kernels' launches exact, ms a step, tokens/s, peak
+   memory and the device's busy share of one step; one step run twice from
+   one state, bitwise; at 2 layers, a run interrupted at step 2 and resumed
+   from its checkpoint (bf16 leaves), bitwise an unbroken run; (b) the same
+   width at 12 layers in float32, B = 1 x 512: the loss and every gradient
+   leaf on the kernel path against the plain path; (c) EES(2,5) over
+   olmo-1b's residual depth at full width, float32, B = 4 x 512: the
+   reversible adjoint's gradients through the kernels against the plain
+   path and against the full adjoint, and peak memory above the parameters
+   and gradients at 4, 8 and 16 layers (reversible flat, under 10% growth;
+   full at least 3x); (d) ``python -m repro_torch.launch.train --arch
+   zamba2-7b --steps 4`` as a subprocess.
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
 m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
 runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient,
-phase 16; phase 17, which must launch none) and read just after; a
-kernel of the path with no launch there fails the run.  The second-to-last
+phase 16; phase 17, which must launch none; phase 18a's first run) and
+read just after; a kernel of the path with no launch there fails the run.  The second-to-last
 line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
 kernel was first held to, as in earlier runs — for the per-path entries
 ``ws_stage_diag_rows`` and ``ws_stage_diag_bwd_rows``, request O and 15c's
@@ -198,7 +225,10 @@ kernel gradient; the general-noise kernels add ``launches_by_route``, the
 Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
 ``launches_phase_14``, the four kernels of phase 16 ``launches_phase_16``
 (eager launches plus each graph's captured launches times its replays) and
-``replayed_phase_16``) and the last line
+``replayed_phase_16``, ``flash_attention`` and ``ssd_scan``
+``launches_phase_18``; the backward kernels count phase 18a's run, and
+name the reference function whose ``jax.grad`` they compute) and the last
+line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
@@ -838,6 +868,177 @@ def lm_kernel_phase(torch, timer):
                      ("chunk", "ssd_scan_kernel_chunk")):
         print(f"  ssd_scan launch {name}: {timer.ms(lambda: ssd_scan(*xs, chunk=L), fn) * 1e3:.2f}"
               f" us with L2 flushed", flush=True)
+    return stats
+
+
+# The backward kernels' cases (b, hq, hkv, s, d, causal, sm_scale): the
+# reference's test shapes (in float32 and bf16), qwen3-1.7b's GQA, a ragged
+# 200, d = 1 and 127, then zamba2-7b's and olmo-1b's layers in bf16 (the
+# first of those is timed).
+FLASH_BWD_SHAPES = FLASH_REF_SHAPES + ((1, 16, 8, 2048, 128, True, None),
+                                       (2, 4, 2, 200, 112, True, None),
+                                       (2, 4, 2, 200, 112, False, None),
+                                       (1, 4, 2, 130, 1, True, None),
+                                       (2, 4, 2, 129, 127, False, None))
+FLASH_BWD_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None), (4, 16, 16, 2048, 128, True, None))
+FLASH_BWD_F32_REL = 1e-5   # of each gradient's max|.|, against the float32 twin
+SSD_BWD_REL = 1e-4         # of each gradient's max|.|, against the float32 twin
+
+
+def _check_deterministic(torch, name, label, first, again):
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"{name} {label}: two runs on the same inputs differ")
+
+
+def lm_bwd_kernel_phase(torch, timer):
+    """Phase 3, the backward kernels: ``flash_attention_bwd`` and
+    ``ssd_scan_bwd`` against their plain twins (``attention_bwd_ref``,
+    ``ssd_bwd_ref``), twice each (bitwise-equal runs), then timed at the LM
+    path's shapes beside the twins and, for attention, SDPA's backward;
+    returns their stats."""
+    from repro_torch.kernels.flash_attention.flash_attention import (flash_attention,
+                                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator(device="cuda").manual_seed(5432)
+    stats, worst = {}, 0.0
+    cases = ([(shape, dt) for shape in FLASH_BWD_SHAPES
+              for dt in (torch.float32, torch.bfloat16)]
+             + [(shape, torch.bfloat16) for shape in FLASH_BWD_LM_SHAPES])
+    for shape, dtype in cases:
+        causal, scale = shape[5], shape[6]
+        q, k, v = _flash_inputs(torch, gen, shape, dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        out = flash_attention(q, k, v, causal=causal, sm_scale=scale)
+        got = flash_attention_bwd(q, k, v, out, do, causal=causal, sm_scale=scale)
+        again = flash_attention_bwd(q, k, v, out, do, causal=causal, sm_scale=scale)
+        # the twin in float32 on the same inputs (bf16 ones widened exactly)
+        want = attention_bwd_ref(*(t.float() for t in (q, k, v, out, do)), causal=causal,
+                                 sm_scale=scale)
+        torch.cuda.synchronize()
+        _check_deterministic(torch, "flash_attention_bwd", str(shape), got, again)
+        errs, ok = [], True
+        for g, w in zip(got, want):
+            check(g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+                  f"flash_attention_bwd {shape} {dtype}: output {g.dtype} {tuple(g.shape)}")
+            top = w.abs().max().item()
+            diff = (g.float() - w).abs()
+            errs.append(diff.max().item() / top)
+            if dtype == torch.float32:
+                ok = ok and errs[-1] <= FLASH_BWD_F32_REL
+            else:
+                # the kernel rounds its float32 sums to bf16: half a bf16 ulp,
+                # at most 2^-8 |want|, beyond float32's order of summation
+                ok = ok and bool((diff <= 2.0 ** -8 * w.abs() + 1e-5 * top).all())
+        worst = max(worst, max(e * w.abs().max().item() for e, w in zip(errs, want)))
+        lim = (f"{FLASH_BWD_F32_REL:g} of max|.|" if dtype == torch.float32 else
+               "2^-8 |want| + 1e-5 max|.| elementwise")
+        print(f"  flash_attention_bwd {str(dtype)[6:]} (b,hq,hkv,s,d)={shape[:5]} "
+              f"causal={causal} sm_scale={scale}: dq, dk, dv vs the float32 twin "
+              f"{', '.join(f'{e:.3e}' for e in errs)} of max|.| (limit {lim}); two runs "
+              f"bitwise equal", flush=True)
+        check(ok, f"flash_attention_bwd {shape} {dtype} disagrees with its twin")
+        del q, k, v, do, out, got, again, want
+    torch.cuda.empty_cache()
+    shape = FLASH_BWD_LM_SHAPES[0]
+    b, hq, hkv, s, d, _, _ = shape
+    q, k, v = _flash_inputs(torch, gen, shape, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    library = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)  # noqa: E731
+    fwd_ops = 4 * b * hq * d * s * (s + 1) / 2  # causal: QK^T and PV, 2 flops a MAC
+    stats["flash_attention_bwd"] = _timed_row(
+        "flash_attention_bwd", f"bf16 (b,hq,hkv,s,d)={shape[:5]} causal", timer,
+        lambda: flash_attention_bwd(q, k, v, out, do, causal=True),
+        lambda: attention_bwd_ref(q, k, v, out, do, causal=True),
+        ("autograd.grad through scaled_dot_product_attention(is_causal=True, "
+         "enable_gqa=True), its backward alone", library),
+        "flash_attention_bwd", q.element_size() * (4 * q.numel() + 4 * k.numel()),
+        2.5 * fwd_ops, BF16_FLOPS, "bf16 tensor-core (2.5x the forward's products)", worst)
+    print(f"  (the kernel runs on the float32 FMA units and recomputes S three times: "
+          f"{8 * fwd_ops / 2 / FP32_FLOPS * 1e6:.0f} us of its own products at 67 TFLOP/s)",
+          flush=True)
+    for name, fn in (("stats", "flash_attention_bwd_stats"),
+                     ("dkdv", "flash_attention_bwd_dkdv"), ("dq", "flash_attention_bwd_dq")):
+        ms = timer.ms(lambda: flash_attention_bwd(q, k, v, out, do, causal=True), fn, reps=5)
+        print(f"  flash_attention_bwd launch {name}: {ms * 1e3:.2f} us with L2 flushed",
+              flush=True)
+    del q, k, v, do, out, leaves, lib_out
+    torch.cuda.empty_cache()
+
+    worst = 0.0
+    for shape in SSD_REF_SHAPES + ("extremes",) + SSD_LM_SHAPES:
+        if shape == "extremes":  # the reference's decay extremes (dt 5, A -8)
+            x, _, _, B, C = _ssd_inputs(torch, gen, (1, 128, 2, 8, 16, 64))
+            xs = (x, torch.full((1, 128, 2), 5.0, device="cuda"),
+                  torch.tensor([-8.0, -0.001], device="cuda"), B, C)
+            chunk, label = 64, "decay extremes (dt=5, A=(-8, -0.001))"
+        else:
+            xs, chunk = _ssd_inputs(torch, gen, shape), shape[5]
+            label = f"(b,l,h,dh,ds,chunk)={shape}"
+        dy = torch.randn(xs[0].shape, generator=gen, device="cuda")
+        got = ssd_scan_bwd(*xs, dy, chunk=chunk)
+        again = ssd_scan_bwd(*xs, dy, chunk=chunk)
+        want = ssd_bwd_ref(*xs, dy, chunk=chunk)
+        torch.cuda.synchronize()
+        _check_deterministic(torch, "ssd_scan_bwd", label, got, again)
+        errs = []
+        for g, w in zip(got, want):
+            check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
+                  f"ssd_scan_bwd {label}: non-finite or misshapen gradient")
+            errs.append((g - w).abs().max().item() / w.abs().max().item())
+            worst = max(worst, (g - w).abs().max().item())
+        msg = (f"  ssd_scan_bwd float32 {label}: dx, ddt, dA, dB, dC vs the float32 twin "
+               f"{', '.join(f'{e:.3e}' for e in errs)} of max|.| (limit {SSD_BWD_REL:g})")
+        ok = max(errs) <= SSD_BWD_REL
+        if shape == "extremes" or shape in SSD_REF_SHAPES[:1]:
+            # and the float64 twin: the float32 twin's own distance from it
+            w64 = ssd_bwd_ref(*(t.double() for t in xs), dy.double(), chunk=chunk)
+            e64 = [(g.double() - w).abs().max().item() / w.abs().max().item()
+                   for g, w in zip(got, w64)]
+            t64 = [(t.double() - w).abs().max().item() / w.abs().max().item()
+                   for t, w in zip(want, w64)]
+            msg += (f"; vs the float64 twin {', '.join(f'{e:.3e}' for e in e64)} (the "
+                    f"float32 twin {', '.join(f'{e:.3e}' for e in t64)}; limit "
+                    f"{SSD_BWD_REL:g})")
+            ok = ok and max(e64) <= SSD_BWD_REL
+        print(msg + "; two runs bitwise equal", flush=True)
+        check(ok, f"ssd_scan_bwd {label} disagrees with its twin")
+        del xs, dy, got, again, want
+    torch.cuda.empty_cache()
+    b, l, h, dh, ds, L = SSD_LM_SHAPES[0]
+    xs = _ssd_inputs(torch, gen, SSD_LM_SHAPES[0])
+    dy = torch.randn(xs[0].shape, generator=gen, device="cuda")
+    # read: x, dt, A, B, C, dy; written: dx, ddt, dA, dB, dC
+    moved = 4 * (3 * xs[0].numel() + 2 * (xs[1].numel() + 2 * xs[3].numel() + h))
+    nc, tri = l // L, L * (L + 1) // 2
+    # multiply-adds the chunked backward needs per (b, chunk, head): C.B^T and
+    # dy.u on the causal triangle, du, dC and dB (triangle and state parts),
+    # the chunk states and their adjoints; 2 flops a MAC.  As for the
+    # forward's row, the least
+    # time for float32-exact products is three TF32 tensor-core passes (the
+    # hi + lo split); the kernel itself runs on the float32 FMA units.
+    ops = 2 * b * nc * h * (tri * ds + tri * dh + tri * dh + 2 * tri * ds
+                            + 5 * L * dh * ds)
+    stats["ssd_scan_bwd"] = _timed_row(
+        "ssd_scan_bwd", f"float32 (b,l,h,dh,ds,chunk)={SSD_LM_SHAPES[0]}", timer,
+        lambda: ssd_scan_bwd(*xs, dy, chunk=L),
+        lambda: ssd_bwd_ref(*xs, dy, chunk=L), None, "ssd_bwd_kernel", moved, 3 * ops,
+        TF32_FLOPS, "TF32 tensor-core (3 passes of the hi + lo split)", worst)
+    print(f"  (the same work at the float32 FMA rate, the kernel's units: "
+          f"{ops / FP32_FLOPS * 1e6:.2f} us)", flush=True)
+    for name, fn in (("outer (states, adjoints)", "ssd_bwd_kernel_outer"),
+                     ("pass (both)", "ssd_bwd_kernel_pass"),
+                     ("chunk", "ssd_bwd_kernel_chunk"), ("reduce", "ssd_bwd_kernel_reduce")):
+        ms = timer.ms(lambda: ssd_scan_bwd(*xs, dy, chunk=L), fn, reps=5)
+        print(f"  ssd_scan_bwd launch {name}: {ms * 1e3:.2f} us with L2 flushed", flush=True)
+    del xs, dy
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -3601,6 +3802,497 @@ def manifold_phase(torch, params, y0):
     return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
 
 
+LM_TRAIN_LAYERS = 12        # 18a: zamba2-7b cut from 81 layers (shared block at 0 and 6)
+LM_TRAIN_BATCH, LM_TRAIN_LEN = 2, 2048  # phase 11's prefill shape
+LM_TRAIN_STEPS = 4
+LM_RESUME_LAYERS = 2        # 18a's resume check: full width, the shared block at layer 0
+LM_GRAD_BATCH, LM_GRAD_LEN = 1, 512     # 18b
+LM_GRAD_REL = 1e-4          # 18b: each gradient leaf, of its max|.|
+EES_DEPTHS = (4, 8, 16)     # 18c: olmo-1b's depth is 16
+EES_BATCH, EES_LEN = 4, 512
+# 18c: reversible vs full adjoint, the whole gradient's relative distance.
+# From h = embed[tokens] (init scale 0.02) one layer's F is ~35x the state,
+# far outside the step sizes at which EES(2,5)'s inverse step rebuilds a
+# layer's input, so the two adjoints' gradients part by O(1): 0.81 at
+# d_model 256 on the CPU, in float32 and float64 alike (the reference's own
+# ees_depth_solve shows the same).  The limit holds the reversible gradient
+# to a finite, same-sized estimate; the port's correctness is held by the
+# kernel-vs-plain gate and by the CPU tests against the reference.
+EES_GRAD_GAP = 1.5
+# 18c: the reversible gradients, kernel path vs plain path, each leaf of the
+# larger of its own max|.| and 1% of the largest leaf's.  Rebuilding the
+# states through 16 inverse steps amplifies float32 rounding: on the CPU (d
+# 256) float32 and float64 reversible gradients part by 2.2e-5 of a leaf's
+# max against the full adjoint's 3.7e-6.
+EES_KERNEL_REL = 1e-3
+LM_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
+
+
+class _Microbatched:
+    """A token source whose batches carry a leading microbatch axis, as the
+    reference's accumulating step takes them."""
+
+    def __init__(self, source, microbatches):
+        self.source, self.microbatches = source, microbatches
+
+    def batch_at(self, step):
+        batch = self.source.batch_at(step)
+        m = self.microbatches
+        return {k: v.reshape(m, v.shape[0] // m, *v.shape[1:]) for k, v in batch.items()}
+
+
+def _lm_train_run(torch, cfg, params, microbatches, steps, ckpt_dir=None, ckpt_every=100):
+    """``train_loop`` with its default step on the synthetic stream, AdamW on
+    the launcher's cosine schedule, each layer rematerialised."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import ModelOptions
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    data = SyntheticTokens(DataConfig(LM_TRAIN_BATCH, LM_TRAIN_LEN, cfg.vocab))
+    if microbatches > 1:
+        data = _Microbatched(data, microbatches)
+    return train_loop(cfg, params, data,
+                      optimizer=adamw(cosine_schedule(3e-4, 10, LM_TRAIN_STEPS)),
+                      opts=ModelOptions(remat=True),
+                      loop=TrainLoopConfig(steps=steps, log_every=1, ckpt_dir=ckpt_dir,
+                                           ckpt_every=ckpt_every,
+                                           microbatches=microbatches))
+
+
+def lm_train_card(torch, timer):
+    """18a: zamba2-7b at full width, 12 layers, bf16, B = 2 x 2048, remat:
+    four AdamW steps through ``train_loop``'s default step, then four with
+    two microbatches; ms a step, tokens/s, peak memory, busy share, the LM
+    kernels' launches; one step run twice from one state, bitwise; and,
+    at 2 layers, a run interrupted at step 2 and resumed from its
+    checkpoint, bitwise an unbroken one.  Returns the first run's launches."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_accum_train_step
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=LM_TRAIN_LAYERS)
+    n_inv = -(-cfg.n_layers // cfg.shared_attn_every)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_LEN
+    start = time.perf_counter()
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    par_gib = sum(p.numel() * p.element_size() for p in params.parameters()) / 2**30
+    print(f"  zamba2-7b bf16, {cfg.n_layers} of 81 layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, SSM state "
+          f"{cfg.ssm_state}, d_ff {cfg.d_ff}): {n_par / 1e9:.3f} B parameters "
+          f"({par_gib:.2f} GiB) drawn in {time.perf_counter() - start:.2f} s", flush=True)
+    runs = {}
+    for mb in (1, 2):
+        if mb == 2:
+            del params
+            params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
+        out = _lm_train_run(torch, cfg, params, mb, LM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _read_launches().items() if k in LM_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [v for _, v in out["losses"]]
+        per_step = out["wall_s"] / LM_TRAIN_STEPS
+        print(f"  train_loop, default step, microbatches={mb}, {LM_TRAIN_STEPS} steps: "
+              f"losses {', '.join(f'{v:.6f}' for v in losses)}; {per_step * 1e3:.1f} ms a "
+              f"step over the run ({tokens / per_step:.0f} tokens/s, the first step's "
+              f"warm-up included); peak device memory {peak / 2**30:.2f} GiB; launches "
+              f"{launched}; flash_attention by route {dict(ROUTE_LAUNCHES)}", flush=True)
+        check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+              f"microbatches={mb}: the losses are not {LM_TRAIN_STEPS} finite values")
+        # each step: every layer's forward twice (remat), its backward once
+        want = {"flash_attention": 2 * mb * n_inv * LM_TRAIN_STEPS,
+                "ssd_scan": 2 * mb * cfg.n_layers * LM_TRAIN_STEPS,
+                "flash_attention_bwd": mb * n_inv * LM_TRAIN_STEPS,
+                "ssd_scan_bwd": mb * cfg.n_layers * LM_TRAIN_STEPS}
+        check(launched == want, f"microbatches={mb}: the LM kernels launched {launched}, "
+              f"not {want}")
+        check(ROUTE_LAUNCHES["wgmma"] == want["flash_attention"],
+              f"the bf16 training forward's attention took the routes {ROUTE_LAUNCHES}")
+        runs[mb] = (launched, losses)
+        del out  # its optimizer state: 12.8 GB of AdamW moments
+    first = runs[1][1][0], runs[2][1][0]
+    print(f"  step 1's loss, microbatches 1 vs 2 (the same weights and tokens, split in "
+          f"two): {first[0]:.6f} vs {first[1]:.6f}, {abs(first[0] - first[1]) / first[0]:.2e}"
+          f" relative (bf16 products in other shapes; limit 1e-2)", flush=True)
+    check(abs(first[0] - first[1]) <= 1e-2 * first[0], "microbatches change step 1's loss")
+    main_launches = runs[1][0]
+
+    # one more step, timed: host wall with a synchronize, device time profiled
+    opt = adamw(cosine_schedule(3e-4, 10, LM_TRAIN_STEPS))
+    step = make_accum_train_step(cfg, opt, ModelOptions(remat=True), 1)
+    data = SyntheticTokens(DataConfig(LM_TRAIN_BATCH, LM_TRAIN_LEN, cfg.vocab))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(0).items()}
+    state = opt.init(list(params.parameters()))
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = min(walls)
+    totals = timer.kernels_us(lambda: step(params, state, batch), reps=1, flush=False,
+                              warm=False)
+    dev_ms = sum(t for t, _ in totals.values()) / 1e3
+    n_kern = sum(n for _, n in totals.values())
+    busy = "not measured" if dev_ms == 0 else f"{dev_ms / (wall * 1e3):.0%}"
+    kinds = dict.fromkeys(("flash_attention", "flash_attention_bwd", "ssd_scan",
+                           "ssd_scan_bwd", "GEMM", "other"), 0.0)
+    for name, (us, _) in totals.items():
+        low = name.lower()
+        kind = ("flash_attention_bwd" if "flash_attention_bwd" in name else
+                "flash_attention" if "flash_attention_kernel" in name else
+                "ssd_scan_bwd" if "ssd_bwd_kernel" in name else
+                "ssd_scan" if "ssd_scan_kernel" in name else
+                "GEMM" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass"))
+                else "other")
+        kinds[kind] += us / 1e3
+    print(f"  one step (microbatches=1): host wall {', '.join(f'{w * 1e3:.1f}' for w in walls)}"
+          f" ms ({tokens / wall:.0f} tokens/s); one profiled step {dev_ms:.2f} ms of device "
+          f"time over {n_kern} kernels; device busy {busy} of the host wall; by kind: "
+          + ", ".join(f"{k} {v:.2f} ms ({v / max(dev_ms, 1e-9):.0%})" for k, v in kinds.items()),
+          flush=True)
+
+    # two runs of one step from one state, bitwise (the optimizer returns a
+    # new state and changes none in place, so both runs start from `state`)
+    snap = [p.detach().clone() for p in params.parameters()]
+    results = []
+    for _ in range(2):
+        with torch.no_grad():
+            for p, v in zip(params.parameters(), snap):
+                p.copy_(v)
+        step(params, state, batch)
+        results.append([p.detach().clone() for p in params.parameters()])
+    same = all(torch.equal(a, b) for a, b in zip(*results))
+    print(f"  one step run twice from the same state: parameters bitwise equal={same}",
+          flush=True)
+    check(same, "two runs of one step from the same state differ")
+    del params, state, snap, results, step, runs, batch
+    torch.cuda.empty_cache()
+
+    # resume: 2 layers at full width (a checkpoint of 12 layers with AdamW's
+    # moments would be 16 GB)
+    rcfg = dataclasses.replace(cfg, n_layers=LM_RESUME_LAYERS)
+    fresh_params = lambda: init_params(rcfg, prng.PRNGKey(0, device="cuda"),  # noqa: E731
+                                       device="cuda")
+    unbroken = _lm_train_run(torch, rcfg, fresh_params(), 1, LM_TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        start = time.perf_counter()
+        _lm_train_run(torch, rcfg, fresh_params(), 1, 2, ckpt_dir=d, ckpt_every=2)
+        with open(os.path.join(d, "step_00000002", "manifest.json")) as f:
+            manifest = json.load(f)
+        resumed = _lm_train_run(torch, rcfg, fresh_params(), 1, LM_TRAIN_STEPS, ckpt_dir=d)
+        seconds = time.perf_counter() - start
+    kinds = {}
+    for leaf in manifest["leaves"]:
+        kinds[leaf["dtype"]] = kinds.get(leaf["dtype"], 0) + 1
+    same = all(torch.equal(a, b) for a, b in zip(unbroken["params"].parameters(),
+                                                resumed["params"].parameters()))
+    print(f"  {LM_RESUME_LAYERS} layers at full width: interrupted at step 2 and resumed "
+          f"from its checkpoint ({seconds:.1f} s; leaves by dtype {kinds}): parameters "
+          f"bitwise those of an unbroken run={same}; losses {resumed['losses']} vs "
+          f"{unbroken['losses'][2:]}", flush=True)
+    check(same and resumed["n_dispatches"] == LM_TRAIN_STEPS - 2,
+          "the resumed run differs from the unbroken one")
+    check(kinds.get("bfloat16", 0) > 0, "the checkpoint holds no bf16 leaf")
+    return main_launches
+
+
+def lm_grad_card(torch):
+    """18b: zamba2-7b's width at 12 layers in float32, B = 1 x 512: the loss
+    and its gradients (what ``make_train_step`` applies) on the kernel path
+    against the plain path, from the same weights; then one
+    ``make_train_step`` on the kernel path.
+
+    Each gradient leaf is held within 1e-4 of the larger of its own max|.|
+    and 1% of the largest leaf's, plus twice the leaf's own float32 noise:
+    the distance between two plain-path runs that differ only in the SSD's
+    chunk (64 against 128: the same function, summed in another order).
+    ``ssd_operand_check`` then holds the SSD's backward kernel to the
+    float64 twin on one layer's real operands."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models import ModelOptions, init_params, loss_fn, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=LM_TRAIN_LAYERS,
+                              dtype="float32")
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    toks = _lm_tokens(torch, cfg, LM_GRAD_BATCH, LM_GRAD_LEN + 1, seed=18)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = list(params.parameters())
+    runs = {}
+    for label, opts in (("kernel", ModelOptions(remat=True)),
+                        ("plain", ModelOptions(use_flash="never", remat=True)),
+                        ("plain64", ModelOptions(use_flash="never", ssd_chunk=64))):
+        _zero_launches()
+        loss = loss_fn(cfg, params, batch, opts)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[label] = (loss.item(), grads, dict(_read_launches()))
+        del loss, grads
+    (lk, gk, nk), (lp, gp, npl) = runs["kernel"], runs["plain"]
+    g64 = runs["plain64"][1]
+    top = max(b.abs().max().item() for b in gp)
+    names = [n for n, _ in params.named_parameters()]
+    rows = []
+    for name, a, b, c in zip(names, gk, gp, g64):
+        scale = max(b.abs().max().item(), 1e-2 * top)
+        noise = (b - c).abs().max().item()
+        err = (a - b).abs().max().item()
+        rows.append((err / (LM_GRAD_REL * scale + 2 * noise), err / scale, noise / scale, name))
+    rows.sort(reverse=True)
+    print(f"  float32, {cfg.n_layers} layers, B={LM_GRAD_BATCH} x {LM_GRAD_LEN}: kernel path "
+          f"(launches {nk}) vs plain path (launches {npl}): loss {lk:.8f} vs {lp:.8f}, "
+          f"{abs(lk - lp) / abs(lp):.2e} relative (limit 1e-5); gradients: the median leaf "
+          f"{sorted(r[1] for r in rows)[len(rows) // 2]:.2e} of its scale, the leaves "
+          f"nearest their limit (limit {LM_GRAD_REL:g} of the scale + 2 x the plain "
+          f"path's own chunk-64 vs chunk-128 distance):", flush=True)
+    for ratio, err, noise, name in rows[:5]:
+        print(f"    {name}: {err:.2e} of its scale, float32 noise {noise:.2e}; "
+              f"{ratio:.3f} of its limit", flush=True)
+    n_inv = -(-cfg.n_layers // cfg.shared_attn_every)
+    check(all(nk.get(k, 0) > 0 for k in LM_KERNELS) and not npl,
+          f"18b: the kernel path launched {nk}, the plain path {npl}")
+    check(nk.get("flash_attention_bwd") == n_inv and nk.get("ssd_scan_bwd") == cfg.n_layers,
+          f"18b: backward launches {nk}")
+    ssd_operand_check(torch, cfg, params, batch)
+    check(abs(lk - lp) <= 1e-5 * abs(lp), "18b: the kernel path's loss differs")
+    check(rows[0][0] <= 1.0, "18b: a gradient of the kernel path differs")
+    opt = adamw(3e-4)
+    _, state, m = make_train_step(cfg, opt)(params, opt.init(leaves), batch)
+    check(int(state.step) == 1 and bool(torch.isfinite(m["loss"])),
+          "18b: make_train_step on the kernel path")
+    del params, runs, gk, gp, g64, state, m
+    torch.cuda.empty_cache()
+
+
+def ssd_operand_check(torch, cfg, params, batch):
+    """18b: one SSM layer's real operands (the last layer's, recorded from
+    a kernel-path backward): the SSD's forward and backward on the card,
+    the kernels and the float32 twins each against the float64 twins; the
+    backward kernel within 3x the float32 twin's distance on every
+    gradient."""
+    from repro_torch.kernels import SSD_SCAN
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import launch as ssd_launch
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.models import ModelOptions, loss_fn
+
+    seen = {}
+    kernel_bwd = ssd_ops.ssd_scan_bwd
+
+    def record(x, dt, A, B, C, dy, *, chunk):
+        seen.setdefault("args", [t.detach().clone() for t in (x, dt, A, B, C, dy)])
+        seen["chunk"] = chunk
+        return kernel_bwd(x, dt, A, B, C, dy, chunk=chunk)
+
+    ssd_ops.ssd_scan_bwd = record
+    try:
+        loss = loss_fn(cfg, params, batch, ModelOptions())
+        torch.autograd.grad(loss, list(params.parameters()))
+    finally:
+        ssd_ops.ssd_scan_bwd = kernel_bwd
+    x, dt, A, B, C, dy = seen["args"]
+    L = seen["chunk"]
+    y = ssd_scan(x, dt, A, B, C, chunk=L)
+    got = kernel_bwd(x, dt, A, B, C, dy, chunk=L)
+    twin = ssd_bwd_ref(x, dt, A, B, C, dy, chunk=L)
+    wide = [t.double() for t in (x, dt, A, B, C, dy)]
+    exact = ssd_bwd_ref(*wide, chunk=L)
+    y64 = ssd_chunked_ref(*wide[:5], chunk=L)[0]
+    y32 = ssd_chunked_ref(x, dt, A, B, C, chunk=L)[0]
+
+    def rel(a, b):
+        return (a.double() - b).abs().max().item() / b.abs().max().item()
+
+    # the forward kernel's chunk states (TF32 products) against float64 ones:
+    # why the backward recomputes its own on the FMA units
+    b, l, h, dh = x.shape
+    nc = l // L
+    tf32_states = ssd_launch(SSD_SCAN, x, dt, A, B, C, torch.empty_like(x), L)
+    cum = torch.cumsum((wide[2] * wide[1]).reshape(b, nc, L, h), dim=2)
+    inc = torch.einsum("bnsh,bnshd,bnsk->bnhdk", torch.exp(cum[:, :, -1:] - cum),
+                       (wide[1][..., None] * wide[0]).reshape(b, nc, L, h, dh),
+                       wide[3].reshape(b, nc, L, -1))
+    S, states64 = torch.zeros_like(inc[:, 0]), []
+    for n in range(nc):
+        states64.append(S)
+        S = torch.exp(cum[:, n, -1])[..., None, None] * S + inc[:, n]
+    print(f"  the forward kernel's chunk states (TF32 products) vs float64: "
+          f"{rel(tf32_states, torch.stack(states64, 1)):.2e} of max|S|", flush=True)
+    lam = (A * dt).reshape(x.shape[0], -1, L, A.shape[0]).sum(2)
+    print(f"  the last SSM layer's operands (A dt summed over a chunk: {lam.min().item():.1f} "
+          f"to {lam.max().item():.2f}): y, kernel {rel(y, y64):.2e} and float32 twin "
+          f"{rel(y32, y64):.2e} of max|y| from the float64 twin; dx, ddt, dA, dB, dC, "
+          f"kernel {', '.join(f'{rel(a, b):.2e}' for a, b in zip(got, exact))}, float32 "
+          f"twin {', '.join(f'{rel(a, b):.2e}' for a, b in zip(twin, exact))}", flush=True)
+    worst = max(rel(a, b) / max(rel(t, b), 1e-7) for a, t, b in zip(got, twin, exact))
+    check(worst <= 3.0, "18b: the backward kernel is further from the float64 twin than "
+          "three times the float32 twin on the model's operands")
+
+
+def ees_depth_card(torch):
+    """18c: EES(2,5) over olmo-1b's residual depth (``attn_block`` +
+    ``mlp_block`` as ``examples/train_lm_ees_residual.py``, from ``h =
+    embed[tokens]``), full width, float32, B = 4 x 512, step 1: at 16 layers
+    the reversible adjoint's gradients through the kernels against the same
+    adjoint on the plain path and
+    against the full adjoint's (the stated limits below), the reconstruction
+    error of h0; and the peak device memory of a forward and backward above
+    the parameters' and gradients' bytes at 4, 8 and 16 layers (the gate:
+    reversible flat, full growing)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.models.layers import attn_block, mlp_block
+    from repro_torch.models.reversible import _ees_step, ees_depth_solve
+
+    cfg = dataclasses.replace(get_arch("olmo-1b"), dtype="float32", n_layers=EES_DEPTHS[-1])
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+
+    def block(opts):
+        def block_fn(lp, h):
+            a = attn_block(cfg, lp["attn"], h, opts)
+            return a + mlp_block(cfg, lp["mlp"], h + a, opts)
+        return block_fn
+
+    kernel_block, plain_block = block(ModelOptions()), block(ModelOptions(use_flash="never"))
+    toks = _lm_tokens(torch, cfg, EES_BATCH, EES_LEN, seed=19)
+    with torch.no_grad():
+        h0 = params.embed[toks].clone()
+    ct = torch.randn(h0.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(19))
+
+    def grads(n, adjoint, block_fn=kernel_block):
+        layers = params.layers[:n]
+        y = ees_depth_solve(block_fn, layers, h0, step=1.0, adjoint=adjoint)
+        return torch.autograd.grad(y, list(layers.parameters()), ct)
+
+    def gaps(got, want):
+        # each leaf against the larger of its own max|.| and 1% of the
+        # largest leaf's (as 18b)
+        top = max(b.abs().max().item() for b in want)
+        per_leaf = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-2 * top)
+                    for a, b in zip(got, want)]
+        whole = (sum(((a - b) ** 2).sum() for a, b in zip(got, want)).sqrt()
+                 / sum((b ** 2).sum() for b in want).sqrt()).item()
+        return max(per_leaf), sorted(per_leaf)[len(per_leaf) // 2], whole
+
+    n = EES_DEPTHS[-1]
+    _zero_launches()
+    g_rev = grads(n, "reversible")
+    launched = dict(_read_launches())
+    g_plain = grads(n, "reversible", plain_block)
+    kp = gaps(g_rev, g_plain)
+    del g_plain
+    g_full = grads(n, "full")
+    rf = gaps(g_rev, g_full)
+    del g_full
+    with torch.no_grad():
+        y, f0 = h0, kernel_block(params.layers[0], h0)
+        for lp in params.layers:
+            y = _ees_step(kernel_block, lp, y, 1.0)
+        for lp in reversed(params.layers):
+            y = _ees_step(kernel_block, lp, y, -1.0)
+        recon = ((y - h0).norm() / h0.norm()).item()
+        f_ratio = (f0.norm() / h0.norm()).item()
+    print(f"  olmo-1b block, float32, full width (d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, d_ff {cfg.d_ff}), B={EES_BATCH} x {EES_LEN}, {n} layers, step 1; the "
+          f"reversible run launched {launched}", flush=True)
+    print(f"  reversible gradients, kernel path vs plain path: worst leaf {kp[0]:.3e} of its "
+          f"scale, median {kp[1]:.3e}, whole gradient {kp[2]:.3e} (limit {EES_KERNEL_REL:g} "
+          f"a leaf)", flush=True)
+    print(f"  reversible vs full adjoint gradients: worst leaf {rf[0]:.3e} of its max|.|, "
+          f"median {rf[1]:.3e}, whole gradient {rf[2]:.3e} (limit {EES_GRAD_GAP:g} on the "
+          f"whole gradient); |F(h0)| / |h0| = {f_ratio:.2f}, and h0 rebuilt through "
+          f"{n} inverse steps is off by {recon:.3e} of |h0|", flush=True)
+    check(kp[0] <= EES_KERNEL_REL,
+          "18c: the reversible gradients differ between kernel and plain path")
+    check(rf[2] <= EES_GRAD_GAP and all(bool(torch.isfinite(g).all()) for g in g_rev),
+          "18c: the reversible adjoint's gradients are further from the full adjoint's "
+          "than stated")
+    check(launched.get("flash_attention", 0) > 0 and launched.get("flash_attention_bwd", 0) > 0,
+          f"18c: the depth solve did not run the attention kernels: {launched}")
+    del g_rev
+    peaks = {}
+    for adjoint in ("reversible", "full"):
+        for depth in EES_DEPTHS:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            g = grads(depth, adjoint)
+            torch.cuda.synchronize()
+            grad_bytes = sum(t.numel() * t.element_size() for t in g)
+            peaks[adjoint, depth] = (torch.cuda.max_memory_allocated() - base
+                                     - grad_bytes) / 2**20
+            del g
+    for adjoint in ("reversible", "full"):
+        print(f"  {adjoint}: peak device memory above the parameters and gradients at "
+              + ", ".join(f"{d} layers {peaks[adjoint, d]:.1f} MiB" for d in EES_DEPTHS),
+              flush=True)
+    lo, hi = EES_DEPTHS[0], EES_DEPTHS[-1]
+    growth = peaks["reversible", hi] / peaks["reversible", lo] - 1
+    ratio = peaks["full", hi] / peaks["full", lo]
+    print(f"  from {lo} to {hi} layers: reversible grows {growth:.1%} (gate: under 10%), "
+          f"full {ratio:.2f}x (gate: at least 3x)", flush=True)
+    check(growth < 0.10, "18c: the reversible adjoint's memory grows with depth")
+    check(ratio >= 3, "18c: the full adjoint's memory does not grow with depth")
+    del params, h0, ct
+    torch.cuda.empty_cache()
+
+
+def launcher_card(torch):
+    """18d: ``python -m repro_torch.launch.train --arch zamba2-7b --steps 4``
+    (the reference's smoke config) as a subprocess on the card."""
+    start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                           "zamba2-7b", "--steps", str(LM_TRAIN_STEPS)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    losses = [float(line.split()[-1]) for line in lines if line.startswith("step ")]
+    print(f"  python -m repro_torch.launch.train --arch zamba2-7b --steps {LM_TRAIN_STEPS}: "
+          f"exit {proc.returncode} in {time.perf_counter() - start:.1f} s; "
+          + " | ".join(lines), flush=True)
+    check(proc.returncode == 0, f"the launcher failed: {proc.stderr[-2000:]}")
+    check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+          "the launcher did not print its losses")
+
+
+def lm_training_phase(torch, timer):
+    """Phase 18: LM training at full width; returns 18a's launches."""
+    launches = {}
+    for label, fn in (("18a", lambda: launches.update(lm_train_card(torch, timer))),
+                      ("18b", lambda: lm_grad_card(torch)),
+                      ("18c", lambda: ees_depth_card(torch)),
+                      ("18d", lambda: launcher_card(torch))):
+        start = time.perf_counter()
+        print(f" {label}", flush=True)
+        fn()
+        print(f"  ({label}: {time.perf_counter() - start:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3656,6 +4348,7 @@ def main() -> int:
     stats = kernel_phase(torch, timer)
     rows_kernel_phase(torch, timer, stats)
     stats.update(lm_kernel_phase(torch, timer))
+    stats.update(lm_bwd_kernel_phase(torch, timer))
 
     phase("phase 4: serve requests A-D")
     params, y0, sync_abc = serve_phase(torch, timer)
@@ -3741,6 +4434,17 @@ def main() -> int:
           f"kernel lies on the manifold path: the eleven kernels are not launched)",
           flush=True)
     check(not manifold_launches, "phase 17 launched a kernel")
+
+    phase("phase 18: LM training at full width (zamba2-7b's train loop, the kernel "
+          "path against the plain path, EES over olmo-1b's depth, the launcher)")
+    lm_train_launches = lm_training_phase(torch, timer)
+    print(f"  the LM kernels launched on 18a's main path (4 AdamW steps of train_loop's "
+          f"default step): {lm_train_launches}", flush=True)
+    for name in LM_KERNELS:
+        check(lm_train_launches.get(name, 0) > 0,
+              f"{name} was not launched on the LM training path")
+    launches.update({name: lm_train_launches[name]
+                     for name in ("flash_attention_bwd", "ssd_scan_bwd")})
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -3758,7 +4462,12 @@ def main() -> int:
                "ws_stage_general": ("ws_stage_general.cu", f"{tpu}:247"),
                "flash_attention": ("flash_attention.cu", "src/repro/kernels/"
                                    "flash_attention/flash_attention.py:119"),
-               "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan/ssd_scan.py:84")}
+               "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan/ssd_scan.py:84"),
+               # the gradients of the reference's plain twins under jax.grad
+               "flash_attention_bwd": ("flash_attention_bwd.cu", "src/repro/kernels/"
+                                       "flash_attention/ref.py::attention_ref"),
+               "ssd_scan_bwd": ("ssd_scan_bwd.cu",
+                                "src/repro/kernels/ssd_scan/ref.py::ssd_chunked_ref")}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{sources[name][0]}",
@@ -3775,7 +4484,9 @@ def main() -> int:
             if name == "ws_stage_diag" else {}),
          **({"launches_phase_16": pipeline_launches.get(name, 0),
              "replayed_phase_16": pipeline_replayed.get(name, 0)}
-            if name in PHASE16_KERNELS else {})}
+            if name in PHASE16_KERNELS else {}),
+         **({"launches_phase_18": lm_train_launches[name]}
+            if name in ("flash_attention", "ssd_scan") else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

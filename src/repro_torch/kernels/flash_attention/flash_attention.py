@@ -17,6 +17,12 @@ with three routes chosen by :func:`route` from the dtype and head dim alone:
 On a CPU tensor :func:`flash_attention` is its plain twin (:mod:`.ref`); on a
 CUDA tensor it launches the route's kernel or raises.  ``KERNEL.launches``
 counts the launches, ``ROUTE_LAUNCHES`` splits them by route.
+
+:func:`flash_attention_bwd` is the gradient, from a second source,
+``csrc/flash_attention_bwd.cu`` (``KERNEL_BWD``): three launches (row
+statistics, dK/dV, dQ) behind one C entry per dtype, float32 and bf16, on
+the float32 FMA units.  On a CPU tensor it is its twin
+:func:`~.ref.attention_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -26,10 +32,10 @@ import math
 import torch
 
 from .._build import CudaKernel, pointer, stream_handle
-from .ref import attention_ref, check_causal_shapes
+from .ref import attention_bwd_ref, attention_ref, check_causal_shapes
 
-__all__ = ["KERNEL", "MAX_HEAD_DIM", "ROUTE_LAUNCHES", "flash_attention", "route",
-           "tf32_smem_bytes", "wgmma_smem_bytes"]
+__all__ = ["KERNEL", "KERNEL_BWD", "MAX_HEAD_DIM", "ROUTE_LAUNCHES", "flash_attention",
+           "flash_attention_bwd", "route", "tf32_smem_bytes", "wgmma_smem_bytes"]
 
 _I = ctypes.c_int
 _ARGS = [ctypes.c_void_p] * 4 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
@@ -38,6 +44,11 @@ _ENTRY = {"wgmma": {torch.bfloat16: "flash_attention_bf16_wgmma"},
           "simt": {torch.bfloat16: "flash_attention_bf16"}}
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
                     {fn: _ARGS for fns in _ENTRY.values() for fn in fns.values()})
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
+KERNEL_BWD = CudaKernel("flash_attention_bwd", "flash_attention_bwd.cu",
+                        {fn: _BWD_ARGS for fn in _BWD_ENTRY.values()})
 #: Launches by route, counted beside ``KERNEL.launches``.
 ROUTE_LAUNCHES = {"wgmma": 0, "mma_tf32": 0, "simt": 0}
 #: Largest head dimension the kernel takes (kMaxD in the source).
@@ -88,13 +99,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
-    """q: (b, hq, sq, d); k, v: (b, hkv, sk, d); returns (b, hq, sq, d) in
-    q's dtype.  Causal attention needs ``sq == sk``."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+def _check(q, k, v, causal, sm_scale, *others) -> float:
+    """Checks the operands of a CUDA launch (``others`` shaped as q, in its
+    dtype); returns the softmax scale."""
     b, hq, sq, d = q.shape
     bk, hkv, sk, dk = k.shape
     check_causal_shapes(sq, sk, causal)
@@ -107,11 +114,26 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
-    for t in (k, v):
+    for t in (k, v) + others:
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("q, k and v must share one CUDA device and dtype")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
+            raise ValueError("the operands must share one CUDA device and dtype")
+    for t in others:
+        if t.shape != q.shape:
+            raise ValueError(f"an operand of shape {tuple(t.shape)} where q's "
+                             f"{tuple(q.shape)} is expected")
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
+    """q: (b, hq, sq, d); k, v: (b, hkv, sk, d); returns (b, hq, sq, d) in
+    q's dtype.  Causal attention needs ``sq == sk``."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+    sm_scale = _check(q, k, v, causal, sm_scale)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -127,3 +149,29 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
                       int(bool(causal)), stream_handle(q))
     ROUTE_LAUNCHES[path] += 1
     return out
+
+
+def flash_attention_bwd(q, k, v, out, d_out, *, causal: bool = True, sm_scale=None):
+    """The gradient ``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k,
+    v)``, whose output was ``out``, against the cotangent ``d_out`` (shaped
+    as q), in the inputs' dtype.  Causal attention needs ``sq == sk``."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, out, d_out, causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, got {q.device}")
+    sm_scale = _check(q, k, v, causal, sm_scale, out, d_out)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    q, k, v, out, d_out = (t.contiguous() for t in (q, k, v, out, d_out))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # per query row: the log-sum-exp of its scores and rowsum(dO * O)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        KERNEL_BWD.launch(_BWD_ENTRY[q.dtype], pointer(q), pointer(k), pointer(v),
+                          pointer(out), pointer(d_out), pointer(dq), pointer(dk),
+                          pointer(dv), pointer(lse), pointer(delta), b, hq, hkv, sq, sk,
+                          d, sm_scale, int(bool(causal)), stream_handle(q))
+    return dq, dk, dv

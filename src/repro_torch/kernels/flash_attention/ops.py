@@ -3,16 +3,16 @@
 The LM substrate calls :func:`attention`.  ``use_kernel="auto"`` on a CUDA
 tensor launches the CUDA kernel (as the reference launches its Pallas
 kernel on a TPU); on a CPU tensor, and for ``"never"`` and ``"interpret"``
-(the reference's CPU test mode), it runs the plain twin.  The kernel has no
-backward (neither has the reference's): a gradient through it raises
-:class:`~repro_torch.device.NotYetPorted` instead of being dropped.
+(the reference's CPU test mode), it runs the plain twin.  A gradient through
+the kernel runs the backward kernel (``csrc/flash_attention_bwd.cu``) on a
+CUDA tensor and its twin ``attention_bwd_ref`` on a CPU tensor; the
+reference, which has no backward kernel, differentiates ``attention_ref``.
 """
 from __future__ import annotations
 
 import torch
 
-from ...device import not_yet_ported
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .ref import attention_ref
 
 __all__ = ["attention"]
@@ -21,12 +21,17 @@ __all__ = ["attention"]
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        out = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
 
     @staticmethod
     def backward(ctx, ct):
-        raise not_yet_ported("the gradient of the flash_attention kernel "
-                             "(training through the LM)")
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, ct, causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def attention(q, k, v, *, causal=True, sm_scale=None, use_kernel: str = "auto"):

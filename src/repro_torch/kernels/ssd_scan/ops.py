@@ -4,17 +4,17 @@
 ``use_kernel="auto"`` on a CUDA tensor launches the CUDA kernel (as the
 reference launches its Pallas kernel on a TPU).  Elsewhere, and for
 ``"never"`` and ``"interpret"``, it runs the vectorised chunked twin, as
-the reference does off the TPU.  The kernel has no backward (neither has
-the reference's): a gradient through it raises
-:class:`~repro_torch.device.NotYetPorted`.
+the reference does off the TPU.  A gradient through the kernel runs the
+backward kernel (``csrc/ssd_scan_bwd.cu``) on a CUDA tensor and its twin
+``ssd_bwd_ref`` on a CPU tensor; the
+reference, which has no backward kernel, differentiates ``ssd_chunked_ref``.
 """
 from __future__ import annotations
 
 import torch
 
-from ...device import not_yet_ported
 from .ref import ssd_chunked_ref
-from .ssd_scan import ssd_scan
+from .ssd_scan import ssd_scan, ssd_scan_bwd
 
 __all__ = ["ssd"]
 
@@ -22,12 +22,14 @@ __all__ = ["ssd"]
 class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
         return ssd_scan(x, dt, A, B, C, chunk=chunk)
 
     @staticmethod
     def backward(ctx, ct):
-        raise not_yet_ported("the gradient of the ssd_scan kernel (training "
-                             "through the LM)")
+        grads = ssd_scan_bwd(*ctx.saved_tensors, ct, chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 128, use_kernel: str = "auto"):

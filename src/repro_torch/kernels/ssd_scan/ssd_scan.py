@@ -13,6 +13,12 @@ float32 in and out; the wrapper allocates the chunk states and decays.
 On a CPU tensor :func:`ssd_scan` is its plain twin (``ssd_chunked_ref``);
 on a CUDA tensor it launches the kernels or raises.  ``KERNEL.launches``
 counts calls of the C entry (one per SSM layer), not the three launches.
+
+:func:`ssd_scan_bwd` is the gradient, from a second source,
+``csrc/ssd_scan_bwd.cu`` (``KERNEL_BWD``): six launches (the chunk states
+and their pass, the state adjoints and their reverse pass, the within-chunk
+gradients, the sums over heads) behind one C entry, float32 on the FMA
+units.  On a CPU tensor it is its twin :func:`~.ref.ssd_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -21,13 +27,18 @@ import ctypes
 import torch
 
 from .._build import CudaKernel, pointer, stream_handle
-from .ref import ssd_chunked_ref
+from .ref import ssd_bwd_ref, ssd_chunked_ref
 
-__all__ = ["KERNEL", "ssd_scan", "smem_bytes"]
+__all__ = ["KERNEL", "KERNEL_BWD", "BWD_MAX_CHUNK", "BWD_MAX_HEAD_DIM", "ssd_scan",
+           "ssd_scan_bwd", "smem_bytes"]
 
 _I = ctypes.c_int
 _ARGS = [ctypes.c_void_p] * 8 + [_I] * 6 + [ctypes.c_void_p]
 KERNEL = CudaKernel("ssd_scan", "ssd_scan.cu", {"ssd_scan_f32": _ARGS})
+_BWD_ARGS = [ctypes.c_void_p] * 17 + [_I] * 6 + [ctypes.c_void_p]
+KERNEL_BWD = CudaKernel("ssd_scan_bwd", "ssd_scan_bwd.cu", {"ssd_scan_bwd_f32": _BWD_ARGS})
+#: The backward kernel's largest chunk and head dim (kMaxL, kMaxDh).
+BWD_MAX_CHUNK, BWD_MAX_HEAD_DIM = 128, 64
 _MAX_SMEM = 232448  # the shared memory one Hopper block may use
 _SMEM_PER_SM = 233472  # an SM's, 1024 bytes of it reserved per block
 _MAX_G, _WARPS = 8, 8  # kMaxG, kWarps in the source
@@ -57,6 +68,24 @@ def smem_bytes(chunk: int, dh: int, ds: int) -> dict:
             "chunk": chunk_(2) if chunk_(2) <= _MAX_SMEM else chunk_(1)}
 
 
+def _check(name, x, dt, A, B, C, chunk, *others):
+    """Checks the operands of a CUDA launch (``others`` shaped as x)."""
+    b, l, h, dh = x.shape
+    ds = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"sequence length {l} is not a multiple of chunk {chunk}")
+    if (dt.shape != (b, l, h) or A.shape != (h,) or B.shape != (b, l, ds)
+            or C.shape != (b, l, ds) or any(t.shape != x.shape for t in others)):
+        raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(B.shape)}, C "
+                         f"{tuple(C.shape)} do not match")
+    for t in (x, dt, A, B, C) + others:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} operands must share one CUDA device")
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
     """y (b, l, h, dh) of the chunked scan from a zero state."""
     b, l, h, dh = x.shape
@@ -66,18 +95,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
         return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)[0]
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, got {x.device}")
-    if l % chunk:
-        raise ValueError(f"sequence length {l} is not a multiple of chunk {chunk}")
-    if (dt.shape != (b, l, h) or A.shape != (h,) or B.shape != (b, l, ds)
-            or C.shape != (b, l, ds)):
-        raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
-                         f"{tuple(A.shape)}, B {tuple(B.shape)}, C "
-                         f"{tuple(C.shape)} do not match")
-    for t in (x, dt, A, B, C):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan takes float32, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError("ssd_scan operands must share one CUDA device")
+    _check("ssd_scan", x, dt, A, B, C, chunk)
     need = max(smem_bytes(chunk, dh, ds).values())
     if need > _MAX_SMEM:
         raise ValueError(f"chunk {chunk} with dh {dh}, ds {ds} needs {need} bytes "
@@ -91,11 +109,11 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
     return y
 
 
-def launch(kernel, x, dt, A, B, C, y, chunk: int) -> None:
+def launch(kernel, x, dt, A, B, C, y, chunk: int) -> torch.Tensor:
     """Launches ``kernel``'s ``ssd_scan_f32`` on checked, contiguous operands
     with its scratch: the chunk states (b, nc, h, dh, ds), increments and
-    then in place the state entering each chunk, and each chunk's decay
-    exp(cum_L)."""
+    then in place the state entering each chunk, which it returns, and each
+    chunk's decay exp(cum_L)."""
     b, l, h, dh = x.shape
     ds = B.shape[-1]
     states = x.new_empty(b, l // chunk, h, dh, ds)
@@ -103,3 +121,38 @@ def launch(kernel, x, dt, A, B, C, y, chunk: int) -> None:
     kernel.launch("ssd_scan_f32", pointer(x), pointer(dt), pointer(A), pointer(B),
                   pointer(C), pointer(y), pointer(states), pointer(decays), b, l, h,
                   dh, ds, chunk, stream_handle(x))
+    return states
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 128):
+    """The gradient ``(dx, ddt, dA, dB, dC)`` of :func:`ssd_scan`'s y against
+    the cotangent ``dy`` (the chunk states are recomputed, not taken from
+    the forward)."""
+    b, l, h, dh = x.shape
+    ds = B.shape[-1]
+    chunk = min(chunk, l)
+    if x.device.type == "cpu":
+        return ssd_bwd_ref(x, dt, A, B, C, dy, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd runs on CUDA or CPU tensors, got {x.device}")
+    _check("ssd_scan_bwd", x, dt, A, B, C, chunk, dy)
+    if chunk > BWD_MAX_CHUNK or dh > BWD_MAX_HEAD_DIM:
+        raise ValueError(f"ssd_scan_bwd takes chunk <= {BWD_MAX_CHUNK} and head dim "
+                         f"<= {BWD_MAX_HEAD_DIM}, got {chunk} and {dh}")
+    x, dt, A, B, C, dy = (t.contiguous() for t in (x, dt, A, B, C, dy))
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA, dB, dC = torch.empty_like(A), torch.empty_like(B), torch.empty_like(C)
+    if dx.numel() == 0:
+        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
+    nc = l // chunk
+    S = x.new_empty(b, nc, h, dh, ds)  # the chunk states, then beside them
+    G = torch.empty_like(S)            # their adjoints, G_{n+1} at slot n
+    decay = x.new_empty(b, nc, h)
+    dBp = x.new_empty(b, l, h, ds)  # per-head partials of dB and dC
+    dCp = torch.empty_like(dBp)
+    dAp = x.new_empty(b, nc, h)
+    with torch.cuda.device(x.device):
+        KERNEL_BWD.launch("ssd_scan_bwd_f32", *(pointer(t) for t in (
+            x, dt, A, B, C, dy, dx, ddt, dA, dB, dC, S, G, decay, dBp, dCp, dAp)),
+            b, l, h, dh, ds, chunk, stream_handle(x))
+    return dx, ddt, dA, dB, dC

@@ -1,7 +1,9 @@
-"""LM architecture substrate, inference path (port of ``repro.models``):
-config-driven ``dense``/``ssm``/``hybrid`` models as ``nn.Module``
-parameter trees and plain functions on tensors."""
-from .common import ModelOptions, ShardingPolicy
+"""LM architecture substrate (port of ``repro.models``): config-driven
+``dense``/``ssm``/``hybrid`` models as ``nn.Module`` parameter trees and
+plain functions on tensors, for inference and training; ``reversible``
+integrates residual depth with EES(2,5) and the reversible adjoint."""
+from . import reversible
+from .common import ModelOptions, ShardingPolicy, constrain
 from .transformer import (
     LMParams,
     forward,
@@ -18,6 +20,7 @@ __all__ = [
     "LMParams",
     "ModelOptions",
     "ShardingPolicy",
+    "constrain",
     "forward",
     "init_cache",
     "init_params",
@@ -25,5 +28,6 @@ __all__ = [
     "loss_fn",
     "make_serve_step",
     "make_train_step",
+    "reversible",
     "serve_step",
 ]

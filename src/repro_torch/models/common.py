@@ -2,11 +2,14 @@
 ``repro.models.common``).
 
 The port runs on one device, so the sharding hooks are the identity: a
-:class:`ShardingPolicy` naming mesh axes, or decode-cache constraints, raise
-:class:`~repro_torch.device.NotYetPorted` (multi-device layouts come with
-ROADMAP A14).  ``remat`` is accepted and changes nothing on an inference
-pass; ``bf16_ar_barrier`` pins nothing on one device.  ``attn_impl="stub"``
-(the reference's dry-run cost isolation) raises ``NotYetPorted``.
+:class:`ShardingPolicy` naming mesh axes, decode-cache constraints, or a
+:func:`constrain` spec raise :class:`~repro_torch.device.NotYetPorted`
+(multi-device layouts come with ROADMAP A14b).  ``remat`` rematerialises
+each layer in the backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` of its scanned layer; it changes nothing on a pass
+without gradients.  ``bf16_ar_barrier`` pins nothing on one device.
+``attn_impl="stub"`` (the reference's dry-run cost isolation) raises
+``NotYetPorted``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from ..device import not_yet_ported
 
-__all__ = ["ModelOptions", "ShardingPolicy", "NO_SHARDING", "dtype_of"]
+__all__ = ["ModelOptions", "ShardingPolicy", "NO_SHARDING", "dtype_of", "constrain"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +55,7 @@ NO_SHARDING = ShardingPolicy()
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    remat: bool = False  # no effect on an inference pass
+    remat: bool = False  # recompute each layer in the backward
     use_flash: str = "auto"  # kernel dispatch: auto | never | interpret
     attn_chunk: int = 512  # q-chunk of the plain (non-flash) attention path
     shard: ShardingPolicy = NO_SHARDING
@@ -79,3 +82,12 @@ class ModelOptions:
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
+
+
+def constrain(x, spec=None):
+    """The reference's sharding constraint: ``spec=None`` returns ``x``; a
+    spec (a mesh layout) raises ``NotYetPorted`` (ROADMAP A14b)."""
+    if spec is not None:
+        raise not_yet_ported("constrain with a sharding spec (multi-device "
+                             "activation sharding; ROADMAP A14b)")
+    return x

@@ -1,5 +1,5 @@
-"""Config-driven model assembly: init, forward, serve steps (port of
-``repro.models.transformer``, inference path).
+"""Config-driven model assembly: init, forward, loss, train and serve steps
+(port of ``repro.models.transformer``).
 
 One code path serves the ``dense``, ``ssm`` and ``hybrid`` families:
 
@@ -14,8 +14,10 @@ Parameters live in :class:`LMParams`, an ``nn.Module`` whose leaves are
 per-layer leaves are an ``nn.ModuleList`` (layer ``i`` is the reference's
 index ``i`` of the leading axis).  Decode carries KV caches (attention) and
 conv/SSD states (mamba) in the reference's stacked layout and updates them
-in place.  The ``moe`` family, the ``patch``/``frames`` frontends,
-``loss_fn`` and ``make_train_step`` raise
+in place.  Training is masked next-token cross-entropy (:func:`loss_fn`)
+through autograd; a gradient through the LM kernels runs their backward
+kernels on the card.  :func:`make_train_step` updates the parameters in
+place.  The ``moe`` family and the ``patch``/``frames`` frontends raise
 :class:`~repro_torch.device.NotYetPorted`.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core import prng
@@ -213,8 +216,16 @@ def forward(
     _check_supported(cfg)
     h = params["embed"][batch["tokens"]]
     shared = params.get("shared")
+    # remat: each layer's activations are recomputed in the backward (the
+    # reference's jax.checkpoint of its scanned body); nothing to recompute
+    # on a pass without gradients
+    remat = opts.remat and torch.is_grad_enabled()
     for idx, layer in enumerate(params.layers):
-        h = _layer_apply(cfg, opts, shared, h, layer, idx)
+        if remat:
+            h = checkpoint(_layer_apply, cfg, opts, shared, h, layer, idx,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _layer_apply(cfg, opts, shared, h, layer, idx)
     h, head = _head(cfg, params, h)
     if head_positions == "last":
         h = h[:, -1:, :]
@@ -225,7 +236,19 @@ def forward(
 
 
 def loss_fn(cfg: ArchConfig, params, batch, opts: ModelOptions = ModelOptions()):
-    raise not_yet_ported("loss_fn (training through the LM substrate)")
+    """Masked next-token cross-entropy over ``batch["labels"]`` and the
+    optional ``batch["loss_mask"]`` (+0.01 * MoE aux / n_layers for moe)."""
+    logits, aux = forward(cfg, params, batch, opts)
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +324,38 @@ def serve_step(
 # Step builders.
 # ---------------------------------------------------------------------------
 
+def apply_update(optimizer, params: LMParams, grads, opt_state):
+    """One optimizer update written into ``params`` in place; returns the
+    new optimizer state and the gradient norm."""
+    leaves = list(params.parameters())
+    new_p, opt_state, gnorm = optimizer.update(grads, opt_state,
+                                               [p.detach() for p in leaves])
+    with torch.no_grad():
+        for p, v in zip(leaves, new_p):
+            p.copy_(v)
+    return opt_state, gnorm
+
+
 def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOptions()):
-    raise not_yet_ported("make_train_step (training through the LM substrate)")
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss's gradients by autograd and one optimizer update.
+
+    ``params`` is an :class:`LMParams`, updated in place and returned (as
+    the port's ``make_sde_train_step`` updates its module); ``opt_state`` is
+    ``optimizer.init(list(params.parameters()))``; ``batch`` holds device
+    tensors ``tokens``, ``labels`` and optionally ``loss_mask``.
+    ``metrics`` holds the device scalars ``loss`` and ``grad_norm``."""
+    _check_supported(cfg)
+
+    def train_step(params, opt_state, batch):
+        leaves = list(params.parameters())
+        loss = loss_fn(cfg, params, batch, opts)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        opt_state, gnorm = apply_update(optimizer, params, grads, opt_state)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions()):

@@ -1,6 +1,7 @@
 """Training of the port (port of ``repro.train.trainer``, one device).
 
-Three layers, each optional, as the reference's:
+Three layers, each optional, as the reference's (and the LM's accumulating
+step, :func:`make_accum_train_step`, ``train_loop``'s default):
 
 * :func:`make_sde_train_step` — ONE optimizer update from one Monte-Carlo
   batch of ``n_paths`` trajectories through
@@ -39,11 +40,13 @@ from ..core.registry import get_solver
 from ..core.sdeint import path_keys, sdeint
 from ..device import not_yet_ported, resolve_device
 from ..kernels._build import GraphLaunches
+from ..models import ModelOptions, loss_fn, make_train_step
+from ..models.transformer import apply_update
 from ..optim import adamw, cosine_schedule
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault_tolerance import recovery_plan
 
-__all__ = ["TrainLoopConfig", "train_loop", "make_sde_train_step",
+__all__ = ["TrainLoopConfig", "train_loop", "make_accum_train_step", "make_sde_train_step",
            "make_scanned_step", "init_scan_counters", "ScannedStep",
            "ResilienceConfig", "resilient_train_loop"]
 
@@ -53,9 +56,45 @@ class TrainLoopConfig:
     steps: int = 100
     ckpt_every: int = 50
     ckpt_dir: Optional[str] = None
-    microbatches: int = 1  # the default LM step's accumulation factor (A16)
+    microbatches: int = 1  # gradient-accumulation factor of the default LM step
     log_every: int = 10
     steps_per_call: int = 1  # optimizer steps fused into one dispatch
+
+
+def make_accum_train_step(cfg, optimizer, opts: ModelOptions, microbatches: int = 1,
+                          accum_dtype=None, grad_constraint=None):
+    """The LM's train step with gradient accumulation over ``microbatches``
+    (the reference's; :func:`~repro_torch.models.make_train_step` when
+    ``microbatches <= 1``).
+
+    The batch's leaves are ``(microbatches, local_batch, ...)``; the
+    microbatches' gradients are summed in order into a buffer of
+    ``accum_dtype`` (default float32), divided by ``microbatches`` and
+    applied once; the loss is the mean of the microbatch losses.  The
+    parameters are updated in place.  ``grad_constraint`` (a sharding of
+    the accumulation buffer) is not ported yet (ROADMAP A14b)."""
+    if grad_constraint is not None:
+        raise not_yet_ported("make_accum_train_step's grad_constraint (a sharded "
+                             "accumulation buffer; ROADMAP A14b)")
+    if microbatches <= 1:
+        return make_train_step(cfg, optimizer, opts)
+    adt = accum_dtype or torch.float32
+
+    def step(params, opt_state, batch):
+        leaves = list(params.parameters())
+        gsum = [torch.zeros(p.shape, dtype=adt, device=p.device) for p in leaves]
+        lsum = None
+        for i in range(microbatches):
+            mb = {k: v[i] for k, v in batch.items()}
+            loss = loss_fn(cfg, params, mb, opts)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            gsum = [a if g is None else a + g.to(adt) for a, g in zip(gsum, grads)]
+            lsum = loss.detach() if lsum is None else lsum + loss.detach()
+        grads = [g / microbatches for g in gsum]
+        opt_state, gnorm = apply_update(optimizer, params, grads, opt_state)
+        return params, opt_state, {"loss": lsum / microbatches, "grad_norm": gnorm}
+
+    return step
 
 
 def make_sde_train_step(
@@ -430,15 +469,17 @@ def train_loop(
     state in place, and saves ``(params, opt_state)`` with
     ``extra={"steps_per_call": K}``.
 
-    ``step_fn`` is required: the reference's default, the LM's
-    ``make_accum_train_step``, waits for ROADMAP A16 (``cfg``, ``opts`` and
-    ``loop.microbatches`` feed it there)."""
-    if step_fn is None:
-        raise not_yet_ported(
-            "train_loop's default step, the LM's make_accum_train_step "
-            "(ROADMAP A16); pass step_fn")
+    ``step_fn`` defaults to the LM's step, ``make_accum_train_step(cfg,
+    optimizer, opts or ModelOptions(), loop.microbatches)`` with ``params``
+    an :class:`~repro_torch.models.LMParams` (batches of ``tokens``,
+    ``labels`` and ``loss_mask``, with a leading microbatch axis when
+    ``loop.microbatches > 1``); it is not marked capturable, so chunks of
+    it run eagerly."""
     device = _state_leaves(params)[0].device
     optimizer = optimizer or adamw(cosine_schedule(3e-4, 10, loop.steps))
+    if step_fn is None:
+        step_fn = make_accum_train_step(cfg, optimizer, opts or ModelOptions(),
+                                        loop.microbatches)
     opt_state = optimizer.init(_state_leaves(params)
                                if isinstance(params, nn.Module) else params)
     if to_device is None:

@@ -4,8 +4,8 @@ against the reference's, and the port's tableaux helpers against the
 reference's (float64, exact).
 
 Every name the reference's modules export is exported by the port, except
-those still to be ported, listed here with the queue item that brings them:
-the LM's accumulating train step (A16).  ``repro_torch.train`` re-exports the names of the reference's
+those still to be ported, listed here with the queue item that brings them
+(none now: A16 brought the LM's accumulating train step).  ``repro_torch.train`` re-exports the names of the reference's
 ``train/trainer.py``, ``checkpoint.py`` and ``fault_tolerance.py`` (the
 reference has no ``train/__init__.py``).
 """
@@ -43,8 +43,8 @@ A15_NSDE = ("init_kuramoto_nsde", "kuramoto_nsde_term", "init_sphere_nsde",
 MODULE_WAITING = {
     "serving": (jserving, tserving, {}),
     "nsde": (jnsde, tnsde, {}),
-    "train.trainer": (jtrainer, ttrainer, {"A16": {"make_accum_train_step"}}),
-    "train (package) / trainer": (jtrainer, ttrain, {"A16": {"make_accum_train_step"}}),
+    "train.trainer": (jtrainer, ttrainer, {}),
+    "train (package) / trainer": (jtrainer, ttrain, {}),
     "train.checkpoint": (jcheckpoint, tcheckpoint, {}),
     "train (package) / checkpoint": (jcheckpoint, ttrain, {}),
     "train.fault_tolerance": (jfault_tolerance, tfault_tolerance, {}),

@@ -23,12 +23,14 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import PRNGKey, path_keys, prng, sdeint
 from repro_torch.core.williamson import EES25_2N, EES27_2N
-from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, INCREMENT_DIAG, INCREMENT_GENERAL,
-                                 INCREMENT_PRE, SSD_SCAN, WILLIAMSON2N, WS_STAGE_DIAG,
-                                 WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL, WS_STAGE_PRE, build_kernels)
+from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, FLASH_ATTENTION_BWD,
+                                 INCREMENT_DIAG, INCREMENT_GENERAL, INCREMENT_PRE, SSD_SCAN,
+                                 SSD_SCAN_BWD, WILLIAMSON2N, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD,
+                                 WS_STAGE_GENERAL, WS_STAGE_PRE, build_kernels)
 from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
-                                                                 flash_attention, route)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+                                                                 flash_attention,
+                                                                 flash_attention_bwd, route)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.sde_step import ref as sref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
 from repro_torch.kernels.sde_step.sde_step import (MAX_INCS, ROW_ROUTE_MAX_BYTES, axpy_chain,
@@ -37,11 +39,12 @@ from repro_torch.kernels.sde_step.sde_step import (MAX_INCS, ROW_ROUTE_MAX_BYTES
                                                    increment_pre, route_launches, ws_stage_diag,
                                                    ws_stage_diag_bwd, ws_stage_general,
                                                    ws_stage_pre)
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.kernels.williamson2n.ref import williamson2n_ref
 from repro_torch.kernels.williamson2n.williamson2n import williamson2n
-from repro_torch.models import ModelOptions, forward, init_cache, init_params, serve_step
+from repro_torch.models import (ModelOptions, forward, init_cache, init_params, loss_fn,
+                                make_train_step, serve_step)
 from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
 from repro_torch.optim import adamw
 from repro_torch.serving import BucketKey, SDESampleConfig, SDESampleEngine
@@ -570,6 +573,105 @@ def test_lm_forward_kernels_equal_plain(cuda, arch):
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     assert launched == (n_attn, n_ssd)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# (b, hq, hkv, s, d, causal): the reference's test shapes, qwen3-1.7b's GQA,
+# a ragged length, odd head dims and zamba2-7b's head dim
+FLASH_BWD_CASES = [(2, 4, 2, 256, 64, True), (1, 8, 1, 128, 128, True),
+                   (2, 2, 2, 256, 64, False), (1, 16, 8, 512, 128, True),
+                   (2, 4, 2, 200, 112, True), (2, 4, 2, 200, 112, False),
+                   (1, 4, 2, 130, 1, True), (1, 4, 2, 129, 127, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", FLASH_BWD_CASES)
+def test_flash_attention_bwd_matches_twin(cuda, dtype, b, hq, hkv, s, d, causal):
+    """float32 within 1e-5 of each gradient's max|.| of the twin; bf16
+    against the twin in float32 on the same bf16 inputs, within one bf16
+    rounding (2^-8 |want|) plus 1e-5 of max|.|.  Two runs agree bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(b, hq, s, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    do = torch.randn(b, hq, s, d, generator=gen, device=cuda).to(dtype)
+    out = flash_attention(q, k, v, causal=causal)
+    before = FLASH_ATTENTION_BWD.launches
+    got = flash_attention_bwd(q, k, v, out, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, do, causal=causal)
+    assert FLASH_ATTENTION_BWD.launches == before + 2
+    want = attention_bwd_ref(*(t.float() for t in (q, k, v, out, do)), causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a)
+        scale = w.abs().max().item()
+        diff = (g.float() - w).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 1e-5 * scale
+        else:
+            assert (diff <= 2.0 ** -8 * w.abs() + 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize("b,l,h,dh,ds,chunk", SSD_CASES[:6] + [(1, 64, 3, 7, 5, 16)])
+def test_ssd_scan_bwd_matches_twin(cuda, b, l, h, dh, ds, chunk):
+    xs = _ssd_inputs(b, l, h, dh, ds, cuda, seed=l + h + 1)
+    dy = torch.randn(b, l, h, dh, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(l))
+    before = SSD_SCAN_BWD.launches
+    got = ssd_scan_bwd(*xs, dy, chunk=chunk)
+    again = ssd_scan_bwd(*xs, dy, chunk=chunk)
+    assert SSD_SCAN_BWD.launches == before + 2
+    want = ssd_bwd_ref(*xs, dy, chunk=chunk)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_ssd_scan_bwd_decay_extremes(cuda):
+    x, _, _, B, C = _ssd_inputs(1, 128, 2, 8, 16, cuda, seed=0)
+    dt = torch.full((1, 128, 2), 5.0, device=cuda)
+    A = torch.tensor([-8.0, -0.001], device=cuda)
+    dy = torch.randn_like(x)
+    got = ssd_scan_bwd(x, dt, A, B, C, dy, chunk=64)
+    want = ssd_bwd_ref(*(t.double() for t in (x, dt, A, B, C, dy)), chunk=64)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g.double() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b"])
+def test_lm_train_step_kernels_equal_plain(cuda, arch):
+    """The loss and its gradients through the kernels (both backward
+    kernels launched where the family has the layer) against the plain
+    path: loss within 1e-5 relative, each gradient leaf within 1e-4 of the
+    larger of its own max|.| and 1% of the largest leaf's (a leaf whose
+    gradients are small against the others', such as an SSM's D, sums terms
+    far larger than itself); then one ``make_train_step`` on the kernel
+    path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke()
+    toks = torch.randint(0, cfg.vocab, (2, 129), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = init_params(cfg, 0, device=cuda)
+    leaves = list(params.parameters())
+    runs = []
+    for use_flash in ("auto", "never"):
+        before = (FLASH_ATTENTION_BWD.launches, SSD_SCAN_BWD.launches)
+        loss = loss_fn(cfg, params, batch, ModelOptions(use_flash=use_flash, remat=True))
+        grads = torch.autograd.grad(loss, leaves)
+        launched = (FLASH_ATTENTION_BWD.launches - before[0],
+                    SSD_SCAN_BWD.launches - before[1])
+        runs.append((loss.item(), grads, launched))
+    (lk, gk, nk), (lp, gp, npl) = runs
+    n_attn = {"hybrid": (cfg.n_layers + cfg.shared_attn_every - 1)
+              // max(1, cfg.shared_attn_every), "ssm": 0, "dense": cfg.n_layers}[cfg.family]
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    assert nk == (n_attn, n_ssd) and npl == (0, 0)
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    top = max(b.abs().max().item() for b in gp)
+    for a, b in zip(gk, gp):
+        assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-2 * top)
+    opt = adamw(1e-3)
+    _, state, m = make_train_step(cfg, opt)(params, opt.init(leaves), batch)
+    assert int(state.step) == 1 and bool(torch.isfinite(m["loss"]))
 
 
 def test_lm_decode_matches_forward_on_the_card(cuda):

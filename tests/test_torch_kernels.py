@@ -21,9 +21,10 @@ from repro_torch.benchmarks import general_variants
 from repro_torch.benchmarks.stream_variants import VARIANTS
 from repro_torch.benchmarks.stream_variants import _edit as _edit_source
 from repro_torch.core.williamson import EES25_2N, EES27_2N
-from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, INCREMENT_DIAG, INCREMENT_GENERAL,
-                                 INCREMENT_PRE, KERNELS, SSD_SCAN, WILLIAMSON2N, WS_STAGE_DIAG,
-                                 WS_STAGE_DIAG_BWD, WS_STAGE_GENERAL, WS_STAGE_PRE)
+from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, FLASH_ATTENTION_BWD, INCREMENT_DIAG,
+                                 INCREMENT_GENERAL, INCREMENT_PRE, KERNELS, SSD_SCAN,
+                                 SSD_SCAN_BWD, WILLIAMSON2N, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD,
+                                 WS_STAGE_GENERAL, WS_STAGE_PRE)
 from repro_torch.kernels.sde_step import ops as tops
 from repro_torch.kernels.sde_step import ref as tref
 from repro_torch.kernels.sde_step.ref import ws_stage_diag_ref
@@ -333,10 +334,12 @@ def test_kernels_listed():
     assert {k.name for k in KERNELS} == {
         "ws_stage_diag", "williamson2n", "ws_stage_diag_bwd", "increment_diag",
         "axpy_chain", "increment_pre", "ws_stage_pre", "increment_general",
-        "ws_stage_general", "flash_attention", "ssd_scan"}
+        "ws_stage_general", "flash_attention", "ssd_scan", "flash_attention_bwd",
+        "ssd_scan_bwd"}
     for k in (WS_STAGE_DIAG, WILLIAMSON2N, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
               AXPY_CHAIN, INCREMENT_PRE, WS_STAGE_PRE, INCREMENT_GENERAL,
-              WS_STAGE_GENERAL, FLASH_ATTENTION, SSD_SCAN):
+              WS_STAGE_GENERAL, FLASH_ATTENTION, SSD_SCAN, FLASH_ATTENTION_BWD,
+              SSD_SCAN_BWD):
         assert k.source.name == f"{k.name}.cu"
 
 
@@ -344,13 +347,17 @@ def test_kernel_sources_and_build_names():
     # The SDE-step kernels stream their operands (bytes bound them), and so,
     # by a hair, does the SSD scan on TF32 tensor cores (its three-pass
     # products take 69 us against 71 us of bytes at zamba2-7b's layer);
-    # attention is bound by its operations.
-    op_bound = {"flash_attention"}
+    # attention is bound by its operations, forward and backward, and so, by
+    # a little, is the SSD's backward.  The two backward kernels replace no
+    # TPU kernel (the reference has none) and say so.
+    op_bound = {"flash_attention", "flash_attention_bwd", "ssd_scan_bwd"}
+    no_tpu = {"flash_attention_bwd", "ssd_scan_bwd"}
     for k in KERNELS:
         assert k.source.exists()
         text = k.source.read_text()
         bound = "Bound: operations" if k.name in op_bound else "Bound: bytes"
-        assert "Replaces the TPU kernel" in text and bound in text
+        replaces = "Replaces no TPU kernel" if k.name in no_tpu else "Replaces the TPU kernel"
+        assert replaces in text and bound in text
         assert k.library_path().name.startswith(f"lib{k.name}-")
 
 

@@ -26,7 +26,6 @@ from repro.models.attention import _chunked as j_chunked
 from repro.models.attention import decode_attention as jdecode_attention
 from repro_torch.benchmarks import flash_variants, ssd_variants
 from repro_torch.configs import get_arch, list_archs
-from repro_torch.device import NotYetPorted
 from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
 from repro_torch.kernels.flash_attention.flash_attention import (_ENTRY, MAX_HEAD_DIM,
                                                                  ROUTE_LAUNCHES, flash_attention,
@@ -404,14 +403,21 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
 
 
 def test_kernel_backwards_raise_not_yet_ported():
+    """The two kernels' autograd Functions have a backward now: on a CPU
+    tensor it runs the backward twin, equal to autograd through the forward
+    twin (``tests/test_torch_lm_backward.py`` holds both to ``jax.grad``)."""
     q, k, v = (t.requires_grad_() for t in map(torch.from_numpy, _qkv(1, 2, 2, 16, 16, 8, 9)))
     out = _FlashAttention.apply(q, k, v, True, None)
-    with pytest.raises(NotYetPorted, match="flash_attention"):
-        out.sum().backward()
+    got = torch.autograd.grad(out.sum(), (q, k, v))
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=True).sum(), (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
     t = [torch.from_numpy(a).requires_grad_() for a in _ssd_inputs(1, 16, 2, 4, 8, 1)]
     y = _SSDScan.apply(*t, 16)
-    with pytest.raises(NotYetPorted, match="ssd_scan"):
-        y.sum().backward()
+    got = torch.autograd.grad(y.sum(), t)
+    want = torch.autograd.grad(ssd_chunked_ref(*t, chunk=16)[0].sum(), t)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
 # -- the flash-attention mma_tf32 route's hi + lo split, emulated ---------------

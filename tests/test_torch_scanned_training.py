@@ -39,7 +39,6 @@ from repro.core import SDETerm as JTerm
 from repro.optim import adamw as jadamw
 from repro.optim import cosine_schedule as jcosine
 from repro.train import trainer as jtrainer
-from repro_torch import NotYetPorted
 from repro_torch.core import SDETerm, prng
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.kernels._build import CudaKernel, GraphLaunches
@@ -583,9 +582,22 @@ def test_train_loop_consumes_a_plain_iterator_and_a_module():
 
 
 def test_train_loop_without_a_step_names_the_lm_item():
-    with pytest.raises(NotYetPorted, match="A16"):
-        train_loop(None, {"w": torch.zeros(2)}, _ToyData(),
-                   loop=TrainLoopConfig(steps=1))
+    """Without ``step_fn`` the loop trains the LM with its default step,
+    ``make_accum_train_step`` (``tests/test_torch_lm_train_loop.py`` holds
+    it to the reference's loop)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params
+
+    cfg = get_arch("olmo-1b").smoke()
+    params = init_params(cfg, 0, device="cpu")
+    before = [p.detach().clone() for p in params.parameters()]
+    out = train_loop(cfg, params, SyntheticTokens(DataConfig(2, 8, cfg.vocab)),
+                     loop=TrainLoopConfig(steps=2, log_every=1))
+    assert out["params"] is params and out["n_dispatches"] == 2
+    assert [s for s, _ in out["losses"]] == [1, 2]
+    assert all(np.isfinite(v) for _, v in out["losses"])
+    assert any(not torch.equal(a, b) for a, b in zip(before, params.parameters()))
 
 
 # -- resilient_train_loop --------------------------------------------------------
