@@ -896,7 +896,9 @@ def lm_bwd_kernel_phase(torch, timer):
     ``ssd_bwd_ref``), twice each (bitwise-equal runs), then timed at the LM
     path's shapes beside the twins and, for attention, SDPA's backward;
     returns their stats."""
-    from repro_torch.kernels.flash_attention.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention.flash_attention import (BWD_ROUTE_LAUNCHES,
+                                                                     bwd_route,
+                                                                     flash_attention,
                                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
@@ -913,8 +915,14 @@ def lm_bwd_kernel_phase(torch, timer):
         q, k, v = _flash_inputs(torch, gen, shape, dtype)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         out = flash_attention(q, k, v, causal=causal, sm_scale=scale)
+        path = bwd_route(dtype, shape[4])
+        before = BWD_ROUTE_LAUNCHES[path]
         got = flash_attention_bwd(q, k, v, out, do, causal=causal, sm_scale=scale)
         again = flash_attention_bwd(q, k, v, out, do, causal=causal, sm_scale=scale)
+        check(BWD_ROUTE_LAUNCHES[path] == before + 2,
+              f"flash_attention_bwd {shape} {dtype}: not counted on the {path} route")
+        check(path == ("wgmma" if dtype == torch.bfloat16 and shape[4] % 8 == 0 else "simt"),
+              f"flash_attention_bwd {shape} {dtype} took the {path} route")
         # the twin in float32 on the same inputs (bf16 ones widened exactly)
         want = attention_bwd_ref(*(t.float() for t in (q, k, v, out, do)), causal=causal,
                                  sm_scale=scale)
@@ -937,11 +945,13 @@ def lm_bwd_kernel_phase(torch, timer):
         lim = (f"{FLASH_BWD_F32_REL:g} of max|.|" if dtype == torch.float32 else
                "2^-8 |want| + 1e-5 max|.| elementwise")
         print(f"  flash_attention_bwd {str(dtype)[6:]} (b,hq,hkv,s,d)={shape[:5]} "
-              f"causal={causal} sm_scale={scale}: dq, dk, dv vs the float32 twin "
+              f"causal={causal} sm_scale={scale}, route {path}: dq, dk, dv vs the float32 twin "
               f"{', '.join(f'{e:.3e}' for e in errs)} of max|.| (limit {lim}); two runs "
               f"bitwise equal", flush=True)
         check(ok, f"flash_attention_bwd {shape} {dtype} disagrees with its twin")
         del q, k, v, do, out, got, again, want
+    print(f"  flash_attention_bwd calls by route over the cases: {dict(BWD_ROUTE_LAUNCHES)}",
+          flush=True)
     torch.cuda.empty_cache()
     shape = FLASH_BWD_LM_SHAPES[0]
     b, hq, hkv, s, d, _, _ = shape
@@ -960,14 +970,16 @@ def lm_bwd_kernel_phase(torch, timer):
          "enable_gqa=True), its backward alone", library),
         "flash_attention_bwd", q.element_size() * (4 * q.numel() + 4 * k.numel()),
         2.5 * fwd_ops, BF16_FLOPS, "bf16 tensor-core (2.5x the forward's products)", worst)
-    print(f"  (the kernel runs on the float32 FMA units and recomputes S three times: "
-          f"{8 * fwd_ops / 2 / FP32_FLOPS * 1e6:.0f} us of its own products at 67 TFLOP/s)",
-          flush=True)
+    print(f"  (the wgmma route does 11 products of the forward's size, S three times, dP "
+          f"twice, dV, dK and dQ two passes each for the bf16 hi + lo split, at 128/{d} of "
+          f"the head dim: {11 * fwd_ops / 2 * 128 / d / BF16_FLOPS * 1e6:.0f} us of its own "
+          f"products at the bf16 rate)", flush=True)
+    check(bwd_route(torch.bfloat16, d) == "wgmma", "zamba2-7b's backward is not on wgmma")
     for name, fn in (("stats", "flash_attention_bwd_stats"),
                      ("dkdv", "flash_attention_bwd_dkdv"), ("dq", "flash_attention_bwd_dq")):
         ms = timer.ms(lambda: flash_attention_bwd(q, k, v, out, do, causal=True), fn, reps=5)
-        print(f"  flash_attention_bwd launch {name}: {ms * 1e3:.2f} us with L2 flushed",
-              flush=True)
+        print(f"  flash_attention_bwd launch {name} (wgmma): {ms * 1e3:.2f} us with L2 "
+              f"flushed", flush=True)
     del q, k, v, do, out, leaves, lib_out
     torch.cuda.empty_cache()
 
@@ -1022,7 +1034,8 @@ def lm_bwd_kernel_phase(torch, timer):
     # the chunk states and their adjoints; 2 flops a MAC.  As for the
     # forward's row, the least
     # time for float32-exact products is three TF32 tensor-core passes (the
-    # hi + lo split); the kernel itself runs on the float32 FMA units.
+    # hi + lo split): the kernel runs its within-chunk products so, on TF32
+    # mma.sync, and its chunk states on the float32 FMA units.
     ops = 2 * b * nc * h * (tri * ds + tri * dh + tri * dh + 2 * tri * ds
                             + 5 * L * dh * ds)
     stats["ssd_scan_bwd"] = _timed_row(
@@ -1030,8 +1043,9 @@ def lm_bwd_kernel_phase(torch, timer):
         lambda: ssd_scan_bwd(*xs, dy, chunk=L),
         lambda: ssd_bwd_ref(*xs, dy, chunk=L), None, "ssd_bwd_kernel", moved, 3 * ops,
         TF32_FLOPS, "TF32 tensor-core (3 passes of the hi + lo split)", worst)
-    print(f"  (the same work at the float32 FMA rate, the kernel's units: "
-          f"{ops / FP32_FLOPS * 1e6:.2f} us)", flush=True)
+    print(f"  (the same work at the float32 FMA rate: {ops / FP32_FLOPS * 1e6:.2f} us; the "
+          f"chunk states and adjoints alone there: "
+          f"{2 * 2 * b * nc * h * L * dh * ds / FP32_FLOPS * 1e6:.2f} us)", flush=True)
     for name, fn in (("outer (states, adjoints)", "ssd_bwd_kernel_outer"),
                      ("pass (both)", "ssd_bwd_kernel_pass"),
                      ("chunk", "ssd_bwd_kernel_chunk"), ("reduce", "ssd_bwd_kernel_reduce")):
@@ -3808,6 +3822,8 @@ LM_TRAIN_STEPS = 4
 LM_RESUME_LAYERS = 2        # 18a's resume check: full width, the shared block at layer 0
 LM_GRAD_BATCH, LM_GRAD_LEN = 1, 512     # 18b
 LM_GRAD_REL = 1e-4          # 18b: each gradient leaf, of its max|.|
+SSD_Y_REL = 5e-4            # 18b: the forward ssd_scan's y from the float64 twin, of
+                            # max|y| (the reference's kernel tolerance, tests/test_kernels.py)
 EES_DEPTHS = (4, 8, 16)     # 18c: olmo-1b's depth is 16
 EES_BATCH, EES_LEN = 4, 512
 # 18c: reversible vs full adjoint, the whole gradient's relative distance.
@@ -3873,7 +3889,8 @@ def lm_train_card(torch, timer):
     from repro_torch.configs import get_arch
     from repro_torch.core import prng
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.kernels.flash_attention.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.kernels.flash_attention.flash_attention import (BWD_ROUTE_LAUNCHES,
+                                                                     ROUTE_LAUNCHES)
     from repro_torch.models import ModelOptions, init_params
     from repro_torch.optim import adamw, cosine_schedule
     from repro_torch.train import make_accum_train_step
@@ -3899,6 +3916,7 @@ def lm_train_card(torch, timer):
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
+        BWD_ROUTE_LAUNCHES.update(dict.fromkeys(BWD_ROUTE_LAUNCHES, 0))
         out = _lm_train_run(torch, cfg, params, mb, LM_TRAIN_STEPS)
         torch.cuda.synchronize()
         launched = {k: v for k, v in _read_launches().items() if k in LM_KERNELS}
@@ -3909,7 +3927,8 @@ def lm_train_card(torch, timer):
               f"losses {', '.join(f'{v:.6f}' for v in losses)}; {per_step * 1e3:.1f} ms a "
               f"step over the run ({tokens / per_step:.0f} tokens/s, the first step's "
               f"warm-up included); peak device memory {peak / 2**30:.2f} GiB; launches "
-              f"{launched}; flash_attention by route {dict(ROUTE_LAUNCHES)}", flush=True)
+              f"{launched}; flash_attention by route {dict(ROUTE_LAUNCHES)}, "
+              f"flash_attention_bwd by route {dict(BWD_ROUTE_LAUNCHES)}", flush=True)
         check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
               f"microbatches={mb}: the losses are not {LM_TRAIN_STEPS} finite values")
         # each step: every layer's forward twice (remat), its backward once
@@ -3921,6 +3940,9 @@ def lm_train_card(torch, timer):
               f"not {want}")
         check(ROUTE_LAUNCHES["wgmma"] == want["flash_attention"],
               f"the bf16 training forward's attention took the routes {ROUTE_LAUNCHES}")
+        check(BWD_ROUTE_LAUNCHES["wgmma"] == want["flash_attention_bwd"],
+              f"the bf16 training step's attention backward took the routes "
+              f"{BWD_ROUTE_LAUNCHES}")
         runs[mb] = (launched, losses)
         del out  # its optimizer state: 12.8 GB of AdamW moments
     first = runs[1][1][0], runs[2][1][0]
@@ -4144,8 +4166,58 @@ def ssd_operand_check(torch, cfg, params, batch):
           f"kernel {', '.join(f'{rel(a, b):.2e}' for a, b in zip(got, exact))}, float32 "
           f"twin {', '.join(f'{rel(a, b):.2e}' for a, b in zip(twin, exact))}", flush=True)
     worst = max(rel(a, b) / max(rel(t, b), 1e-7) for a, t, b in zip(got, twin, exact))
+    print(f"  the forward kernel's y from the float64 twin on these operands: "
+          f"{rel(y, y64):.3e} of max|y| (limit {SSD_Y_REL:g}, the reference's kernel "
+          f"tolerance); the float32 twin's {rel(y32, y64):.3e}", flush=True)
+    check(rel(y, y64) <= SSD_Y_REL, "18b: the forward ssd_scan's y is further from the "
+          "float64 twin than the reference's kernel tolerance on the model's operands")
     check(worst <= 3.0, "18b: the backward kernel is further from the float64 twin than "
           "three times the float32 twin on the model's operands")
+    ssd_logits_diagnostic(torch, cfg, batch)
+
+
+def ssd_logits_diagnostic(torch, cfg, batch):
+    """18b: the logits of one zamba2-7b SSM layer at full width (a 1-layer
+    model: the shared attention block, then one Mamba2 layer) on the kernel
+    path in float32 and on the plain path in float32, each against the same
+    forward in float64 (the layer's projections, convolutions and SSD in
+    float64; the norms and attention compute in float32 inside, as the model
+    writes them; the logits are returned in float32)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+    from repro_torch.models import ModelOptions, forward, init_params
+    from repro_torch.models import ssm as ssm_module
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    params = init_params(cfg1, prng.PRNGKey(1, device="cuda"), device="cuda")
+    toks = {"tokens": batch["tokens"]}
+    kernel_ssd = ssm_module.ssd
+
+    def ssd64(x, dt, A, B, C, *, chunk, use_kernel):
+        wide = (t.double() for t in (x, dt, A, B, C))
+        return ssd_chunked_ref(*wide, chunk=min(chunk, x.shape[1]))[0]
+
+    with torch.no_grad():
+        kernel, _ = forward(cfg1, params, toks, ModelOptions())
+        plain, _ = forward(cfg1, params, toks, ModelOptions(use_flash="never"))
+        wide = copy.deepcopy(params).double()
+        ssm_module.ssd = ssd64
+        try:
+            exact, _ = forward(cfg1, wide, toks, ModelOptions(use_flash="never"))
+        finally:
+            ssm_module.ssd = kernel_ssd
+    top = exact.double().abs().max().item()
+    print(f"  logits of one zamba2-7b SSM layer at full width (1 layer: the shared "
+          f"attention block and one Mamba2 layer, B={batch['tokens'].shape[0]} x "
+          f"{batch['tokens'].shape[1]}) against the same forward in float64: kernel path "
+          f"{(kernel.double() - exact.double()).abs().max().item() / top:.3e}, plain path "
+          f"{(plain.double() - exact.double()).abs().max().item() / top:.3e} of "
+          f"max|logit| ({top:.3f})", flush=True)
+    del params, wide, kernel, plain, exact
+    torch.cuda.empty_cache()
 
 
 def ees_depth_card(torch):

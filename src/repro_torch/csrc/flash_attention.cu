@@ -110,6 +110,7 @@
 
 #include "tf32_split.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -310,7 +311,6 @@ constexpr int kWgThreads = 384;            // producer warpgroup + 2 consumers
 constexpr int kWgBlockQ = 128;             // q rows per block, 64 per consumer
 constexpr int kWgBlockK = 128;             // KV rows per tile
 constexpr int kWgStages = 2;               // K/V ring depth
-constexpr int kAtomCols = 64;              // bf16 columns of a 128-byte swizzle atom
 constexpr int kAtoms = kMaxD / kAtomCols;  // head dim padded to 128
 constexpr int kQBytes = kAtoms * kWgBlockQ * 128;
 constexpr int kTileBytes = kAtoms * kWgBlockK * 128;  // one K or V tile
@@ -320,89 +320,6 @@ constexpr int kOffBar = kOffV + kWgStages * kTileBytes;
 constexpr int kNumBars = 1 + 3 * kWgStages;  // q full; K full, V full, empty per stage
 // + 1024: the tiles start on a 1024-byte boundary (the swizzle's period)
 constexpr int kWgSmemBytes = kOffBar + 8 * kNumBars + 1024;
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC64 ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-#define REGS64                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-
-// d (64 x 128, float32) (+)= A (64 x 16, K-major in shared memory) *
-// B (16 x 128, K-major in shared memory); d is overwritten when !accumulate.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC64
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 128, float32) += A (64 x 16 bf16, the accumulator fragment layout
-// packed in 4 registers) * B (16 x 128, MN-major in shared memory).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// 2^x on the SFU; results below 2^-126 flush to 0 (weights that small are
-// far below what the bf16 output resolves).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Splits (x0, x1) into a bf16 pair and the bf16 pair of what it missed.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 back = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - back.x, x1 - back.y);
-}
 
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -590,29 +507,6 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-#undef ACC8
-#undef ACC64
-#undef REGS64
-
-// A (d, s, b * h) view of a contiguous (b, h, s, d) bf16 tensor, read in
-// boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; boxes
-// past d or s read zeros.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh,
-              int s, int d, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(s) * d * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kAtomCols),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
                  int hq, int hkv, int sq, int sk, int d, double sm_scale,
                  int causal, void* stream) {
@@ -625,9 +519,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(encode, &tm_q, q, b * hq, sq, d, kWgBlockQ) ||
-      !make_map(encode, &tm_k, k, b * hkv, sk, d, kWgBlockK) ||
-      !make_map(encode, &tm_v, v, b * hkv, sk, d, kWgBlockK))
+  if (!bf16_head_map(encode, &tm_q, q, b * hq, sq, d, kWgBlockQ) ||
+      !bf16_head_map(encode, &tm_k, k, b * hkv, sk, d, kWgBlockK) ||
+      !bf16_head_map(encode, &tm_v, v, b * hkv, sk, d, kWgBlockK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,

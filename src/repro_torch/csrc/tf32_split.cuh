@@ -52,12 +52,20 @@ struct FragA {
 #pragma unroll
     for (int i = 0; i < 4; ++i) split(v[i], hi[i], lo[i]);
   }
+  __device__ __forceinline__ void set_lo_truncated(const float (&v)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_lo_truncated(v[i], hi[i], lo[i]);
+  }
 };
 struct FragB {
   uint32_t hi[2], lo[2];
   __device__ __forceinline__ void set(float v0, float v1) {
     split(v0, hi[0], lo[0]);
     split(v1, hi[1], lo[1]);
+  }
+  __device__ __forceinline__ void set_lo_truncated(float v0, float v1) {
+    split_lo_truncated(v0, hi[0], lo[0]);
+    split_lo_truncated(v1, hi[1], lo[1]);
   }
 };
 // Part `part` of big + small += a b to float32 accuracy: 0 a_lo b_hi and 1

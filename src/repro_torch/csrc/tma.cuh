@@ -1,7 +1,7 @@
 // Hopper's asynchronous copies into shared memory: mbarrier completion,
-// TMA tile loads (cp.async.bulk.tensor) and the tensor maps that describe
-// them; shared by flash_attention.cu and the general-noise kernels'
-// staged route (row_matvec.cuh).
+// TMA tile loads (cp.async.bulk.tensor), bulk copies and the tensor maps
+// that describe them; shared by flash_attention.cu, flash_attention_bwd.cu
+// and the general-noise kernels' staged route (row_matvec.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -70,6 +70,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous memory into shared memory, both
+// 16-byte aligned, completing on `bar` as a TMA box does.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

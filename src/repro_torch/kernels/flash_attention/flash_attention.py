@@ -20,9 +20,17 @@ counts the launches, ``ROUTE_LAUNCHES`` splits them by route.
 
 :func:`flash_attention_bwd` is the gradient, from a second source,
 ``csrc/flash_attention_bwd.cu`` (``KERNEL_BWD``): three launches (row
-statistics, dK/dV, dQ) behind one C entry per dtype, float32 and bf16, on
-the float32 FMA units.  On a CPU tensor it is its twin
-:func:`~.ref.attention_bwd_ref`.
+statistics, dK/dV, dQ) behind one C entry per route.  :func:`route` picks
+it as for the forward: ``"wgmma"`` (bf16 with ``d % 8 == 0``, ``d <= 128``)
+runs every product on the tensor cores, P and dS split into bf16 hi + lo;
+float32 and other bf16 take ``"simt"``, the float32 FMA units.
+``BWD_ROUTE_LAUNCHES`` counts the calls by route.  On a CPU tensor it is
+its twin :func:`~.ref.attention_bwd_ref`.
+
+Both take the reference's keywords: ``interpret=True`` runs the plain twin
+on any device (the reference's Pallas interpret mode, which its CPU tests
+use); ``block_q`` and ``block_k`` are checked and otherwise unused, since
+each Hopper route fixes its tiles by its shared-memory layout.
 """
 from __future__ import annotations
 
@@ -34,8 +42,9 @@ import torch
 from .._build import CudaKernel, pointer, stream_handle
 from .ref import attention_bwd_ref, attention_ref, check_causal_shapes
 
-__all__ = ["KERNEL", "KERNEL_BWD", "MAX_HEAD_DIM", "ROUTE_LAUNCHES", "flash_attention",
-           "flash_attention_bwd", "route", "tf32_smem_bytes", "wgmma_smem_bytes"]
+__all__ = ["BWD_ROUTE_LAUNCHES", "KERNEL", "KERNEL_BWD", "MAX_HEAD_DIM", "ROUTE_LAUNCHES",
+           "bwd_route", "bwd_wgmma_smem_bytes", "flash_attention", "flash_attention_bwd",
+           "route", "tf32_smem_bytes", "wgmma_smem_bytes"]
 
 _I = ctypes.c_int
 _ARGS = [ctypes.c_void_p] * 4 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
@@ -44,17 +53,23 @@ _ENTRY = {"wgmma": {torch.bfloat16: "flash_attention_bf16_wgmma"},
           "simt": {torch.bfloat16: "flash_attention_bf16"}}
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
                     {fn: _ARGS for fns in _ENTRY.values() for fn in fns.values()})
-_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
-              torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_ENTRY = {"wgmma": {torch.bfloat16: "flash_attention_bwd_bf16_wgmma"},
+              "simt": {torch.float32: "flash_attention_bwd_f32",
+                       torch.bfloat16: "flash_attention_bwd_bf16"}}
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
 KERNEL_BWD = CudaKernel("flash_attention_bwd", "flash_attention_bwd.cu",
-                        {fn: _BWD_ARGS for fn in _BWD_ENTRY.values()})
+                        {fn: _BWD_ARGS for fns in _BWD_ENTRY.values() for fn in fns.values()})
 #: Launches by route, counted beside ``KERNEL.launches``.
 ROUTE_LAUNCHES = {"wgmma": 0, "mma_tf32": 0, "simt": 0}
+#: Calls of the backward's C entry by route, beside ``KERNEL_BWD.launches``.
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 #: Largest head dimension the kernel takes (kMaxD in the source).
 MAX_HEAD_DIM = 128
 # The wgmma route's tiles (kWgBlockQ, kWgBlockK, kWgStages in the source).
 _BLOCK_Q, _BLOCK_K, _STAGES = 128, 128, 2
+# The backward wgmma route's tiles (kBwOwn, kBwTile, kBwStages in
+# flash_attention_bwd.cu): a block's own rows, the rows it streams, the ring.
+_BW_OWN, _BW_TILE, _BW_STAGES = 128, 64, 2
 # The mma_tf32 route's tiles (kTfBlockQ, kTfBlockK, kTfStages, kTfQInRegs).
 _TF_BLOCK_Q, _TF_BLOCK_K, _TF_STAGES, _TF_Q_IN_REGS = 128, 64, 2, False
 
@@ -78,6 +93,26 @@ def wgmma_smem_bytes(d: int) -> int:
     row = 2 * MAX_HEAD_DIM
     n_barriers = 1 + 3 * _STAGES
     return _BLOCK_Q * row + 2 * _STAGES * _BLOCK_K * row + 8 * n_barriers + 1024
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernel a CUDA call takes: ``"wgmma"`` where the forward
+    takes it, ``"simt"`` for float32 and other bf16."""
+    return "wgmma" if route(dtype, d) == "wgmma" else "simt"
+
+
+def bwd_wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the backward's wgmma route at head dim ``d``
+    (its ``kBwSmemBytes``, one size for its three launches): two own tiles
+    of 128 rows (K and V, or Q and dO), a ring of stages of two 64-row tiles
+    (Q and dO, or K and V) with a q tile's lse and D, every row padded to
+    128 bf16 columns, the mbarriers, and 1024 bytes of alignment."""
+    if bwd_route(torch.bfloat16, d) != "wgmma":
+        raise ValueError(f"head dim {d} does not take the backward's wgmma route")
+    row = 2 * MAX_HEAD_DIM
+    n_barriers = 1 + 2 * _BW_STAGES
+    return (2 * _BW_OWN * row + _BW_STAGES * (2 * _BW_TILE * row + 2 * 4 * _BW_TILE)
+            + 8 * n_barriers + 1024)
 
 
 def tf32_smem_bytes(d: int) -> int:
@@ -124,10 +159,20 @@ def _check(q, k, v, causal, sm_scale, *others) -> float:
     return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
+def _check_blocks(block_q, block_k) -> None:
+    for name, n in (("block_q", block_q), ("block_k", block_k)):
+        if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+            raise ValueError(f"{name} must be a positive int, got {n!r}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None, block_q: int = 128,
+                    block_k: int = 128, interpret: bool = False):
     """q: (b, hq, sq, d); k, v: (b, hkv, sk, d); returns (b, hq, sq, d) in
-    q's dtype.  Causal attention needs ``sq == sk``."""
-    if q.device.type == "cpu":
+    q's dtype.  Causal attention needs ``sq == sk``.  ``interpret`` runs the
+    plain twin; ``block_q`` / ``block_k`` are the reference's tile sizes,
+    checked and unused (each route's tiles are fixed)."""
+    _check_blocks(block_q, block_k)
+    if interpret or q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
@@ -151,11 +196,13 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
     return out
 
 
-def flash_attention_bwd(q, k, v, out, d_out, *, causal: bool = True, sm_scale=None):
+def flash_attention_bwd(q, k, v, out, d_out, *, causal: bool = True, sm_scale=None,
+                        interpret: bool = False):
     """The gradient ``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k,
     v)``, whose output was ``out``, against the cotangent ``d_out`` (shaped
-    as q), in the inputs' dtype.  Causal attention needs ``sq == sk``."""
-    if q.device.type == "cpu":
+    as q), in the inputs' dtype.  Causal attention needs ``sq == sk``;
+    ``interpret`` runs the plain twin."""
+    if interpret or q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, out, d_out, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, got {q.device}")
@@ -166,12 +213,18 @@ def flash_attention_bwd(q, k, v, out, d_out, *, causal: bool = True, sm_scale=No
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # per query row: the log-sum-exp of its scores and rowsum(dO * O)
-    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    path = bwd_route(q.dtype, d)
+    # per query row: the log-sum-exp of its scores and rowsum(dO * O); the
+    # wgmma route pads each head's rows to its 128-row tiles
+    rows = -(-sq // _BW_OWN) * _BW_OWN if path == "wgmma" else sq
+    lse = torch.empty(b, hq, rows, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    if path == "wgmma":
+        q, k, v, d_out = _aligned(q), _aligned(k), _aligned(v), _aligned(d_out)
     with torch.cuda.device(q.device):
-        KERNEL_BWD.launch(_BWD_ENTRY[q.dtype], pointer(q), pointer(k), pointer(v),
+        KERNEL_BWD.launch(_BWD_ENTRY[path][q.dtype], pointer(q), pointer(k), pointer(v),
                           pointer(out), pointer(d_out), pointer(dq), pointer(dk),
                           pointer(dv), pointer(lse), pointer(delta), b, hq, hkv, sq, sk,
                           d, sm_scale, int(bool(causal)), stream_handle(q))
+    BWD_ROUTE_LAUNCHES[path] += 1
     return dq, dk, dv

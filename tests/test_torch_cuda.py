@@ -27,7 +27,9 @@ from repro_torch.kernels import (AXPY_CHAIN, FLASH_ATTENTION, FLASH_ATTENTION_BW
                                  INCREMENT_DIAG, INCREMENT_GENERAL, INCREMENT_PRE, SSD_SCAN,
                                  SSD_SCAN_BWD, WILLIAMSON2N, WS_STAGE_DIAG, WS_STAGE_DIAG_BWD,
                                  WS_STAGE_GENERAL, WS_STAGE_PRE, build_kernels)
-from repro_torch.kernels.flash_attention.flash_attention import (ROUTE_LAUNCHES,
+from repro_torch.kernels._build import CudaKernel, build_all, pointer, stream_handle
+from repro_torch.kernels.flash_attention.flash_attention import (BWD_ROUTE_LAUNCHES,
+                                                                 ROUTE_LAUNCHES, bwd_route,
                                                                  flash_attention,
                                                                  flash_attention_bwd, route)
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -634,6 +636,176 @@ def test_ssd_scan_bwd_decay_extremes(cuda):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert (g.double() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+# bf16 across the backward's routes (wgmma at d = 112 and 64, SIMT at
+# d = 36) and its tiles: lengths off the 64- and 128-row tiles, GQA groups
+FLASH_BWD_ROUTE_CASES = [(2, 4, 2, 200, 112, True), (1, 4, 2, 333, 112, False),
+                         (2, 4, 4, 65, 112, True), (1, 8, 2, 190, 64, True),
+                         (1, 8, 2, 130, 36, True), (1, 2, 2, 97, 36, False)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", FLASH_BWD_ROUTE_CASES)
+def test_flash_attention_bwd_routes_match_twin(cuda, b, hq, hkv, s, d, causal):
+    """Each bf16 route against the float32 twin at phase 3's elementwise
+    gate, two runs bitwise equal, the calls counted on the route."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * s + d)
+    q = torch.randn(b, hq, s, d, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    do = torch.randn(b, hq, s, d, generator=gen, device=cuda).bfloat16()
+    out = flash_attention(q, k, v, causal=causal)
+    path = bwd_route(torch.bfloat16, d)
+    assert path == ("wgmma" if d % 8 == 0 else "simt")
+    before = BWD_ROUTE_LAUNCHES[path]
+    got = flash_attention_bwd(q, k, v, out, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, do, causal=causal)
+    assert BWD_ROUTE_LAUNCHES[path] == before + 2
+    want = attention_bwd_ref(*(t.float() for t in (q, k, v, out, do)), causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a)
+        diff = (g.float() - w).abs()
+        assert (diff <= 2.0 ** -8 * w.abs() + 1e-5 * w.abs().max()).all()
+
+
+# (b, l, dh, ds, chunk): head groups that do not divide h (the last group
+# short; h is chosen so on the card's SM count), a state dim off the 8-wide
+# tiles
+SSD_BWD_GROUP_CASES = [(2, 4096, 64, 64, 128), (2, 2048, 32, 44, 64), (4, 1024, 16, 64, 32)]
+
+
+@pytest.mark.parametrize("b,l,dh,ds,chunk", SSD_BWD_GROUP_CASES)
+def test_ssd_scan_bwd_head_groups_match_twin(cuda, b, l, dh, ds, chunk):
+    from repro_torch.kernels.ssd_scan.ssd_scan import bwd_heads_per_block, sm_count
+
+    sms = sm_count(cuda)
+    h = next(h for h in range(3, 64)
+             if h % bwd_heads_per_block(b * (l // chunk), h, ds, sms) > 0)
+    xs = _ssd_inputs(b, l, h, dh, ds, cuda, seed=l + h)
+    dy = torch.randn(b, l, h, dh, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(h))
+    got = ssd_scan_bwd(*xs, dy, chunk=chunk)
+    again = ssd_scan_bwd(*xs, dy, chunk=chunk)
+    want = ssd_bwd_ref(*xs, dy, chunk=chunk)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+# The chunk states and adjoints as one thread per output forms them: the
+# chunk's cum a serial sum, the weights exp(cum_L - cum_s) dt_s (states) or
+# exp(cum_t) (adjoints), and sum_t fmaf(w_t v_t[d], m_t[k], acc) in t order;
+# then the passes, multiplying by the decay.
+_STATES_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+namespace {
+__global__ void outer(const float* dt, const float* A, const float* mat, const float* vec,
+                      float* out, float* decay, int64_t blocks, int l, int h, int dh, int ds,
+                      int L, bool inc) {
+  const int64_t per = static_cast<int64_t>(dh) * ds;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t blk = e / per;  // (batch row, chunk, head)
+  if (blk >= blocks) return;
+  const int nc = l / L;
+  const int d = static_cast<int>(e % per / ds), k = static_cast<int>(e % ds);
+  const int hh = static_cast<int>(blk % h), n = static_cast<int>(blk / h % nc);
+  const int64_t row0 = blk / (static_cast<int64_t>(h) * nc) * l + static_cast<int64_t>(n) * L;
+  const float a = A[hh];
+  float c = 0.f;
+  for (int t = 0; t < L; ++t) c += a * dt[(row0 + t) * h + hh];
+  const float cum_last = c;
+  float acc = 0.f;
+  c = 0.f;
+  for (int t = 0; t < L; ++t) {
+    const float dtv = dt[(row0 + t) * h + hh];
+    c += a * dtv;
+    const float w = inc ? expf(cum_last - c) * dtv : expf(c);
+    acc = fmaf(w * vec[((row0 + t) * h + hh) * dh + d], mat[(row0 + t) * ds + k], acc);
+  }
+  out[e] = acc;
+  if (d == 0 && k == 0) decay[blk] = expf(cum_last);
+}
+__global__ void pass(float* S, const float* decay, int b, int nc, int h, int hds,
+                     bool backward) {
+  const int64_t per_b = static_cast<int64_t>(h) * hds;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= b * per_b) return;
+  const int64_t bi = e / per_b, rem = e % per_b;
+  const int hh = static_cast<int>(rem / hds);
+  float g = 0.f;
+  for (int i = 0; i < nc; ++i) {
+    const int n = backward ? nc - 1 - i : i;
+    float* p = S + (bi * nc + n) * per_b + rem;
+    const float cur = *p;
+    *p = g;
+    g = fmaf(decay[(bi * nc + n) * h + hh], g, cur);
+  }
+}
+}  // namespace
+extern "C" int states_f32(const void* x, const void* dt, const void* A, const void* B,
+                          const void* C, const void* dy, void* S, void* G, void* decay, int b,
+                          int l, int h, int dh, int ds, int L, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = l / L;
+  const int64_t blocks = static_cast<int64_t>(b) * nc * h;
+  const unsigned grid = static_cast<unsigned>((blocks * dh * ds + 255) / 256);
+  const unsigned pass_grid = static_cast<unsigned>((static_cast<int64_t>(b) * h * dh * ds + 255) / 256);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  float* decf = static_cast<float*>(decay);
+  outer<<<grid, 256, 0, s>>>(dtf, Af, static_cast<const float*>(B),
+                             static_cast<const float*>(x), static_cast<float*>(S), decf,
+                             blocks, l, h, dh, ds, L, true);
+  pass<<<pass_grid, 256, 0, s>>>(static_cast<float*>(S), decf, b, nc, h, dh * ds, false);
+  outer<<<grid, 256, 0, s>>>(dtf, Af, static_cast<const float*>(C),
+                             static_cast<const float*>(dy), static_cast<float*>(G), decf,
+                             blocks, l, h, dh, ds, L, false);
+  pass<<<pass_grid, 256, 0, s>>>(static_cast<float*>(G), decf, b, nc, h, dh * ds, true);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+"""
+
+
+@pytest.mark.parametrize("b,l,h,dh,ds,chunk", [(2, 2048, 112, 64, 64, 128),
+                                               (1, 2048, 24, 64, 128, 128),
+                                               (1, 96, 5, 20, 12, 96), (1, 64, 3, 7, 5, 16)])
+def test_ssd_scan_bwd_states_bitwise_to_one_output_a_thread(cuda, tmp_path, b, l, h, dh, ds,
+                                                            chunk):
+    """The register-tiled outer launches and the passes that carry their
+    sums give the chunk states and adjoints bit for bit as one thread per
+    output, summing over t in order, gives them."""
+    import ctypes
+
+    from repro_torch.kernels.ssd_scan.ssd_scan import KERNEL_BWD, bwd_heads_per_block
+
+    src = tmp_path / "ssd_states_reference.cu"
+    src.write_text(_STATES_SOURCE)
+    ref = CudaKernel("ssd_states_reference", src,
+                     {"states_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p]})
+    build_all([ref, KERNEL_BWD])
+    x, dt, A, B, C = _ssd_inputs(b, l, h, dh, ds, cuda, seed=b + l + dh)
+    dy = torch.randn_like(x)
+    nc = l // chunk
+    S_ref, G_ref = x.new_empty(b, nc, h, dh, ds), x.new_empty(b, nc, h, dh, ds)
+    dec_ref = x.new_empty(b, nc, h)
+    ref.launch("states_f32", *(pointer(t) for t in (x, dt, A, B, C, dy, S_ref, G_ref, dec_ref)),
+               b, l, h, dh, ds, chunk, stream_handle(x))
+    heads = bwd_heads_per_block(b * nc, h, ds, 132)
+    S, G, dec = torch.empty_like(S_ref), torch.empty_like(G_ref), torch.empty_like(dec_ref)
+    grads = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+             torch.empty_like(B), torch.empty_like(C))
+    dBp = x.new_empty(b, l, -(-h // heads), ds)
+    KERNEL_BWD.launch("ssd_scan_bwd_f32", *(pointer(t) for t in (
+        x, dt, A, B, C, dy, *grads, S, G, dec, dBp, torch.empty_like(dBp),
+        x.new_empty(b, nc, h))), b, l, h, dh, ds, chunk, heads, stream_handle(x))
+    torch.cuda.synchronize()
+    assert torch.equal(dec, dec_ref)
+    assert torch.equal(S, S_ref) and torch.equal(G, G_ref)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b"])

@@ -27,15 +27,19 @@ from repro.models.attention import decode_attention as jdecode_attention
 from repro_torch.benchmarks import flash_variants, ssd_variants
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
+from repro_torch.kernels._build import CSRC_DIR
 from repro_torch.kernels.flash_attention.flash_attention import (_ENTRY, MAX_HEAD_DIM,
-                                                                 ROUTE_LAUNCHES, flash_attention,
+                                                                 ROUTE_LAUNCHES,
+                                                                 bwd_wgmma_smem_bytes,
+                                                                 flash_attention,
                                                                  route, tf32_smem_bytes,
                                                                  wgmma_smem_bytes)
 from repro_torch.kernels.flash_attention.ops import _FlashAttention, attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan.ops import _SSDScan, ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
-from repro_torch.kernels.ssd_scan.ssd_scan import smem_bytes, ssd_scan
+from repro_torch.kernels.ssd_scan.ssd_scan import (bwd_heads_per_block, bwd_smem_bytes,
+                                                   smem_bytes, ssd_scan)
 from repro_torch.models.attention import _chunked, decode_attention
 
 
@@ -273,6 +277,64 @@ def test_ssd_dispatch_on_cpu_is_the_chunked_twin(use_kernel):
     torch.testing.assert_close(got, ssd_chunked_ref(*t, chunk=64)[0], rtol=0, atol=0)
     with pytest.raises(ValueError, match="multiple"):
         ssd(*t, chunk=48, use_kernel=use_kernel)
+
+
+def _constants(*sources: str) -> dict:
+    """The ``constexpr int`` constants of CUDA sources (headers first), by
+    name, where each is a literal or a product, sum or quotient of earlier
+    ones."""
+    import re
+
+    out = {}
+    text = "".join((CSRC_DIR / source).read_text() for source in sources)
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        try:
+            out[name] = int(eval(expr, {}, dict(out)))  # noqa: S307 (the repo's own source)
+        except NameError:
+            continue
+    return out
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_bwd_wgmma_shared_memory_fits_every_config_head_dim(arch):
+    # two own tiles of 128 rows and two stages of two 64-row tiles, each row
+    # padded to 128 bf16 columns, a stage's lse and D (2 x 64 floats), 5
+    # mbarriers and the 1024-byte alignment: the source's kBwSmemBytes
+    d = get_arch(arch).resolved_head_dim
+    k = _constants("wgmma.cuh", "flash_attention_bwd.cu")
+    assert bwd_wgmma_smem_bytes(d) == k["kBwSmemBytes"]
+    assert k["kBwSmemBytes"] == 2 * 128 * 256 + 2 * (2 * 64 * 256 + 2 * 4 * 64) + 5 * 8 + 1024
+    assert bwd_wgmma_smem_bytes(d) + 1024 <= 233472  # one block an SM
+    with pytest.raises(ValueError, match="wgmma"):
+        bwd_wgmma_smem_bytes(36)
+
+
+def test_ssd_bwd_shared_memory_fits_the_served_shapes():
+    # zamba2-7b (dh 64, ds 64) and mamba2-130m (dh 64, ds 128) at chunk 128:
+    # the chunk launch holds C.B^T's lower triangle of 16 x 16 blocks (rows
+    # strided 20), a head's u and dy, its S_in and G, C and B where ds <= 64,
+    # a head's dt, cum, dcum's sides, x.du and 256 partial sums, and each of
+    # the 8 warps' table of decays; the outer launch dt, cum and weights
+    # with the weighted rows and B or C
+    k = _constants("ssd_scan_bwd.cu")
+    assert (k["kLdb"], k["kThreads"], k["kWarps"], k["kSharedDs"]) == (20, 256, 8, 64)
+    tri = 8 * 9 // 2 * 16 * k["kLdb"]
+    assert bwd_smem_bytes(128, 64, 64) == {
+        "outer": 4 * (3 * 128 + 128 * 64 + 128 * 64),
+        "chunk": 4 * (tri + 2 * 128 * 68 + 2 * 128 * 68 + 2 * 64 * 68 + 5 * 128 + 256
+                      + 8 * 128)}
+    assert bwd_smem_bytes(128, 64, 128) == {
+        "outer": 4 * (3 * 128 + 128 * 64 + 128 * 128),
+        "chunk": 4 * (tri + 2 * 128 * 68 + 2 * 64 * 132 + 5 * 128 + 256 + 8 * 128)}
+    assert bwd_smem_bytes(128, 64, 64) == {"outer": 67072, "chunk": 227840}
+    for dh, ds in ((64, 64), (64, 128)):
+        got = bwd_smem_bytes(128, dh, ds)
+        assert got["chunk"] + 1024 <= 233472  # one chunk block an SM
+        assert 2 * (got["outer"] + 1024) <= 233472  # two outer blocks an SM at least
+    # the head groups: zamba2-7b's 112 heads on 132 SMs in groups of 7,
+    # mamba2-130m's ds = 128 one head a block
+    assert bwd_heads_per_block(2 * 16, 112, 64, 132) == 7
+    assert bwd_heads_per_block(16, 24, 128, 132) == 1
 
 
 def test_ssd_shared_memory_fits_the_served_shapes():
