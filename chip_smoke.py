@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It drives the port's paths through the thirteen hand-written CUDA kernels
-(and the per-path step-size entries of two of them) — an
+(and the per-path step-size entries of the seven that take a step) — an
 ``SDESampleEngine`` serving EES(2,5) and EES(2,7) Monte-Carlo sampling
 requests of the neural Langevin SDE at its Table-1 widths (``d_obs=1,
 d_z=16, width=32``) plus an ODE-mode ``sdeint``, the paper's Table-1
@@ -19,8 +19,8 @@ served and differentiated, scanned training steps captured as CUDA
 graphs under the train loops, the paper's manifold experiments
 (Tables 3 and 4, served manifold requests, Fig 8's SO(3) rates), and the LM
 trained at full width through the attention and SSD kernels and their
-backward kernels, with EES(2,5) over residual depth — and checks what comes
-out:
+backward kernels, with EES(2,5) over residual depth, and the moe family and
+the vision and audio frontends at full width — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -52,7 +52,11 @@ out:
    max|.|) and bf16 (against the twin in float32 on the same inputs: one
    bf16 rounding, 2^-8 |want|, plus 1e-5 of max|.|), qwen3-1.7b's GQA, a
    ragged 200, d = 1 and 127, zamba2-7b's and olmo-1b's layers in bf16,
-   timed at zamba2-7b's beside the twin and SDPA's backward;
+   timed at zamba2-7b's beside the twin and SDPA's backward; phase 19's
+   attention shapes (qwen3-moe-30b-a3b's (1, 32, 4, 2048, 128), qwen2-vl-2b's
+   (2, 12, 2, 2048, 128), hubert-xlarge's non-causal (2, 16, 16, 2048, 80))
+   forward in float32 and bf16 and backward in bf16, each timed in bf16
+   beside SDPA's;
    ``ssd_scan_bwd`` at the reference's shapes, the decay extremes (also
    against the float64 twin), zamba2-7b's and mamba2-130m's layers (1e-4 of
    each gradient's max|.|), timed at zamba2-7b's, with each launch apart;
@@ -152,10 +156,20 @@ out:
    kernels (the per-path ``ws_stage_diag_bwd`` entry) bitwise to plain,
    against the full adjoint's; the three adjoints' peak memory at 65,536
    paths over one realized grid with bulk increments, and the reversible
-   adjoint's with per-step increments.  Phase 3 also
-   holds the two per-path entries bitwise to their twins (h varying per
-   row; d = 16, d = 3 whose float32 packs straddle paths, unaligned) and
-   times them beside the scalar entries;
+   adjoint's with per-step increments; (d) the other five per-path entries
+   on public paths: ``heun:adaptive`` and ``milstein:adaptive`` requests on
+   the Langevin model (increment_diag and axpy_chain), Reversible Heun and
+   MCF over one realized grid, bitwise to their plain specs;
+   adaptive ``ees25`` and ``heun`` solves on phase 9's general term (the
+   general pair; the controller turns the kernels' other summation order
+   into other accept sequences on some paths, so the two are held as
+   Monte-Carlo estimators: the means of the counts and of y_final within 6
+   standard errors) and the two over one realized grid (1e-5); EES(2,5) and Reversible Heun on the additive term over one
+   realized grid under the full adjoint with bulk increments (the
+   prediffused pair), bitwise with gradients.  Phase 3 also holds the seven
+   per-path entries bitwise to their twins (h varying per row; d = 16, d = 3
+   whose float32 packs straddle paths, unaligned; the general pair at m = 4
+   and 128, each route checked) and times them beside the scalar entries;
 16. the training pipeline on the Table-1 model (d_z = 16, width 32, 256
    paths, float32): (a) the four Table-1 specs under the reversible adjoint
    and EES(2,5) under the full and recursive ones, 2 chunks of
@@ -210,13 +224,29 @@ out:
    path and against the full adjoint, and peak memory above the parameters
    and gradients at 4, 8 and 16 layers (reversible flat, under 10% growth;
    full at least 3x); (d) ``python -m repro_torch.launch.train --arch
-   zamba2-7b --steps 4`` as a subprocess.
+   zamba2-7b --steps 4`` as a subprocess;
+19. the moe family and the frontends in bf16 at full width: (a)
+   olmoe-1b-7b at its 16 layers, (b) qwen3-moe-30b-a3b at 12 of 48 (the
+   full depth's 61 GB of weights leave no room): a 2 x 2048 prefill, an
+   8-request decode ``Engine`` drain (twice, the same tokens), one layer's
+   ``moe_block`` profiled, four AdamW steps of ``train_loop``'s default step
+   at 4 (olmoe) and 2 (qwen3-moe) layers, one step timed, profiled and run
+   twice from one state (bitwise); (c) qwen2-vl-2b (28 layers, 256 vision
+   tokens) and (d) hubert-xlarge (48 layers, frames, non-causal, the
+   ``Engine`` refusing it): a 2 x 2048 forward and training steps; each
+   with ms, tokens/s, peak memory, the device's busy share and the attention
+   launches by route (all ``wgmma``); before each, in float32 at 2 layers,
+   the kernel path against the plain path (1e-4 of max|logit|) and decode
+   against the forward (atol 2e-5), moe at dropless capacity, on the tokens
+   before a sequence's first token whose expert set differs (at most 1% of
+   tokens may).
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
 m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
 runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient,
-phase 16; phase 17, which must launch none; phase 18a's first run) and
+phase 16; phase 17, which must launch none; phase 18a's first run; the
+paths of 15d; phase 19's counted forwards and training steps) and
 read just after; a kernel of the path with no launch there fails the run.  The second-to-last
 line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
 kernel was first held to, as in earlier runs — for the per-path entries
@@ -226,9 +256,11 @@ Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
 ``launches_phase_14``, the four kernels of phase 16 ``launches_phase_16``
 (eager launches plus each graph's captured launches times its replays) and
 ``replayed_phase_16``, ``flash_attention`` and ``ssd_scan``
-``launches_phase_18``; the backward kernels count phase 18a's run, and
-name the reference function whose ``jax.grad`` they compute) and the last
-line
+``launches_phase_18``, ``flash_attention`` and ``flash_attention_bwd``
+``launches_phase_19``, ``axpy_chain`` ``launches_phase_15d``; the five
+other per-path entries count 15d's paths; the backward kernels count phase
+18a's run, and name the reference function whose ``jax.grad`` they
+compute) and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
 CUDA device, or without the ``src/repro_torch`` package beside this script,
 it exits non-zero before printing any result.  It imports nothing of jax or
@@ -635,8 +667,13 @@ def kernel_phase(torch, timer):
 FLASH_REF_SHAPES = ((2, 4, 2, 256, 64, True, None), (1, 8, 1, 128, 128, True, None),
                     (2, 2, 2, 256, 64, False, None), (1, 4, 4, 384, 32, True, None),
                     (1, 16, 4, 256, 64, True, None), (1, 2, 2, 128, 64, True, 0.5))
+# Phase 19's attention layers at 2048 tokens: qwen3-moe-30b-a3b's GQA group
+# 8, qwen2-vl-2b's group 6, hubert-xlarge's non-causal head dim 80.
+FLASH_P19_SHAPES = ((1, 32, 4, 2048, 128, True, None), (2, 12, 2, 2048, 128, True, None),
+                    (2, 16, 16, 2048, 80, False, None))
 FLASH_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None), (1, 16, 8, 2048, 128, True, None),
-                   (2, 4, 2, 200, 112, True, None), (2, 4, 2, 200, 112, False, None))
+                   (2, 4, 2, 200, 112, True, None),
+                   (2, 4, 2, 200, 112, False, None)) + FLASH_P19_SHAPES
 # The wgmma route's tile edges (one row, 127 and 129 against its 128-row
 # tiles), GQA group 8, a bf16 head dim off TMA's 8-column rule (36, the
 # SIMT route), and odd head dims whose float32 rows are not 16-byte
@@ -712,7 +749,8 @@ def lm_kernel_phase(torch, timer):
         dtypes = ((torch.float32, torch.bfloat16) if shape not in FLASH_LM_SHAPES[:2]
                   else (torch.bfloat16, torch.float32))
         for dtype in dtypes:
-            own = dtype == torch.float32 and shape in FLASH_LM_SHAPES[:2]
+            own = ((dtype == torch.float32 and shape in FLASH_LM_SHAPES[:2])
+                   or shape in FLASH_P19_SHAPES)
             q, k, v = _flash_inputs(torch, gen_lm32 if own else gen, shape, dtype)
             before = dict(ROUTE_LAUNCHES)
             got = flash_attention(q, k, v, causal=causal, sm_scale=scale)
@@ -790,6 +828,22 @@ def lm_kernel_phase(torch, timer):
                   flush=True)
         del q, k, v
     stats["flash_attention"] = rows[0]
+    # phase 19's shapes in bf16 on the wgmma route, beside SDPA
+    for shape in FLASH_P19_SHAPES:
+        b, hq, hkv, s, d, causal, _ = shape
+        q, k, v = _flash_inputs(torch, gen_lm32, shape, torch.bfloat16)
+        # QK^T and PV, 2 flops a MAC; causal: row t attends to t + 1 keys
+        ops = 4 * b * hq * d * s * ((s + 1) / 2 if causal else s)
+        _timed_row(
+            "flash_attention", f"bf16 wgmma route (b,hq,hkv,s,d)={shape[:5]} "
+            f"causal={causal}", timer,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: attention_ref(q, k, v, causal=causal),
+            (f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)",
+             lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)),
+            "flash_attention_kernel", q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            ops, BF16_FLOPS, "bf16 tensor-core", worst)
+        del q, k, v
 
     worst = 0.0
     for shape in SSD_REF_SHAPES + SSD_LM_SHAPES + ("extremes",):
@@ -880,7 +934,8 @@ FLASH_BWD_SHAPES = FLASH_REF_SHAPES + ((1, 16, 8, 2048, 128, True, None),
                                        (2, 4, 2, 200, 112, False, None),
                                        (1, 4, 2, 130, 1, True, None),
                                        (2, 4, 2, 129, 127, False, None))
-FLASH_BWD_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None), (4, 16, 16, 2048, 128, True, None))
+FLASH_BWD_LM_SHAPES = ((2, 32, 32, 2048, 112, True, None),
+                       (4, 16, 16, 2048, 128, True, None)) + FLASH_P19_SHAPES
 FLASH_BWD_F32_REL = 1e-5   # of each gradient's max|.|, against the float32 twin
 SSD_BWD_REL = 1e-4         # of each gradient's max|.|, against the float32 twin
 
@@ -906,14 +961,18 @@ def lm_bwd_kernel_phase(torch, timer):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     gen = torch.Generator(device="cuda").manual_seed(5432)
+    # phase 19's shapes draw from their own generator, so every other case
+    # keeps its inputs
+    gen19 = torch.Generator(device="cuda").manual_seed(5433)
     stats, worst = {}, 0.0
     cases = ([(shape, dt) for shape in FLASH_BWD_SHAPES
               for dt in (torch.float32, torch.bfloat16)]
              + [(shape, torch.bfloat16) for shape in FLASH_BWD_LM_SHAPES])
     for shape, dtype in cases:
         causal, scale = shape[5], shape[6]
-        q, k, v = _flash_inputs(torch, gen, shape, dtype)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        g = gen19 if shape in FLASH_P19_SHAPES else gen
+        q, k, v = _flash_inputs(torch, g, shape, dtype)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
         out = flash_attention(q, k, v, causal=causal, sm_scale=scale)
         path = bwd_route(dtype, shape[4])
         before = BWD_ROUTE_LAUNCHES[path]
@@ -981,6 +1040,27 @@ def lm_bwd_kernel_phase(torch, timer):
         print(f"  flash_attention_bwd launch {name} (wgmma): {ms * 1e3:.2f} us with L2 "
               f"flushed", flush=True)
     del q, k, v, do, out, leaves, lib_out
+    torch.cuda.empty_cache()
+    # phase 19's shapes, beside SDPA's backward
+    for shape in FLASH_P19_SHAPES:
+        b, hq, hkv, s, d, causal, _ = shape
+        q, k, v = _flash_inputs(torch, gen19, shape, torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen19, device="cuda").to(torch.bfloat16)
+        out = flash_attention(q, k, v, causal=causal)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+        fwd_ops = 4 * b * hq * d * s * ((s + 1) / 2 if causal else s)
+        _timed_row(
+            "flash_attention_bwd", f"bf16 (b,hq,hkv,s,d)={shape[:5]} causal={causal}",
+            timer, lambda: flash_attention_bwd(q, k, v, out, do, causal=causal),
+            lambda: attention_bwd_ref(q, k, v, out, do, causal=causal),
+            (f"autograd.grad through scaled_dot_product_attention(is_causal={causal}, "
+             "enable_gqa=True), its backward alone",
+             lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)),
+            "flash_attention_bwd", q.element_size() * (4 * q.numel() + 4 * k.numel()),
+            2.5 * fwd_ops, BF16_FLOPS, "bf16 tensor-core (2.5x the forward's products)",
+            worst)
+        del q, k, v, do, out, leaves, lib_out
     torch.cuda.empty_cache()
 
     worst = 0.0
@@ -1511,6 +1591,10 @@ def host_profile(torch, run, wall_ms):
 
 
 NOISE_T1, NOISE_STEPS = 1.0, 64  # the step-kernel benchmark's horizon
+# Profiled ticks of phase 9 (E, J, H, N and the m = 128 request's two specs):
+# one each; reading a profile of 2k-20k launches is most of the phase's time
+# (the m = 128 request took 81 s with two profiled ticks a spec).
+TICK_PROFILE_REPS = 1
 LM_CHECK_LAYERS = 12             # phase 11a: float32 depth (shared block at 0 and 6)
 PREFILL_BATCH, PREFILL_LEN = 2, 2048
 CPU_PATHS = 4096                 # paths of the CPU cross-checks
@@ -1645,6 +1729,7 @@ def noise_serve_phase(torch, timer):
           f"{jl:.3e} (tolerance 1e-5; the kernel sums g@dW in another order "
           f"than einsum)", flush=True)
     check(jl <= 1e-5, "J and L disagree")
+    start = time.perf_counter()
     for label, key, seed in (("E", "additive", 21), ("J", "general", 31)):
         term, ns = terms[key]
         cpu_args = {k: v.cpu() for k, v in args.items()}
@@ -1658,6 +1743,8 @@ def noise_serve_phase(torch, timer):
         print(f"  {label}[:{CPU_PATHS}] vs the plain path on the CPU: max rel "
               f"err {err:.3e} (tolerance 1e-4)", flush=True)
         check(err <= 1e-4, f"{label} disagrees with the CPU run")
+    print(f"  (the CPU runs: {time.perf_counter() - start:.1f} s)", flush=True)
+    start = time.perf_counter()
     for kern in (WS_STAGE_PRE, INCREMENT_PRE, WS_STAGE_GENERAL,
                  INCREMENT_GENERAL):
         check(launches.get(kern.name, 0) > 0,
@@ -1676,7 +1763,7 @@ def noise_serve_phase(torch, timer):
             return eng.executor.dispatch(bucket, keys, (NOISE_STEPS,))
 
         with torch.no_grad():
-            totals = timer.kernels_us(dispatch, reps=3, flush=False)
+            totals = timer.kernels_us(dispatch, reps=TICK_PROFILE_REPS, flush=False)
             walls = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -1691,19 +1778,23 @@ def noise_serve_phase(torch, timer):
                 fail(f"a {label} dispatch synchronized with the host: {exc}")
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        dev_ms = sum(t for t, _ in totals.values()) / 3 / 1e3
-        n_launch = sum(n for _, n in totals.values()) // 3
+        dev_ms = sum(t for t, _ in totals.values()) / TICK_PROFILE_REPS / 1e3
+        n_launch = sum(n for _, n in totals.values()) // TICK_PROFILE_REPS
         wall_ms = min(walls) * 1e3
         print(f"  one {label} tick ({SERVE_SLOTS} paths x {NOISE_STEPS} "
               f"steps): host wall {wall_ms:.3f} ms, device kernel time "
               f"{dev_ms:.3f} ms over {n_launch} launches (device busy "
               f"{dev_ms / wall_ms:.0%}); no host sync in the dispatch",
               flush=True)
-        rows = sorted(((t / 3, n // 3, name) for name, (t, n) in totals.items()),
-                      reverse=True)
+        rows = sorted(((t / TICK_PROFILE_REPS, n // TICK_PROFILE_REPS, name)
+                       for name, (t, n) in totals.items()), reverse=True)
         for us, n, name in rows[:6]:
             print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
+    print(f"  (the tick profiles: {time.perf_counter() - start:.1f} s)", flush=True)
+    start = time.perf_counter()
     wide, wide_routes = wide_general_request(torch, timer)
+    print(f"  (the m = {WIDE_CHANNELS} request: {time.perf_counter() - start:.1f} s)",
+          flush=True)
     for name, n in wide.items():
         launches[name] = launches.get(name, 0) + n
     for name, by_route in wide_routes.items():
@@ -1775,18 +1866,18 @@ def wide_general_request(torch, timer):
     keys = path_keys(PRNGKey(7, device="cuda"), SERVE_SLOTS)[None]
     for spec in specs:
         bucket = BucketKey(spec, 0.0, NOISE_T1 / NOISE_STEPS, NOISE_STEPS)
-        with torch.no_grad():
+        with torch.no_grad():  # the drains above warmed the bucket
             totals = timer.kernels_us(
-                lambda: eng.executor.dispatch(bucket, keys, (NOISE_STEPS,)), reps=2,
-                flush=False)
-        dev_ms = sum(us for us, _ in totals.values()) / 2 / 1e3
+                lambda: eng.executor.dispatch(bucket, keys, (NOISE_STEPS,)),
+                reps=TICK_PROFILE_REPS, flush=False, warm=False)
+        dev_ms = sum(us for us, _ in totals.values()) / TICK_PROFILE_REPS / 1e3
         general_ms = sum(us for name, (us, _) in totals.items()
-                         if "general_kernel" in name) / 2 / 1e3
+                         if "general_kernel" in name) / TICK_PROFILE_REPS / 1e3
         print(f"  one m = {WIDE_CHANNELS} tick, {spec!r} ({SERVE_SLOTS} paths x "
               f"{NOISE_STEPS} steps): device kernel time {dev_ms:.3f} ms, "
               f"{general_ms:.3f} ms of it in the general-noise kernels", flush=True)
-        rows = sorted(((us / 2, n // 2, name) for name, (us, n) in totals.items()),
-                      reverse=True)
+        rows = sorted(((us / TICK_PROFILE_REPS, n // TICK_PROFILE_REPS, name)
+                       for name, (us, n) in totals.items()), reverse=True)
         for us, n, name in rows[:4]:
             print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
     return launches, routes
@@ -2109,31 +2200,37 @@ def lm_prefill_phase(torch, timer):
     return cfg, params, launches
 
 
+def _engine_drain(torch, cfg, params, prompts, max_len):
+    """One drain of ``prompts`` through a new decode Engine (a slot each,
+    greedy): (tokens by request, host seconds, ticks, every logit finite)."""
+    from repro_torch.serving import Engine, ServeConfig
+
+    eng = Engine(cfg, params, ServeConfig(slots=len(prompts), max_len=max_len))
+    step, finite, ticks = eng._step, [], [0]
+
+    def counted(*args):
+        logits, cache = step(*args)
+        finite.append(torch.isfinite(logits).all())
+        ticks[0] += 1
+        return logits, cache
+
+    eng._step = counted
+    for p in prompts:
+        eng.submit(p)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - start, ticks[0], bool(torch.stack(finite).all())
+
+
 def lm_serve_phase(torch, timer, cfg, params):
     """Phase 12: zamba2-7b (bf16, full width and depth) served by the decode
     Engine: 8 requests of 8-token prompts, greedy, twice."""
-    from repro_torch.serving import Engine, ServeConfig
-
     prompts = np.random.default_rng(13).integers(2, cfg.vocab, size=(8, 8)).tolist()
 
     def drain():
-        eng = Engine(cfg, params, ServeConfig(slots=8, max_len=64))
-        step, finite, ticks = eng._step, [], [0]
-
-        def counted(*args):
-            logits, cache = step(*args)
-            finite.append(torch.isfinite(logits).all())
-            ticks[0] += 1
-            return logits, cache
-
-        eng._step = counted
-        for p in prompts:
-            eng.submit(p)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        return done, time.perf_counter() - start, ticks[0], bool(torch.stack(finite).all())
+        return _engine_drain(torch, cfg, params, prompts, 64)
 
     first, wall, ticks, finite = drain()
     new = sum(len(t) - len(p) for t, p in zip(first.values(), prompts))
@@ -2676,66 +2773,140 @@ def async_phase(torch, params, y0, sync_abc):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3 (per-path step sizes): the rows entries of ws_stage_diag and
-# ws_stage_diag_bwd, which adaptive solves launch with one h per path.
+# Phase 3 (per-path step sizes): the rows entries of the seven h-taking
+# kernels, which adaptive solves and solves over realized grids launch with
+# one h per path.
 # ---------------------------------------------------------------------------
 
 # (rows, d, offset): the served state, d = 3 (float32 16-byte packs straddle
 # two paths) and an unaligned view of it.
 ROWS_SHAPES = ((SERVE_SLOTS, D_Z, 0), (1001, 3, 0), (1001, 3, 1))
+# The general pair's channels: the row route's main-path m = 4 and the
+# staged route's m = 128 (each case's route checked).
+ROWS_GENERAL_M = (4, WIDE_CHANNELS)
 
 
 def rows_kernel_phase(torch, timer, stats):
     """The per-path entries bitwise against their twins with h varying per
-    row, then timed at (65536, 16) float32 beside the scalar entries."""
+    row, then timed at (65536, 16) float32 (the general pair at m = 4)
+    beside the scalar entries."""
     from repro_torch.core.williamson import EES25_2N
+    from repro_torch.kernels import INCREMENT_GENERAL, WS_STAGE_GENERAL
     from repro_torch.kernels.sde_step import ref as sref
-    from repro_torch.kernels.sde_step.sde_step import ws_stage_diag, ws_stage_diag_bwd
+    from repro_torch.kernels.sde_step.sde_step import (general_route, increment_diag,
+                                                       increment_general, increment_pre,
+                                                       route_launches, ws_stage_diag,
+                                                       ws_stage_diag_bwd, ws_stage_general,
+                                                       ws_stage_pre)
 
     a, b = EES25_2N.A[1], EES25_2N.B[1]
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
-    def inputs(n_in, rows, d, offset, dtype):
-        xs = [torch.randn(rows * d + offset, generator=gen, device="cuda",
-                          dtype=dtype)[offset:].reshape(rows, d) for _ in range(n_in)]
+    def draw(n, offset, dtype):
+        return torch.randn(n + offset, generator=gen, device="cuda", dtype=dtype)[offset:]
+
+    def inputs(n_in, rows, d, offset, dtype, m=None):
+        """``n_in`` states (rows, d) (then g (rows, d, m) and dW (rows, m)
+        when ``m``), offset views when ``offset``, and h (rows, 1)."""
+        xs = [draw(rows * d, offset, dtype).view(rows, d) for _ in range(n_in)]
+        if m is not None:
+            xs += [draw(rows * d * m, offset, dtype).view(rows, d, m),
+                   draw(rows * m, offset, dtype).view(rows, m)]
         h = torch.rand(rows, 1, generator=gen, device="cuda", dtype=dtype) * 0.2
         return xs, h
 
+    def one(fn):
+        return lambda xs, h: (fn(xs, h),)
+
     specs = {
+        # name: n_in, streams and ops per element (float32 bytes / flops), the
+        # profiler symbol, the scalar entry, the wrapper and its twin; the
+        # general pair: the routed kernel, and per output the state streams
+        # and the 2N update's extra ops.
         "ws_stage_diag_rows": dict(
-            n_in=5, streams=7, ops=6, symbol="ws_stage_diag_rows_kernel",
+            n_in=5, streams=7, ops=6, symbol="ws_stage_diag_kernel",
             scalar="ws_stage_diag",
             kernel=lambda xs, h: ws_stage_diag(*xs, h, a=a, b=b),
             plain=lambda xs, h: sref.ws_stage_diag_ref(*xs, h, a, b)),
         "ws_stage_diag_bwd_rows": dict(
-            n_in=4, streams=8, ops=6, symbol="ws_stage_diag_bwd_rows_kernel",
+            n_in=4, streams=8, ops=6, symbol="ws_stage_diag_bwd_kernel",
             scalar="ws_stage_diag_bwd",
             kernel=lambda xs, h: ws_stage_diag_bwd(*xs, h, a=a, b=b),
             plain=lambda xs, h: sref.ws_stage_diag_bwd_ref(*xs, h, a, b)),
+        "increment_diag_rows": dict(
+            n_in=3, streams=4, ops=3, symbol="increment_diag_kernel",
+            scalar="increment_diag",
+            kernel=one(lambda xs, h: increment_diag(*xs, h)),
+            plain=one(lambda xs, h: sref.increment_diag_ref(*xs, h))),
+        "increment_pre_rows": dict(
+            n_in=2, streams=3, ops=2, symbol="increment_pre_kernel",
+            scalar="increment_pre",
+            kernel=one(lambda xs, h: increment_pre(*xs, h)),
+            plain=one(lambda xs, h: sref.increment_pre_ref(*xs, h))),
+        "ws_stage_pre_rows": dict(
+            n_in=4, streams=6, ops=5, symbol="ws_stage_pre_kernel",
+            scalar="ws_stage_pre",
+            kernel=lambda xs, h: ws_stage_pre(*xs, h, a=a, b=b),
+            plain=lambda xs, h: sref.ws_stage_pre_ref(*xs, h, a, b)),
+        "increment_general_rows": dict(
+            n_in=1, n_out=1, update_ops=0, symbol="increment_general_kernel",
+            scalar="increment_general", routed=INCREMENT_GENERAL,
+            kernel=one(lambda xs, h: increment_general(*xs, h)),
+            plain=one(lambda xs, h: sref.increment_general_ref(*xs, h))),
+        "ws_stage_general_rows": dict(
+            n_in=3, n_out=2, update_ops=4, symbol="ws_stage_general_kernel",
+            scalar="ws_stage_general", routed=WS_STAGE_GENERAL,
+            kernel=lambda xs, h: ws_stage_general(*xs, h, a=a, b=b),
+            plain=lambda xs, h: sref.ws_stage_general_ref(*xs, h, a, b)),
     }
     for name, spec in specs.items():
+        routed = spec.get("routed")
+        widths = ROWS_GENERAL_M if routed is not None else (None,)
         for dtype in (torch.float32, torch.float64):
-            for rows, d, offset in ROWS_SHAPES:
-                xs, h = inputs(spec["n_in"], rows, d, offset, dtype)
-                got, want = spec["kernel"](xs, h), spec["plain"](xs, h)
-                torch.cuda.synchronize()
-                abs_err, _, same = compare(torch, got, want)
-                print(f"  {name} {str(dtype)[6:]} (rows, d)=({rows},{d})"
-                      f"{' unaligned' if offset else ''}: max_abs_err={abs_err:.3e} "
-                      f"bitwise={same} (h varies per row; tolerance 0)", flush=True)
-                check(same, f"{name} {dtype} ({rows},{d}) differs from its twin")
-        xs, h = inputs(spec["n_in"], SERVE_SLOTS, D_Z, 0, torch.float32)
+            for m in widths:
+                for rows, d, offset in ROWS_SHAPES:
+                    xs, h = inputs(spec["n_in"], rows, d, offset, dtype, m)
+                    took = ""
+                    if routed is not None:
+                        before = route_launches(routed)
+                    got, want = spec["kernel"](xs, h), spec["plain"](xs, h)
+                    torch.cuda.synchronize()
+                    if routed is not None:
+                        g, dW = xs[-2:]
+                        expected = general_route(m, dtype, g.data_ptr() % 16 == 0
+                                                 and dW.data_ptr() % 16 == 0)
+                        after = route_launches(routed)
+                        taken = [r for r in after if after[r] != before[r]]
+                        check(taken == [expected], f"{name} {dtype} ({rows},{d},{m}) "
+                              f"took the routes {taken}, not {expected}")
+                        took = f" m={m}, {expected} route,"
+                    abs_err, _, same = compare(torch, got, want)
+                    print(f"  {name} {str(dtype)[6:]} (rows, d)=({rows},{d})"
+                          f"{' unaligned' if offset else ''}{took}: max_abs_err="
+                          f"{abs_err:.3e} bitwise={same} (h varies per row; "
+                          f"tolerance 0)", flush=True)
+                    check(same, f"{name} {dtype} ({rows},{d}) m={m} differs from its twin")
+                    del xs, got, want
+        m = ROWS_GENERAL_M[0] if routed is not None else None
+        xs, h = inputs(spec["n_in"], SERVE_SLOTS, D_Z, 0, torch.float32, m)
         n = SERVE_SLOTS * D_Z
+        if routed is None:
+            bytes_moved, ops = spec["streams"] * n * 4, spec["ops"] * n
+            label = f"float32 (rows, d)=({SERVE_SLOTS},{D_Z})"
+        else:
+            elems = n * m + SERVE_SLOTS * m + (spec["n_in"] + spec["n_out"]) * n
+            bytes_moved, ops = elems * 4, n * (2 * m + 1 + spec["update_ops"])
+            label = f"float32 (N,d,m)=({SERVE_SLOTS},{D_Z},{m}), row route"
         stats[name] = _timed_row(
-            name, f"float32 (rows, d)=({SERVE_SLOTS},{D_Z})", timer,
-            lambda: spec["kernel"](xs, h), lambda: spec["plain"](xs, h), None,
-            spec["symbol"], spec["streams"] * n * 4 + SERVE_SLOTS * 4,
-            spec["ops"] * n, FP32_FLOPS, "float32", 0.0)
+            name, label, timer, lambda: spec["kernel"](xs, h),
+            lambda: spec["plain"](xs, h), None, spec["symbol"],
+            bytes_moved + SERVE_SLOTS * 4, ops, FP32_FLOPS, "float32", 0.0)
         scalar = stats[spec["scalar"]]
         print(f"  {name}: {stats[name]['ms'] * 1e3:.2f} us against the scalar "
               f"entry's {scalar['ms'] * 1e3:.2f} us (L2 flushed; "
               f"{stats[name]['ms_warm'] * 1e3:.2f} against "
               f"{scalar['ms_warm'] * 1e3:.2f} warm)", flush=True)
+        del xs, h
 
 
 # ---------------------------------------------------------------------------
@@ -3047,6 +3218,184 @@ def adaptive_phase(torch, timer, params, y0):
           "the reversible adjoint does not save memory over the full one")
     print(f"  (15c: {time.perf_counter() - t_phase:.1f} s)", flush=True)
     return launches
+
+
+# 15d: the other five per-path entries on the public paths that reach them.
+# Adaptive solves (paths, trial budget, t1, rtol; at or under request O's
+# 131,072 paths and 256 trials) and solves over one realized grid (paths):
+# the Langevin model's diagonal noise (increment_diag and axpy_chain in
+# Butcher and MCF stages, Milstein's increment, Reversible Heun), phase 9's
+# general term (m = 4) and its additive term under the full adjoint with
+# bulk increments (the prediffused pair).
+PER_PATH_REQUEST = (SERVE_SLOTS // 4, 64, 1.0, 1e-2)
+PER_PATH_GRID = 4096
+PER_PATH_REL = 1e-5           # the general pair against einsum (phase 9's J vs L)
+PER_PATH_MC_Z = 6.0           # adaptive general solves: means, in standard errors
+
+
+def _mc_z(torch, a, b):
+    """The largest |mean(a) - mean(b)| in standard errors of ``b``'s mean
+    (std / sqrt(paths)) over n_accepted, n_rejected and each component of
+    y_final: 0 where both are constant and equal, inf where only they
+    differ."""
+    worst = 0.0
+    for x, y in ((a.n_accepted, b.n_accepted), (a.n_rejected, b.n_rejected),
+                 (a.y_final, b.y_final)):
+        x, y = x.double().reshape(x.shape[0], -1), y.double().reshape(y.shape[0], -1)
+        gap = (x.mean(0) - y.mean(0)).abs()
+        se = y.std(0) / y.shape[0] ** 0.5
+        z = torch.where(gap == 0, torch.zeros_like(gap), gap / se)
+        worst = max(worst, z.max().item())
+    return worst
+ROWS_KERNELS = ("increment_diag", "increment_pre", "ws_stage_pre", "increment_general",
+                "ws_stage_general")
+
+
+def per_path_phase(torch, params, y0):
+    """15d: each per-path entry launched on a public path and held to the
+    plain spec there; returns ``(rows launches, general rows launches by
+    route, axpy_chain launches)``."""
+    from repro_torch.benchmarks import step_kernels as sk
+    from repro_torch.core import (PRNGKey, get_solver, path_keys, realize_grid, sdeint,
+                                  solve, virtual_brownian_tree)
+    from repro_torch.kernels import (AXPY_CHAIN, INCREMENT_DIAG, INCREMENT_GENERAL,
+                                     INCREMENT_PRE, WS_STAGE_GENERAL, WS_STAGE_PRE)
+    from repro_torch.kernels.sde_step.sde_step import route_launches, rows_launches
+    from repro_torch.nsde import lsde_term
+    from repro_torch.serving import SDESampleConfig, SDESampleEngine
+
+    kernels = dict(zip(ROWS_KERNELS, (INCREMENT_DIAG, INCREMENT_PRE, WS_STAGE_PRE,
+                                      INCREMENT_GENERAL, WS_STAGE_GENERAL)))
+    n_paths, budget, t1, rtol = PER_PATH_REQUEST
+    cfg = SDESampleConfig(slots=SERVE_SLOTS, ticks_per_dispatch=2, guard_threshold=1e6)
+    langevin = lsde_term()
+    args = sk.term_args("cuda")
+    general, additive = sk.make_term("general"), sk.make_term("prediffused")
+    engines = {"langevin": SDESampleEngine(langevin, y0, cfg, args=params, device="cuda")}
+    requests = [("langevin", "heun:adaptive"), ("langevin", "milstein:adaptive")]
+
+    def serve(engine, spec, seed):
+        eng = engines[engine]
+        rid = eng.submit(spec, t1=t1, n_steps=budget, n_paths=n_paths, rtol=rtol,
+                         seed=seed)
+        eng.run()
+        return eng.done.pop(rid)
+
+    def grid_solves(term, targs, shape, specs, y, grads=False):
+        """One grid realized by ``ees25:adaptive`` at PER_PATH_GRID paths,
+        solved with each spec with kernels and plain: {spec: (kernel y_final,
+        plain y_final, kernel grads, plain grads)}; ``grads`` takes the
+        gradients of mean(y_final^2) with respect to the dict ``targs``."""
+        keys = path_keys(PRNGKey(77, device="cuda"), PER_PATH_GRID)
+        yb = y.expand(PER_PATH_GRID, *y.shape).contiguous()
+        with torch.no_grad():
+            grid = realize_grid("ees25:adaptive", term, yb, virtual_brownian_tree(
+                keys, 0.0, t1, shape=shape), targs, rtol=rtol, max_steps=budget).grid
+        out = {}
+        for spec in specs:
+            runs = []
+            for s in (f"{spec}:use_kernels=True", spec):
+                leaves = ({k: v.clone().requires_grad_() for k, v in targs.items()}
+                          if grads else targs)
+                with torch.set_grad_enabled(grads):
+                    res = solve(get_solver(s), term, yb, grid, leaves, adjoint="full",
+                                batch_dims=1).y_final
+                    g = (torch.autograd.grad((res ** 2).mean(), list(leaves.values()))
+                         if grads else ())
+                runs.append((res.detach(), g))
+            out[spec] = (runs[0][0], runs[1][0], runs[0][1], runs[1][1])
+        return grid, out
+
+    with torch.no_grad():
+        for engine, spec in requests:  # warm-up: allocator, first jvp, first launch
+            engines[engine].submit(f"{spec},use_kernels=True", t1=t1, n_steps=8,
+                                   n_paths=1024, rtol=rtol, seed=99)
+            engines[engine].run()
+            engines[engine].done.clear()
+    _zero_launches()
+    for kern in kernels.values():
+        kern.entry_launches.clear()
+    routes_before = {k: route_launches(kernels[k]) for k in ROWS_KERNELS[3:]}
+    with torch.no_grad():
+        served = {(engine, spec): (serve(engine, f"{spec},use_kernels=True", 61 + i),
+                                   serve(engine, spec, 61 + i))
+                  for i, (engine, spec) in enumerate(requests)}
+    for (engine, spec), (kern, plain) in served.items():
+        check(bool(np.isfinite(kern.y_final).all()), f"15d {engine} {spec}: non-finite")
+        reached = float((kern.t_final == t1).mean())
+        same = _same_result(torch, kern, plain, ("y_final", "t_final", "n_accepted",
+                                                 "n_rejected"))
+        print(f"  (d) {engine} '{spec},use_kernels=True' vs '{spec}', {n_paths} paths, "
+              f"{budget}-trial budget, rtol {rtol}: bitwise (y_final, t_final, counts) "
+              f"{same}; {reached:.1%} of paths at t1", flush=True)
+        check(same, f"15d {engine} {spec}: kernels and plain differ")
+    # Adaptive solves on the general term: the kernels sum g@dW in another
+    # order than einsum, and the controller's error estimate (a difference
+    # of stages whose noise parts nearly cancel) turns that rounding into
+    # other accept sequences on some paths: per path the two are different
+    # solutions within the tolerance.  So they are held as two Monte-Carlo
+    # estimators of one law: the means of the counts and of y_final within
+    # PER_PATH_MC_Z standard errors (the per-path 1e-5 holds over one
+    # realized grid, below).
+    keys = path_keys(PRNGKey(71, device="cuda"), n_paths)
+    y_gen = torch.ones(sk.DIM, device="cuda")
+    for spec in ("ees25:adaptive", "heun:adaptive"):
+        with torch.no_grad():
+            kern, plain = (sdeint(general, s, 0.0, t1, budget, y_gen, None, args=args,
+                                  rtol=rtol, batch_keys=keys, bounded=False,
+                                  noise_shape=(sk.N_CHANNELS,), device="cuda")
+                           for s in (f"{spec},use_kernels=True", spec))
+        agree = ((kern.n_accepted == plain.n_accepted)
+                 & (kern.n_rejected == plain.n_rejected))
+        rel = ((kern.y_final - plain.y_final).abs().amax(-1)
+               / plain.y_final.abs().amax(-1))
+        z = _mc_z(torch, kern, plain)
+        ok = all(bool(torch.isfinite(r.y_final).all() and (r.t_final == t1).all())
+                 for r in (kern, plain))
+        print(f"  (d) general '{spec},use_kernels=True' vs '{spec}' (sdeint, {n_paths} "
+              f"paths, {budget}-trial budget, rtol {rtol}): trial counts equal on "
+              f"{agree.float().mean().item():.2%} of paths, y_final within "
+              f"{PER_PATH_REL:g} relative on {(rel <= PER_PATH_REL).float().mean().item():.2%}"
+              f" (at most {rel.max().item():.3e}); the means of the counts and of y_final "
+              f"within {z:.2f} standard errors (limit {PER_PATH_MC_Z}); every path finite "
+              f"at t1: {ok}", flush=True)
+        check(ok and z <= PER_PATH_MC_Z,
+              f"15d general {spec}: the kernels' samples are off the plain spec's")
+    # solves over one realized grid: Reversible Heun and MCF on the Langevin
+    # model; EES(2,5) and Heun on the general term; EES(2,5) and Reversible
+    # Heun on the additive term under the full adjoint with bulk increments
+    # (the prediffused route), with gradients
+    _, lang = grid_solves(langevin, params, (D_Z,), ("reversible-heun", "mcf-midpoint"),
+                          y0)
+    _, gen = grid_solves(general, args, (sk.N_CHANNELS,), ("ees25", "heun"),
+                                torch.ones(sk.DIM, device="cuda"))
+    _, add = grid_solves(additive, args, (sk.DIM,), ("ees25", "reversible-heun"),
+                                torch.ones(sk.DIM, device="cuda"), grads=True)
+    for label, results, exact in (("langevin", lang, True), ("general", gen, False),
+                                  ("additive (prediffused)", add, True)):
+        for spec, (yk, yp, gk, gp) in results.items():
+            if exact:
+                ok = torch.equal(yk, yp) and all(torch.equal(a, b) for a, b in zip(gk, gp))
+                what = f"bitwise{' (y_final and gradients)' if gk else ''}: {ok}"
+            else:
+                rel = ((yk - yp).abs().max() / yp.abs().max()).item()
+                ok = rel <= PER_PATH_REL
+                what = f"max rel err {rel:.3e} (limit {PER_PATH_REL})"
+            print(f"  (d) {label} over one realized grid ({PER_PATH_GRID} paths), "
+                  f"'{spec}:use_kernels=True' vs '{spec}': {what}", flush=True)
+            check(ok and bool(torch.isfinite(yk).all()),
+                  f"15d {label} {spec}: kernels and plain differ over a realized grid")
+    launches = {name: rows_launches(kernels[name]) for name in ROWS_KERNELS}
+    by_route = {name: {r: n - routes_before[name][r]
+                       for r, n in route_launches(kernels[name]).items()}
+                for name in ROWS_KERNELS[3:]}
+    axpy = AXPY_CHAIN.launches
+    print(f"  (d) per-path entries launched on 15d's paths: {launches}; the general "
+          f"pair's by route {by_route}; axpy_chain {axpy}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"the per-path {name} entry was not launched on 15d's paths")
+    check(axpy > 0, "axpy_chain was not launched on 15d's Butcher and MCF paths")
+    return launches, by_route, axpy
 
 
 # Phase 16: scanned training steps as CUDA graphs, microbatches, train_loop
@@ -3876,6 +4225,24 @@ def _lm_train_run(torch, cfg, params, microbatches, steps, ckpt_dir=None, ckpt_e
                                            microbatches=microbatches))
 
 
+def _step_twice_bitwise(torch, step, params, state, batch, label):
+    """One training step run twice from one state: the parameters must come
+    out bitwise equal (the optimizer returns a new state and changes none in
+    place, so both runs start from ``state``)."""
+    snap = [p.detach().clone() for p in params.parameters()]
+    results = []
+    for _ in range(2):
+        with torch.no_grad():
+            for p, v in zip(params.parameters(), snap):
+                p.copy_(v)
+        step(params, state, batch)
+        results.append([p.detach().clone() for p in params.parameters()])
+    same = all(torch.equal(a, b) for a, b in zip(*results))
+    print(f"  one step run twice from the same state: parameters bitwise equal={same}",
+          flush=True)
+    check(same, f"{label}: two runs of one training step from the same state differ")
+
+
 def lm_train_card(torch, timer):
     """18a: zamba2-7b at full width, 12 layers, bf16, B = 2 x 2048, remat:
     four AdamW steps through ``train_loop``'s default step, then four with
@@ -3988,21 +4355,8 @@ def lm_train_card(torch, timer):
           + ", ".join(f"{k} {v:.2f} ms ({v / max(dev_ms, 1e-9):.0%})" for k, v in kinds.items()),
           flush=True)
 
-    # two runs of one step from one state, bitwise (the optimizer returns a
-    # new state and changes none in place, so both runs start from `state`)
-    snap = [p.detach().clone() for p in params.parameters()]
-    results = []
-    for _ in range(2):
-        with torch.no_grad():
-            for p, v in zip(params.parameters(), snap):
-                p.copy_(v)
-        step(params, state, batch)
-        results.append([p.detach().clone() for p in params.parameters()])
-    same = all(torch.equal(a, b) for a, b in zip(*results))
-    print(f"  one step run twice from the same state: parameters bitwise equal={same}",
-          flush=True)
-    check(same, "two runs of one step from the same state differ")
-    del params, state, snap, results, step, runs, batch
+    _step_twice_bitwise(torch, step, params, state, batch, "zamba2-7b")
+    del params, state, step, runs, batch
     torch.cuda.empty_cache()
 
     # resume: 2 layers at full width (a checkpoint of 12 layers with AdamW's
@@ -4365,6 +4719,418 @@ def lm_training_phase(torch, timer):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the moe family and the patch / frames frontends at full width.
+# ---------------------------------------------------------------------------
+
+# (arch, layers for prefill and decode, layers for training): the published
+# widths; depth cut only where the card's 80 GB or the run's time forces it.
+# olmoe-1b-7b's 16 layers are 13.8 GB of bf16 weights; its training at 4
+# layers (1.89 B parameters) peaks near 47 GB at phase 18a's ~25 bytes a
+# parameter (bf16 weights and gradients, float32 AdamW moments, remat).
+# qwen3-moe-30b-a3b's 48 layers would put 61 GB of weights on the card
+# before activations: 12 (8.1 B parameters) serve, 2 train (1.87 B).
+MOE_ARCHS = (("olmoe-1b-7b", 16, 4), ("qwen3-moe-30b-a3b", 12, 2))
+# (arch, layers for the forward, layers for training): uncut.
+FRONTEND_ARCHS = (("qwen2-vl-2b", 28, 28), ("hubert-xlarge", 48, 48))
+P19_STEPS = 4                  # AdamW steps of train_loop's default step (moe)
+P19_CHECK_LAYERS = 2           # the float32 kernel-vs-plain and decode checks
+P19_CHECK_BATCH, P19_CHECK_LEN = 2, 256
+P19_DECODE_LEN = 16
+P19_LOGIT_REL = 1e-4           # kernel path vs plain path, of max|logit| (11a, 18b)
+P19_DECODE_ATOL = 2e-5         # decode vs forward (the reference's test)
+P19_FLIP_SHARE = 0.01          # tokens whose expert set differs in some layer
+P19_CAPACITY = 64.0            # dropless capacity for the checks
+P19_SERVE = (8, 8, 32)         # Engine: requests, prompt tokens, max_len
+
+
+def _p19_kinds(totals):
+    """Device ms by kind of a profile: attention (forward, backward), GEMMs,
+    the MoE dispatch and combine (sorts, searches, gathers, concatenations)
+    and the rest."""
+    kinds = dict.fromkeys(("flash_attention", "flash_attention_bwd", "GEMM",
+                           "dispatch/combine", "other"), 0.0)
+    for name, (us, _) in totals.items():
+        low = name.lower()
+        kind = ("flash_attention_bwd" if "flash_attention_bwd" in name else
+                "flash_attention" if "flash_attention_kernel" in name else
+                "GEMM" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")) else
+                "dispatch/combine" if any(t in low for t in (
+                    "sort", "radix", "search", "gather", "catarray", "scatter", "index"))
+                else "other")
+        kinds[kind] += us / 1e3
+    return kinds
+
+
+def _p19_print_profile(label, totals, wall_ms):
+    kinds = _p19_kinds(totals)
+    dev = sum(kinds.values())
+    busy = "not measured" if dev == 0 else f"{dev / wall_ms:.0%}"
+    print(f"  {label}: {dev:.2f} ms of device time over "
+          f"{sum(n for _, n in totals.values())} kernels in {wall_ms:.1f} ms of host "
+          f"wall (device busy {busy}); by kind: "
+          + ", ".join(f"{k} {v:.2f} ms ({v / max(dev, 1e-9):.0%})" for k, v in kinds.items()),
+          flush=True)
+    return kinds
+
+
+def _p19_batch(torch, cfg, b, s, seed):
+    """Tokens and labels, with ``vision_embeds`` (patch) or ``frames`` in
+    place of the tokens (frames), in the model's dtype, as the reference's
+    smoke test builds them."""
+    from repro_torch.models.common import dtype_of
+
+    dtype = dtype_of(cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    toks = lambda: torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, s))).cuda()  # noqa: E731
+    batch = {"tokens": toks(), "labels": toks()}
+    if cfg.frontend == "patch":
+        batch["vision_embeds"] = torch.randn(b, cfg.n_vision_tokens, cfg.frontend_dim,
+                                             generator=gen, device="cuda").to(dtype)
+    if cfg.frontend == "frames":
+        batch = {"frames": torch.randn(b, s, cfg.frontend_dim, generator=gen,
+                                       device="cuda").to(dtype),
+                 "labels": batch["labels"]}
+    return batch
+
+
+class _ExpertSets:
+    """Records the top-k expert indices of every moe_block call (the module's
+    ``top_k``, wrapped), per call in order."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.calls = moe_mod, []
+
+    def __enter__(self):
+        self.inner = self.moe.top_k
+
+        def recorded(probs, k):
+            vals, idx = self.inner(probs, k)
+            self.calls.append(idx.sort(dim=-1).values)
+            return vals, idx
+
+        self.moe.top_k = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.inner
+        return False
+
+
+def _p19_compare(torch, label, got, want, sets_got, sets_want, limit, rel=True):
+    """Logits ``got`` against ``want`` (B, S, V) on the tokens before each
+    sequence's first token whose expert set differs in any layer (causal
+    attention carries a flip to every later token); prints and gates the
+    flip share and the difference."""
+    b, s = got.shape[:2]
+    flips = torch.zeros(b, s, dtype=torch.bool, device=got.device)
+    for a, w in zip(sets_got, sets_want):
+        flips |= (a != w).any(-1).reshape(b, s)
+    first = torch.where(flips.any(1), flips.float().argmax(1),
+                        torch.full((b,), s, dtype=torch.long, device=got.device))
+    keep = torch.arange(s, device=got.device)[None] < first[:, None]
+    n_flip, n_keep = int(flips.sum()), int(keep.sum())
+    scale = want.abs().max().item() if rel else 1.0
+    err = ((got - want).abs()[keep].max().item() / scale) if n_keep else 0.0
+    share = n_flip / (b * s)
+    print(f"  {label}: {n_flip} of {b * s} tokens route to another expert set in some "
+          f"layer ({share:.2%}; limit {P19_FLIP_SHARE:.0%}); on the {n_keep} tokens before "
+          f"each sequence's first such token, max |diff| {err:.3e}"
+          f"{' of max|logit|' if rel else ''} (limit {limit:g})", flush=True)
+    check(share <= P19_FLIP_SHARE and err <= limit and n_keep > 0,
+          f"{label}: outside its limits")
+
+
+def _p19_checks(torch, arch):
+    """The float32 checks at P19_CHECK_LAYERS layers, full width: the kernel
+    path against the plain path, and (decoders) token-by-token serve_step
+    against the forward, moe at dropless capacity."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models import ModelOptions, forward, init_cache, init_params, moe, serve_step
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=P19_CHECK_LAYERS, dtype="float32",
+                              capacity_factor=P19_CAPACITY)
+    params = init_params(cfg, prng.PRNGKey(1, device="cuda"), device="cuda")
+    batch = _p19_batch(torch, cfg, P19_CHECK_BATCH, P19_CHECK_LEN, 191)
+    runs = {}
+    with torch.no_grad():
+        for path, opts in (("kernel", ModelOptions()), ("plain", ModelOptions(use_flash="never"))):
+            with _ExpertSets(moe) as rec:
+                runs[path] = (forward(cfg, params, batch, opts)[0], rec.calls)
+        _p19_compare(torch, f"{arch} float32, {cfg.n_layers} layers, B={P19_CHECK_BATCH} x "
+                     f"{P19_CHECK_LEN}: kernel path vs plain path", runs["kernel"][0],
+                     runs["plain"][0], runs["kernel"][1], runs["plain"][1], P19_LOGIT_REL)
+        if not cfg.supports_decode:
+            return
+        toks = batch["tokens"][:, :P19_DECODE_LEN]
+        with _ExpertSets(moe) as rec:
+            full = forward(cfg, params, {"tokens": toks})[0]
+        cache = init_cache(cfg, P19_CHECK_BATCH, P19_DECODE_LEN, device="cuda")
+        steps = []
+        with _ExpertSets(moe) as dec:
+            for i in range(P19_DECODE_LEN):
+                steps.append(serve_step(cfg, params, cache, toks[:, i], i)[0])
+        # decode routes one token a call: regroup its sets as (B, S) per layer
+        per_layer = [torch.cat(dec.calls[layer::cfg.n_layers], dim=1)
+                     for layer in range(len(rec.calls))]
+        _p19_compare(torch, f"{arch} float32: decode ({P19_DECODE_LEN} tokens, "
+                     f"serve_step) vs forward", torch.stack(steps, dim=1), full,
+                     per_layer, rec.calls, P19_DECODE_ATOL, rel=False)
+
+
+def _p19_engine(torch, cfg, params):
+    """The decode Engine: requests of prompt tokens, greedy; tokens/s, ticks,
+    finite logits, and the same tokens from a second drain."""
+    n_req, n_prompt, max_len = P19_SERVE
+    prompts = np.random.default_rng(19).integers(2, cfg.vocab, size=(n_req, n_prompt)).tolist()
+    first, wall, ticks, finite = _engine_drain(torch, cfg, params, prompts, max_len)
+    second = _engine_drain(torch, cfg, params, prompts, max_len)[0]
+    new = sum(len(t) - len(p) for t, p in zip(first.values(), prompts))
+    print(f"  Engine(slots={n_req}, max_len={max_len}), {n_req} requests x {n_prompt}-token "
+          f"prompts, greedy: {new} new tokens in {ticks} ticks, {wall:.3f} s = "
+          f"{new / wall:.1f} tokens/s ({wall / ticks * 1e3:.1f} ms a tick); logits finite: "
+          f"{finite}; a second drain gives the same tokens: {second == first}", flush=True)
+    check(finite and len(first) == n_req and second == first,
+          f"{cfg.name}: the decode engine's drains are not finite or differ")
+
+
+def _p19_prefill(torch, timer, cfg, params, batch, launches):
+    """One forward of ``batch`` (head_positions='last' where there is a
+    decoder): launches by route, peak memory, ms, tokens/s, busy share."""
+    from repro_torch.kernels import FLASH_ATTENTION
+    from repro_torch.kernels.flash_attention.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.models import forward
+
+    b, s = batch["labels"].shape
+    head = "last" if cfg.supports_decode else "all"
+
+    def run():
+        return forward(cfg, params, batch, head_positions=head)[0]
+
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FLASH_ATTENTION.launches = 0
+        ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
+        logits = run()
+        torch.cuda.synchronize()
+        routes, peak = dict(ROUTE_LAUNCHES), torch.cuda.max_memory_allocated()
+        launches["flash_attention"] += FLASH_ATTENTION.launches
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (b, 1 if head == "last" else s, cfg.padded_vocab),
+              f"{cfg.name}: the forward's logits are not finite of the right shape")
+        check(routes == {"wgmma": cfg.n_layers, "mma_tf32": 0, "simt": 0},
+              f"{cfg.name}: the forward's attention took the routes {routes}")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[1]
+        print(f"  forward B={b} x {s} (head_positions='{head}'): "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {wall * 1e3:.1f} ms "
+              f"= {b * s / wall:.0f} tokens/s; peak device memory {peak / 2**30:.2f} GiB; "
+              f"flash_attention by route {routes}", flush=True)
+        _p19_print_profile("one profiled forward",
+                           timer.kernels_us(run, reps=1, flush=False), wall * 1e3)
+
+
+def _p19_train_profile(torch, timer, cfg, params, batch, launches, steps_done):
+    """One more step of ``make_train_step``, timed and profiled, then one
+    step run twice from one state (bitwise)."""
+    from repro_torch.models import ModelOptions, make_train_step
+    from repro_torch.optim import adamw
+
+    b, s = batch["labels"].shape
+    opt = adamw(3e-4)
+    step = make_train_step(cfg, opt, ModelOptions(remat=True))
+    state = opt.init(list(params.parameters()))
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(metrics["loss"])), f"{cfg.name}: non-finite training loss")
+    wall = min(walls)
+    print(f"  make_train_step (remat, AdamW): host wall "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms ({b * s / wall:.0f} tokens/s), "
+          f"loss {float(metrics['loss']):.6f}{steps_done}", flush=True)
+    _p19_print_profile("one profiled step", timer.kernels_us(
+        lambda: step(params, state, batch), reps=1, flush=False, warm=False), wall * 1e3)
+    _step_twice_bitwise(torch, step, params, state, batch, cfg.name)
+
+
+def _p19_counted_step(torch, cfg, run, launches):
+    """Runs ``run`` (training steps) with the attention launches counted:
+    every forward and backward on the wgmma route."""
+    from repro_torch.kernels import FLASH_ATTENTION, FLASH_ATTENTION_BWD
+    from repro_torch.kernels.flash_attention.flash_attention import (BWD_ROUTE_LAUNCHES,
+                                                                     ROUTE_LAUNCHES)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FLASH_ATTENTION.launches = FLASH_ATTENTION_BWD.launches = 0
+    ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
+    BWD_ROUTE_LAUNCHES.update(dict.fromkeys(BWD_ROUTE_LAUNCHES, 0))
+    out = run()
+    torch.cuda.synchronize()
+    fwd, bwd = dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
+    launches["flash_attention"] += FLASH_ATTENTION.launches
+    launches["flash_attention_bwd"] += FLASH_ATTENTION_BWD.launches
+    check(FLASH_ATTENTION.launches > 0 and fwd["wgmma"] == FLASH_ATTENTION.launches
+          and FLASH_ATTENTION_BWD.launches > 0
+          and bwd["wgmma"] == FLASH_ATTENTION_BWD.launches,
+          f"{cfg.name}: the training step's attention took the routes {fwd} / {bwd}")
+    return out, fwd, bwd, torch.cuda.max_memory_allocated()
+
+
+def _p19_moe(torch, timer, arch, layers, train_layers, launches):
+    """19a / 19b: a moe arch in bf16 at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models import LMParams, init_params, moe
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    start = time.perf_counter()
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"  {arch} bf16, {layers} of {full.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.moe_d_ff}): "
+          f"{n_par / 1e9:.3f} B parameters ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated) drawn in {time.perf_counter() - start:.2f} s", flush=True)
+    batch = _p19_batch(torch, cfg, PREFILL_BATCH, PREFILL_LEN, 19)
+    _p19_prefill(torch, timer, cfg, params, batch, launches)
+    # one layer's moe_block at the prefill's shape: where its time goes
+    h = torch.randn(PREFILL_BATCH, PREFILL_LEN, cfg.d_model, device="cuda",
+                    dtype=params.embed.dtype)
+    with torch.no_grad():
+        blk = lambda: moe.moe_block(cfg, params.layers[0]["moe"], h)  # noqa: E731
+        blk()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blk()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        _p19_print_profile(f"one layer's moe_block (B={PREFILL_BATCH} x {PREFILL_LEN}, "
+                           f"grouped, capacity {moe._capacity(cfg, PREFILL_LEN)} a "
+                           f"sequence)", timer.kernels_us(blk, reps=1, flush=False),
+                           sorted(walls)[1] * 1e3)
+    del h
+    _p19_engine(torch, cfg, params)
+    # training at train_layers: the first layers of the same weights
+    params = LMParams(params.embed.data, list(params.layers[:train_layers]),
+                      final_norm=params.final_norm.data,
+                      lm_head=params.get("lm_head").data if params.get("lm_head") is not None
+                      else None)
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, n_layers=train_layers)
+    n_par = sum(p.numel() for p in params.parameters())
+    out, fwd, bwd, peak = _p19_counted_step(
+        torch, tcfg, lambda: _lm_train_run(torch, tcfg, params, 1, P19_STEPS), launches)
+    losses = [v for _, v in out["losses"]]
+    per_step = out["wall_s"] / P19_STEPS
+    print(f"  train_loop, default step, {train_layers} layers ({n_par / 1e9:.3f} B "
+          f"parameters), B={LM_TRAIN_BATCH} x {LM_TRAIN_LEN}, remat, {P19_STEPS} AdamW steps: "
+          f"losses {', '.join(f'{v:.6f}' for v in losses)}; {per_step * 1e3:.1f} ms a step "
+          f"over the run ({LM_TRAIN_BATCH * LM_TRAIN_LEN / per_step:.0f} tokens/s, warm-up "
+          f"included); peak device memory {peak / 2**30:.2f} GiB; flash_attention by route "
+          f"{fwd}, flash_attention_bwd by route {bwd}", flush=True)
+    check(len(losses) == P19_STEPS and all(np.isfinite(losses)),
+          f"{arch}: the training losses are not {P19_STEPS} finite values")
+    del out
+    torch.cuda.empty_cache()
+    tbatch = _p19_batch(torch, tcfg, LM_TRAIN_BATCH, LM_TRAIN_LEN, 20)
+    _p19_train_profile(torch, timer, tcfg, params, tbatch, launches, "")
+    del params, tbatch
+    torch.cuda.empty_cache()
+
+
+def _p19_frontend(torch, timer, arch, layers, train_layers, launches):
+    """19c / 19d: a frontend arch in bf16 at full width: a forward of its
+    inputs, one training step, and (hubert) the Engine's refusal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models import ModelOptions, init_params, make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.serving import Engine
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    n_par = sum(p.numel() for p in params.parameters())
+    extra = (f"{cfg.n_vision_tokens} vision tokens of {cfg.frontend_dim}"
+             if cfg.frontend == "patch" else f"frames of {cfg.frontend_dim}")
+    print(f"  {arch} bf16, {layers} of {full.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{'causal' if cfg.causal else 'non-causal'}, {extra}): {n_par / 1e9:.3f} B "
+          f"parameters", flush=True)
+    batch = _p19_batch(torch, cfg, PREFILL_BATCH, PREFILL_LEN, 21)
+    _p19_prefill(torch, timer, cfg, params, batch, launches)
+    if not cfg.supports_decode:
+        try:
+            Engine(cfg, params)
+        except ValueError as exc:
+            print(f"  Engine({arch}): ValueError({exc})", flush=True)
+            check(str(exc) == f"{cfg.name} is encoder-only: no decode",
+                  "the refusal differs from the reference's")
+        else:
+            fail(f"the decode Engine accepted the encoder-only {arch}")
+    opt = adamw(3e-4)
+    step = make_train_step(cfg, opt, ModelOptions(remat=True))
+    state = opt.init(list(params.parameters()))
+    _, fwd, bwd, peak = _p19_counted_step(
+        torch, cfg, lambda: step(params, state, batch), launches)
+    print(f"  one counted training step ({layers} layers, B={PREFILL_BATCH} x "
+          f"{PREFILL_LEN}, remat, AdamW): peak device memory {peak / 2**30:.2f} GiB; "
+          f"flash_attention by route {fwd}, flash_attention_bwd by route {bwd}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    _p19_train_profile(torch, timer, cfg, params, batch, launches,
+                       " (after one counted step)")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def moe_frontend_phase(torch, timer):
+    """Phase 19; returns the attention kernels' launches over its paths."""
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    cuts = []
+    for arch, layers, train_layers in MOE_ARCHS + FRONTEND_ARCHS:
+        cuts.append(f"{arch}: {layers} layers served, {train_layers} trained")
+    print(f"  depths: {'; '.join(cuts)}; float32 checks at {P19_CHECK_LAYERS} layers",
+          flush=True)
+    for i, (arch, layers, train_layers) in enumerate(MOE_ARCHS + FRONTEND_ARCHS):
+        start = time.perf_counter()
+        tag = "19" + "abcd"[i]
+        print(f" {tag}: {arch}", flush=True)
+        _p19_checks(torch, arch)
+        torch.cuda.empty_cache()
+        if (arch, layers, train_layers) in MOE_ARCHS:
+            _p19_moe(torch, timer, arch, layers, train_layers, launches)
+        else:
+            _p19_frontend(torch, timer, arch, layers, train_layers, launches)
+        print(f"  ({tag}: {time.perf_counter() - start:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4493,6 +5259,11 @@ def main() -> int:
     print(f"  launched on phase 15's paths: {adaptive_launches}", flush=True)
     launches.update({name: adaptive_launches[name] for name in
                      ("ws_stage_diag_rows", "ws_stage_diag_bwd_rows")})
+    start = time.perf_counter()
+    rows_launches_15d, rows_routes, axpy_15d = per_path_phase(torch, params, y0)
+    print(f"  (15d: {time.perf_counter() - start:.1f} s)", flush=True)
+    launches.update({f"{name}_rows": n for name, n in rows_launches_15d.items()})
+    by_route.update({f"{name}_rows": r for name, r in rows_routes.items()})
 
     phase("phase 16: scanned training steps, loops and checkpoints (CUDA graphs)")
     pipeline_launches, pipeline_replayed = training_pipeline_phase(torch, timer)
@@ -4517,6 +5288,12 @@ def main() -> int:
               f"{name} was not launched on the LM training path")
     launches.update({name: lm_train_launches[name]
                      for name in ("flash_attention_bwd", "ssd_scan_bwd")})
+
+    phase("phase 19: the moe family and the patch / frames frontends at full width "
+          "(olmoe-1b-7b, qwen3-moe-30b-a3b, qwen2-vl-2b, hubert-xlarge)")
+    p19_launches = moe_frontend_phase(torch, timer)
+    print(f"  the attention kernels launched on phase 19's paths: {p19_launches}",
+          flush=True)
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -4526,6 +5303,11 @@ def main() -> int:
                "ws_stage_diag_bwd": ("ws_stage_diag_bwd.cu", f"{tpu}:182"),
                "ws_stage_diag_rows": ("ws_stage_diag.cu", f"{tpu}:144"),
                "ws_stage_diag_bwd_rows": ("ws_stage_diag_bwd.cu", f"{tpu}:182"),
+               "increment_diag_rows": ("increment_diag.cu", f"{tpu}:65"),
+               "increment_pre_rows": ("increment_pre.cu", f"{tpu}:85"),
+               "ws_stage_pre_rows": ("ws_stage_pre.cu", f"{tpu}:212"),
+               "increment_general_rows": ("increment_general.cu", f"{tpu}:112"),
+               "ws_stage_general_rows": ("ws_stage_general.cu", f"{tpu}:247"),
                "increment_diag": ("increment_diag.cu", f"{tpu}:65"),
                "axpy_chain": ("axpy_chain.cu", f"{tpu}:286"),
                "increment_pre": ("increment_pre.cu", f"{tpu}:85"),
@@ -4558,7 +5340,9 @@ def main() -> int:
              "replayed_phase_16": pipeline_replayed.get(name, 0)}
             if name in PHASE16_KERNELS else {}),
          **({"launches_phase_18": lm_train_launches[name]}
-            if name in ("flash_attention", "ssd_scan") else {})}
+            if name in ("flash_attention", "ssd_scan") else {}),
+         **({"launches_phase_19": p19_launches[name]} if name in p19_launches else {}),
+         **({"launches_phase_15d": axpy_15d} if name == "axpy_chain" else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

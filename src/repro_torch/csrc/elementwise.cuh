@@ -59,6 +59,24 @@ inline unsigned blocks_for(int64_t work) {
   return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
 }
 
+// The step size of item i (an element, or a row of a general-noise launch):
+// one scalar for the whole launch, or one value a path read from a device
+// vector, h_vec[i / per_path] for paths of per_path items each (an adaptive
+// solve's per-path steps).  A kernel templated on the step runs the same
+// arithmetic either way; only where h comes from differs.
+template <typename T, typename I = int64_t>
+struct ScalarStep {
+  T h;
+  __device__ __forceinline__ T operator()(I) const { return h; }
+};
+
+template <typename T, typename I = int64_t>
+struct PathStep {
+  const T* h_vec;
+  I per_path;
+  __device__ __forceinline__ T operator()(I i) const { return h_vec[i / per_path]; }
+};
+
 }  // namespace repro
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -39,10 +39,10 @@
 //    rowsum(dO * O) of its rows.  (The forward's y stays as it is: moving
 //    the statistics onto the tensor cores costs one of the eleven products
 //    below and keeps the forward's routes and entry points untouched.)
-//  * flash_attention_bwd_dkdv_wgmma, one block per (b * hkv, 128-key
-//    tile): K and V stay in shared memory while the block walks the KV
-//    head's query heads in order and, for each, the 64-row q tiles the
-//    causal mask leaves, Q, dO, lse and D arriving through the ring.  Each
+//  * flash_attention_bwd_dkdv_wgmma, one block per (b * hq, 128-key
+//    tile): K and V of the query head's KV head stay in shared memory while
+//    the block walks the 64-row q tiles the causal mask leaves, Q, dO, lse
+//    and D arriving through the ring.  Each
 //    consumer owns 64 keys: S^T = K Q^T and dP^T = V dO^T are m64n64
 //    products of exact bf16 operands; P = 2^(S^T sm_scale log2 e - lse) and
 //    dS = P (dP - D) in registers; dV += P^T dO and dK += dS^T Q take P and
@@ -50,7 +50,14 @@
 //    rounding of P and dS, as FlashAttention's, misses the elementwise bf16
 //    gate against the float32 twin ~37x: tests/test_torch_lm_bwd_split.py).
 //    The dK and dV accumulators are 2 x 64 float32 registers a thread,
-//    S^T and dP^T 2 x 32, then P's and dS's split operands 2 x 32.
+//    S^T and dP^T 2 x 32, then P's and dS's split operands 2 x 32.  The
+//    tensor cores add each k-step into the accumulator rounding toward
+//    zero, so a sum over a whole GQA group's query heads in one accumulator
+//    (8 x 2048 rows at qwen3-moe-30b-a3b's group of 8) drifts by ~1e-4 of
+//    its largest terms.  So a block takes one query head: (b * hq, key
+//    tile); with more than one query head a KV head, its dK and dV go to
+//    float32 partials (`part`) and flash_attention_bwd_group_sum adds a
+//    group's partials in head order, to nearest, into the bf16 gradients.
 //  * flash_attention_bwd_dq_wgmma, one block per (b * hq, 128-row q tile):
 //    Q and dO stay in shared memory while the block walks the 64-key K/V
 //    tiles the mask leaves; per consumer S and dP (m64n64), dS, and dQ +=
@@ -712,6 +719,27 @@ flash_attention_bwd_stats_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// acc's rows [row0, ...) into a (rows, d) float32 matrix, in store_rows'
+// layout.
+__device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[64], int row0,
+                                               int rows, int d) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = row0 + 16 * ((threadIdx.x % 128) / 32) + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= rows) continue;
+    float* orow = out + static_cast<int64_t>(row) * d;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + c0;
+      if (col < d)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
@@ -719,15 +747,15 @@ flash_attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_do,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                               int hq, int hkv, int sq, int sk, int d, int sq_pad,
-                               float scale, float scale_log2, int causal) {
+                               float* __restrict__ part, int hq, int hkv, int sq, int sk,
+                               int d, int sq_pad, float scale, float scale_log2, int causal) {
   extern __shared__ uint8_t smem_raw[];
   const BwSmem sm = bw_smem_init(smem_raw);
-  const int bk = blockIdx.x, bi = bk / hkv, kvh = bk - bi * hkv, group = hq / hkv;
+  const int bh = blockIdx.x, bi = bh / hq, group = hq / hkv;
+  const int bk = bi * hkv + (bh - bi * hq) / group;  // the query head's KV head
   const int k0 = blockIdx.y * kBwOwn;
   const int qt0 = causal ? k0 / kBwTile : 0;  // q tiles above the key tile see none of it
-  const int per_head = (sq + kBwTile - 1) / kBwTile - qt0;
-  const int n_items = group * per_head;
+  const int n_items = (sq + kBwTile - 1) / kBwTile - qt0;
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -737,8 +765,7 @@ flash_attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       tma_tile(sm.base + kOwnBytes, &tm_v, sm.own_full(), kBwOwn, k0, bk);
       for (int it = 0; it < n_items; ++it) {
         const int s = it % kBwStages;
-        const int bh = bi * hq + kvh * group + it / per_head;
-        const int q0 = (qt0 + it % per_head) * kBwTile;
+        const int q0 = (qt0 + it) * kBwTile;
         if (it >= kBwStages) mbar_wait(sm.empty(s), ((it / kBwStages) - 1) & 1);
         mbar_expect_tx(sm.full(s), kStageBytes + 2 * kRowStatBytes);
         tma_tile(sm.stage(s), &tm_q, sm.full(s), kBwTile, q0, bh);
@@ -762,7 +789,7 @@ flash_attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   mbar_wait(sm.own_full(), 0);
   for (int it = 0; it < n_items; ++it) {
     const int s = it % kBwStages;
-    const int q0 = (qt0 + it % per_head) * kBwTile;
+    const int q0 = (qt0 + it) * kBwTile;
     mbar_wait(sm.full(s), (it / kBwStages) & 1);
     if (!(causal && q0 + kBwTile <= kc)) {  // else every key is past every row
       const uint32_t qs = sm.stage(s), dos = qs + kStreamBytes;
@@ -816,9 +843,39 @@ flash_attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     if (tid == 0) mbar_arrive(sm.empty(s));
   }
-  const int64_t kv_off = static_cast<int64_t>(bk) * sk * d;
-  store_rows(dk + kv_off, dk_acc, scale, kc, sk, d);
-  store_rows(dv + kv_off, dv_acc, 1.f, kc, sk, d);
+  if (group == 1) {
+    const int64_t kv_off = static_cast<int64_t>(bk) * sk * d;
+    store_rows(dk + kv_off, dk_acc, scale, kc, sk, d);
+    store_rows(dv + kv_off, dv_acc, 1.f, kc, sk, d);
+  } else {  // this query head's share, unscaled: (b * hq, 2, sk, d)
+    float* own = part + static_cast<int64_t>(bh) * 2 * sk * d;
+    store_rows_f32(own, dk_acc, kc, sk, d);
+    store_rows_f32(own + static_cast<int64_t>(sk) * d, dv_acc, kc, sk, d);
+  }
+}
+
+// dK and dV of each KV head from its group's float32 partials (b * hq, 2,
+// sk, d), added in query-head order to nearest, dK scaled, rounded to bf16:
+// one thread per two columns of a (b * hkv, sk, d) row.
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_group_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int hq, int hkv, int sk, int d,
+                              int64_t pairs, float scale) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int64_t per_head = static_cast<int64_t>(sk) * d / 2;  // pairs of one head's rows
+  const int64_t bk = i / per_head, at = i - bk * per_head;
+  const int group = hq / hkv;
+  const int64_t h0 = (bk / hkv) * hq + (bk % hkv) * group;
+  const float2* src = reinterpret_cast<const float2*>(part) + h0 * 2 * per_head + at;
+  float2 gk = src[0], gv = src[per_head];
+  for (int h = 1; h < group; ++h) {
+    const float2 k2 = src[h * 2 * per_head], v2 = src[h * 2 * per_head + per_head];
+    gk = make_float2(__fadd_rn(gk.x, k2.x), __fadd_rn(gk.y, k2.y));
+    gv = make_float2(__fadd_rn(gv.x, v2.x), __fadd_rn(gv.y, v2.y));
+  }
+  reinterpret_cast<__nv_bfloat162*>(dk)[i] = __floats2bfloat162_rn(scale * gk.x, scale * gk.y);
+  reinterpret_cast<__nv_bfloat162*>(dv)[i] = __floats2bfloat162_rn(gv.x, gv.y);
 }
 
 __global__ void __launch_bounds__(kBwThreads, 1)
@@ -910,11 +967,11 @@ flash_attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 }
 
 int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
-                 const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta, int b,
-                 int hq, int hkv, int sq, int sk, int d, double sm_scale, int causal,
-                 void* stream) {
+                 const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+                 void* part, int b, int hq, int hkv, int sq, int sk, int d, double sm_scale,
+                 int causal, void* stream) {
   if (b < 1 || d < 8 || d > kMaxD || d % 8 != 0 || hkv < 1 || hq % hkv != 0 || sq < 1 ||
-      sk < 1 || (causal && sq != sk))
+      sk < 1 || (causal && sq != sk) || (hq > hkv && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
@@ -955,10 +1012,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
       static_cast<const __nv_bfloat16*>(dout), lsef, deltaf, hq, hkv, sq, sk, d, sq_pad,
       scale_log2, causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dkdv_wgmma<<<dim3(b * hkv, k_tiles), kBwThreads, kBwSmemBytes, s>>>(
+  flash_attention_bwd_dkdv_wgmma<<<dim3(b * hq, k_tiles), kBwThreads, kBwSmemBytes, s>>>(
       q_tile, k_own, v_own, do_tile, lsef, deltaf, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), hq, hkv, sq, sk, d, sq_pad, scale, scale_log2, causal);
+      static_cast<__nv_bfloat16*>(dv), static_cast<float*>(part), hq, hkv, sq, sk, d, sq_pad,
+      scale, scale_log2, causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (hq > hkv) {
+    const int64_t pairs = static_cast<int64_t>(b) * hkv * sk * d / 2;
+    flash_attention_bwd_group_sum<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, s>>>(
+        static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), hq, hkv, sk, d, pairs, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
   flash_attention_bwd_dq_wgmma<<<dim3(b * hq, q_tiles), kBwThreads, kBwSmemBytes, s>>>(
       q_own, k_tile, v_tile, do_own, lsef, deltaf, static_cast<__nv_bfloat16*>(dq), hq, hkv,
       sq, sk, d, sq_pad, scale, scale_log2, causal);
@@ -985,13 +1050,16 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
                                sq, sk, d, sm_scale, causal, stream);
 }
 
+// part: float32 scratch of b * hq * 2 * sk * d (each query head's share of
+// dK, then of dV), used only with more than one query head a KV head.
 extern "C" int flash_attention_bwd_bf16_wgmma(const void* q, const void* k, const void* v,
                                               const void* out, const void* dout, void* dq,
                                               void* dk, void* dv, void* lse, void* delta,
-                                              int b, int hq, int hkv, int sq, int sk, int d,
-                                              double sm_scale, int causal, void* stream) {
-  return launch_wgmma(q, k, v, out, dout, dq, dk, dv, lse, delta, b, hq, hkv, sq, sk, d,
-                      sm_scale, causal, stream);
+                                              void* part, int b, int hq, int hkv, int sq,
+                                              int sk, int d, double sm_scale, int causal,
+                                              void* stream) {
+  return launch_wgmma(q, k, v, out, dout, dq, dk, dv, lse, delta, part, b, hq, hkv, sq, sk,
+                      d, sm_scale, causal, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -21,28 +21,38 @@
 // Index arithmetic runs in 32 bits when N*d fits.  Each launch runs on the
 // caller's stream and reports cudaGetLastError() to the Python wrapper,
 // which raises on failure.
+//
+// A second entry per dtype and route (increment_general_rows_<dtype>[_staged])
+// takes one step size per path, as the reference's vmapped kernel does under
+// an adaptive solve or a realized grid: h = h_vec[row / rows_per_path] for
+// the row of d outputs that output e belongs to (row = e / d), looked up in
+// the epilogue.  Both entries run one kernel templated on where h comes from
+// (elementwise.cuh's ScalarStep / PathStep), so the sum and the epilogue are
+// the same operation by operation.  Bound: the scalar entry's bytes plus the
+// h vector.
 #include "row_matvec.cuh"
 
 namespace {
 
-template <typename T, typename I>
+template <typename T, typename I, typename Step>
 __global__ void __launch_bounds__(repro::kThreads)
 increment_general_kernel(const T* __restrict__ f, const T* __restrict__ g,
                          const T* __restrict__ dw, T* __restrict__ out,
-                         I total, I d, int m, bool packed, T h) {
+                         I total, I d, int m, bool packed, Step step) {
   const I stride = static_cast<I>(gridDim.x) * blockDim.x;
   for (I e = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < total; e += stride) {
     const I n = e / d;
     const T gdw = repro::row_dot(g + static_cast<int64_t>(e) * m,
                                  dw + static_cast<int64_t>(n) * m, m, packed);
-    out[e] = repro::add(repro::mul(f[e], h), gdw);
+    out[e] = repro::add(repro::mul(f[e], step(n)), gdw);
   }
 }
 
 template <typename T>
 int launch(const void* f, const void* g, const void* dw, void* out,
-           int64_t n_rows, int d, int m, double h, void* stream) {
+           int64_t n_rows, int d, int m, double h, const void* h_vec,
+           int64_t rows_per_path, void* stream) {
   if (d < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t total = n_rows * d;
   const bool packed = repro::rows_packed<T>(g, dw, m);
@@ -50,34 +60,37 @@ int launch(const void* f, const void* g, const void* dw, void* out,
   const unsigned blocks = repro::blocks_for(total);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total <= repro::kMaxIndex32) {
-    increment_general_kernel<T, uint32_t><<<blocks, repro::kThreads, 0, s>>>(
-        cast(f), cast(g), cast(dw), static_cast<T*>(out),
-        static_cast<uint32_t>(total), static_cast<uint32_t>(d), m, packed,
-        static_cast<T>(h));
+    repro::visit_step<T, uint32_t>(h, h_vec, rows_per_path, [&](auto step) {
+      increment_general_kernel<T, uint32_t><<<blocks, repro::kThreads, 0, s>>>(
+          cast(f), cast(g), cast(dw), static_cast<T*>(out),
+          static_cast<uint32_t>(total), static_cast<uint32_t>(d), m, packed, step);
+    });
   } else {
-    increment_general_kernel<T, int64_t><<<blocks, repro::kThreads, 0, s>>>(
-        cast(f), cast(g), cast(dw), static_cast<T*>(out), total,
-        static_cast<int64_t>(d), m, packed, static_cast<T>(h));
+    repro::visit_step<T, int64_t>(h, h_vec, rows_per_path, [&](auto step) {
+      increment_general_kernel<T, int64_t><<<blocks, repro::kThreads, 0, s>>>(
+          cast(f), cast(g), cast(dw), static_cast<T*>(out), total,
+          static_cast<int64_t>(d), m, packed, step);
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename I>
+template <typename T, typename I, typename Step>
 __global__ void __launch_bounds__(repro::kStagedRows)
 increment_general_kernel_staged(const __grid_constant__ CUtensorMap tm_g,
                                 const __grid_constant__ CUtensorMap tm_w,
                                 const T* __restrict__ f, const T* __restrict__ g,
                                 const T* __restrict__ dw, T* __restrict__ out,
-                                I total, I d, int m, T h) {
+                                I total, I d, int m, Step step) {
   repro::staged_matvec<T, I>(&tm_g, &tm_w, g, dw, total, d, m, [=](I e, T gdw) {
-    out[e] = repro::add(repro::mul(f[e], h), gdw);
+    out[e] = repro::add(repro::mul(f[e], step(e / d)), gdw);
   });
 }
 
-template <typename T, typename I>
+template <typename T, typename I, typename Step>
 int launch_staged_as(const void* f, const void* g, const void* dw, void* out,
-                     int64_t n_rows, int d, int m, double h, cudaStream_t s) {
-  const auto kernel = increment_general_kernel_staged<T, I>;
+                     int64_t n_rows, int d, int m, Step step, cudaStream_t s) {
+  const auto kernel = increment_general_kernel_staged<T, I, Step>;
   repro::StagedLaunch l;
   const int err = repro::staged_setup<T>(reinterpret_cast<const void*>(kernel), g,
                                          dw, n_rows, d, m, &l);
@@ -85,17 +98,26 @@ int launch_staged_as(const void* f, const void* g, const void* dw, void* out,
   kernel<<<l.blocks, repro::kStagedRows, l.smem, s>>>(
       l.tm_g, l.tm_w, static_cast<const T*>(f), static_cast<const T*>(g),
       static_cast<const T*>(dw), static_cast<T*>(out), static_cast<I>(n_rows * d),
-      static_cast<I>(d), m, static_cast<T>(h));
+      static_cast<I>(d), m, step);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_staged(const void* f, const void* g, const void* dw, void* out,
-                  int64_t n_rows, int d, int m, double h, void* stream) {
+                  int64_t n_rows, int d, int m, double h, const void* h_vec,
+                  int64_t rows_per_path, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d >= 1 && n_rows * d <= repro::kMaxIndex32)
-    return launch_staged_as<T, uint32_t>(f, g, dw, out, n_rows, d, m, h, s);
-  return launch_staged_as<T, int64_t>(f, g, dw, out, n_rows, d, m, h, s);
+  int err = 0;
+  if (d >= 1 && n_rows * d <= repro::kMaxIndex32) {
+    repro::visit_step<T, uint32_t>(h, h_vec, rows_per_path, [&](auto step) {
+      err = launch_staged_as<T, uint32_t>(f, g, dw, out, n_rows, d, m, step, s);
+    });
+  } else {
+    repro::visit_step<T, int64_t>(h, h_vec, rows_per_path, [&](auto step) {
+      err = launch_staged_as<T, int64_t>(f, g, dw, out, n_rows, d, m, step, s);
+    });
+  }
+  return err;
 }
 
 }  // namespace
@@ -103,25 +125,59 @@ int launch_staged(const void* f, const void* g, const void* dw, void* out,
 extern "C" int increment_general_f32(const void* f, const void* g,
                                      const void* dw, void* out, int64_t n_rows,
                                      int d, int m, double h, void* stream) {
-  return launch<float>(f, g, dw, out, n_rows, d, m, h, stream);
+  return launch<float>(f, g, dw, out, n_rows, d, m, h, nullptr, 0, stream);
 }
 
 extern "C" int increment_general_f64(const void* f, const void* g,
                                      const void* dw, void* out, int64_t n_rows,
                                      int d, int m, double h, void* stream) {
-  return launch<double>(f, g, dw, out, n_rows, d, m, h, stream);
+  return launch<double>(f, g, dw, out, n_rows, d, m, h, nullptr, 0, stream);
 }
 
 extern "C" int increment_general_f32_staged(const void* f, const void* g,
                                             const void* dw, void* out,
                                             int64_t n_rows, int d, int m,
                                             double h, void* stream) {
-  return launch_staged<float>(f, g, dw, out, n_rows, d, m, h, stream);
+  return launch_staged<float>(f, g, dw, out, n_rows, d, m, h, nullptr, 0, stream);
 }
 
 extern "C" int increment_general_f64_staged(const void* f, const void* g,
                                             const void* dw, void* out,
                                             int64_t n_rows, int d, int m,
                                             double h, void* stream) {
-  return launch_staged<double>(f, g, dw, out, n_rows, d, m, h, stream);
+  return launch_staged<double>(f, g, dw, out, n_rows, d, m, h, nullptr, 0, stream);
+}
+
+extern "C" int increment_general_rows_f32(const void* f, const void* g,
+                                          const void* dw, const void* h_vec,
+                                          void* out, int64_t n_rows, int d, int m,
+                                          int64_t rows_per_path, void* stream) {
+  return launch<float>(f, g, dw, out, n_rows, d, m, 0.0, h_vec, rows_per_path,
+                       stream);
+}
+
+extern "C" int increment_general_rows_f64(const void* f, const void* g,
+                                          const void* dw, const void* h_vec,
+                                          void* out, int64_t n_rows, int d, int m,
+                                          int64_t rows_per_path, void* stream) {
+  return launch<double>(f, g, dw, out, n_rows, d, m, 0.0, h_vec, rows_per_path,
+                        stream);
+}
+
+extern "C" int increment_general_rows_f32_staged(const void* f, const void* g,
+                                                 const void* dw, const void* h_vec,
+                                                 void* out, int64_t n_rows, int d,
+                                                 int m, int64_t rows_per_path,
+                                                 void* stream) {
+  return launch_staged<float>(f, g, dw, out, n_rows, d, m, 0.0, h_vec,
+                              rows_per_path, stream);
+}
+
+extern "C" int increment_general_rows_f64_staged(const void* f, const void* g,
+                                                 const void* dw, const void* h_vec,
+                                                 void* out, int64_t n_rows, int d,
+                                                 int m, int64_t rows_per_path,
+                                                 void* stream) {
+  return launch_staged<double>(f, g, dw, out, n_rows, d, m, 0.0, h_vec,
+                               rows_per_path, stream);
 }

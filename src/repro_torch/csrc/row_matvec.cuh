@@ -101,6 +101,19 @@ inline bool rows_packed(const void* g, const void* w, int m) {
   return m % Pack<T>::kWidth == 0 && aligned16(g) && aligned16(w);
 }
 
+// Calls go(step) with the step of a launch indexing rows in I: h itself when
+// h_vec is null (the scalar entries), else h_vec over paths of rows_per_path
+// rows each (the per-path entries); go launches the kernel instantiated for
+// it.
+template <typename T, typename I, typename Go>
+inline void visit_step(double h, const void* h_vec, int64_t rows_per_path, Go&& go) {
+  if (h_vec == nullptr) {
+    go(ScalarStep<T, I>{static_cast<T>(h)});
+  } else {
+    go(PathStep<T, I>{static_cast<const T*>(h_vec), static_cast<I>(rows_per_path)});
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The staged route.
 

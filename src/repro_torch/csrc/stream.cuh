@@ -67,17 +67,23 @@ __device__ __forceinline__ void store(T* p, const Vec<T, W>& x) {
   *reinterpret_cast<Vec<T, W>*>(p) = x;
 }
 
-// op over the W lanes of kIn vectors.
+// op over the W lanes of kIn vectors whose first element is element i of
+// the stream.  An op that takes the element's index as well, op(e, i),
+// gets it (a per-path step read from a device vector); op(e) does not.
 template <typename T, int W, int kIn, typename Op>
 __device__ __forceinline__ Vec<T, W> apply(const Op& op,
-                                           const Vec<T, W> (&x)[kIn]) {
+                                           const Vec<T, W> (&x)[kIn], Index i) {
   Vec<T, W> o;
 #pragma unroll
   for (int j = 0; j < W; ++j) {
     T e[kIn];
 #pragma unroll
     for (int k = 0; k < kIn; ++k) e[k] = x[k].v[j];
-    o.v[j] = op(e);
+    if constexpr (std::is_invocable_v<const Op&, const T (&)[kIn], Index>) {
+      o.v[j] = op(e, i + j);
+    } else {
+      o.v[j] = op(e);
+    }
   }
   return o;
 }
@@ -104,14 +110,15 @@ __device__ __forceinline__ void map_tile(const Streams<T, kIn>& s,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      store(s.out + (first + u * kThreads + t) * W, apply(op, x[u]));
+      const Index v = first + u * kThreads + t;
+      store(s.out + v * W, apply(op, x[u], v * W));
     }
   } else {
     for (Index i = first + t; i < n_vec; i += kThreads) {
       Vec<T, W> x[kIn];
 #pragma unroll
       for (int k = 0; k < kIn; ++k) load(s.in[k] + i * W, x[k]);
-      store(s.out + i * W, apply(op, x));
+      store(s.out + i * W, apply(op, x, i * W));
     }
   }
   if constexpr (W > 1) {
@@ -121,7 +128,7 @@ __device__ __forceinline__ void map_tile(const Streams<T, kIn>& s,
       Vec<T, 1> x[kIn];
 #pragma unroll
       for (int k = 0; k < kIn; ++k) load(s.in[k] + e, x[k]);
-      store(s.out + e, apply(op, x));
+      store(s.out + e, apply(op, x, e));
     }
   }
 }

@@ -19,10 +19,11 @@
 // path, as the reference's vmapped kernel does under an adaptive solve: h
 // is read from a device vector, h = h_vec[e / row_len] for element e of a
 // state whose rows of row_len elements are the paths.  The arithmetic is the
-// scalar entry's, operation by operation.  A 16-byte pack may straddle two
-// rows (row_len % 4 != 0 in float32), so h is looked up per element inside
-// the pack loop.  Bound: the scalar entry's bytes plus the h vector,
-// (7 * N + N / row_len) * sizeof(T).
+// scalar entry's, operation by operation: both entries run one kernel
+// templated on where h comes from (elementwise.cuh's ScalarStep /
+// PathStep).  A 16-byte pack may straddle two rows (row_len % 4 != 0 in
+// float32), so h is looked up per element inside the pack loop.  Bound: the
+// scalar entry's bytes plus the h vector, (7 * N + N / row_len) * sizeof(T).
 #include "elementwise.cuh"
 
 namespace {
@@ -37,12 +38,12 @@ __device__ __forceinline__ void stage(T delta, T y, T f, T g, T dw, T h, T a,
   y_out = add(y, mul(b, d_out));
 }
 
-template <typename T>
+template <typename T, typename Step>
 __global__ void __launch_bounds__(repro::kThreads)
 ws_stage_diag_kernel(const T* __restrict__ delta, const T* __restrict__ y,
                      const T* __restrict__ f, const T* __restrict__ g,
                      const T* __restrict__ dw, T* __restrict__ d_out,
-                     T* __restrict__ y_out, int64_t n_vec, int64_t work, T h,
+                     T* __restrict__ y_out, int64_t n_vec, int64_t work, Step step,
                      T a, T b) {
   using P = repro::Pack<T>;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -57,34 +58,34 @@ ws_stage_diag_kernel(const T* __restrict__ delta, const T* __restrict__ y,
       P od, oy;
 #pragma unroll
       for (int j = 0; j < P::kWidth; ++j) {
-        stage(vd.v[j], vy.v[j], vf.v[j], vg.v[j], vw.v[j], h, a, b, od.v[j],
-              oy.v[j]);
+        stage(vd.v[j], vy.v[j], vf.v[j], vg.v[j], vw.v[j], step(i * P::kWidth + j), a,
+              b, od.v[j], oy.v[j]);
       }
       reinterpret_cast<P*>(d_out)[i] = od;
       reinterpret_cast<P*>(y_out)[i] = oy;
     } else {
       const int64_t e = n_vec * P::kWidth + (i - n_vec);
-      stage(delta[e], y[e], f[e], g[e], dw[e], h, a, b, d_out[e], y_out[e]);
+      stage(delta[e], y[e], f[e], g[e], dw[e], step(e), a, b, d_out[e], y_out[e]);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename Step>
 int launch(const void* delta, const void* y, const void* f, const void* g,
-           const void* dw, void* d_out, void* y_out, int64_t n, double h,
+           const void* dw, void* d_out, void* y_out, int64_t n, Step step,
            double a, double b, void* stream) {
   const bool all_aligned =
       repro::aligned16(delta) && repro::aligned16(y) && repro::aligned16(f) &&
       repro::aligned16(g) && repro::aligned16(dw) && repro::aligned16(d_out) &&
       repro::aligned16(y_out);
   const auto split = repro::split_work<T>(n, all_aligned);
-  ws_stage_diag_kernel<T>
+  ws_stage_diag_kernel<T, Step>
       <<<repro::blocks_for(split.work), repro::kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(delta), static_cast<const T*>(y),
           static_cast<const T*>(f), static_cast<const T*>(g),
           static_cast<const T*>(dw), static_cast<T*>(d_out),
-          static_cast<T*>(y_out), split.n_vec, split.work, static_cast<T>(h),
+          static_cast<T*>(y_out), split.n_vec, split.work, step,
           static_cast<T>(a), static_cast<T>(b));
   return static_cast<int>(cudaGetLastError());
 }
@@ -95,74 +96,17 @@ extern "C" int ws_stage_diag_f32(const void* delta, const void* y,
                                  const void* f, const void* g, const void* dw,
                                  void* d_out, void* y_out, int64_t n, double h,
                                  double a, double b, void* stream) {
-  return launch<float>(delta, y, f, g, dw, d_out, y_out, n, h, a, b, stream);
+  return launch<float>(delta, y, f, g, dw, d_out, y_out, n,
+                       repro::ScalarStep<float>{static_cast<float>(h)}, a, b, stream);
 }
 
 extern "C" int ws_stage_diag_f64(const void* delta, const void* y,
                                  const void* f, const void* g, const void* dw,
                                  void* d_out, void* y_out, int64_t n, double h,
                                  double a, double b, void* stream) {
-  return launch<double>(delta, y, f, g, dw, d_out, y_out, n, h, a, b, stream);
+  return launch<double>(delta, y, f, g, dw, d_out, y_out, n,
+                        repro::ScalarStep<double>{h}, a, b, stream);
 }
-
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(repro::kThreads)
-ws_stage_diag_rows_kernel(const T* __restrict__ delta, const T* __restrict__ y,
-                          const T* __restrict__ f, const T* __restrict__ g,
-                          const T* __restrict__ dw,
-                          const T* __restrict__ h_vec, T* __restrict__ d_out,
-                          T* __restrict__ y_out, int64_t n_vec, int64_t work,
-                          int64_t row_len, T a, T b) {
-  using P = repro::Pack<T>;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < work; i += stride) {
-    if (i < n_vec) {
-      const P vd = reinterpret_cast<const P*>(delta)[i];
-      const P vy = reinterpret_cast<const P*>(y)[i];
-      const P vf = reinterpret_cast<const P*>(f)[i];
-      const P vg = reinterpret_cast<const P*>(g)[i];
-      const P vw = reinterpret_cast<const P*>(dw)[i];
-      P od, oy;
-#pragma unroll
-      for (int j = 0; j < P::kWidth; ++j) {
-        const T h = h_vec[(i * P::kWidth + j) / row_len];
-        stage(vd.v[j], vy.v[j], vf.v[j], vg.v[j], vw.v[j], h, a, b, od.v[j],
-              oy.v[j]);
-      }
-      reinterpret_cast<P*>(d_out)[i] = od;
-      reinterpret_cast<P*>(y_out)[i] = oy;
-    } else {
-      const int64_t e = n_vec * P::kWidth + (i - n_vec);
-      stage(delta[e], y[e], f[e], g[e], dw[e], h_vec[e / row_len], a, b,
-            d_out[e], y_out[e]);
-    }
-  }
-}
-
-template <typename T>
-int launch_rows(const void* delta, const void* y, const void* f, const void* g,
-                const void* dw, const void* h_vec, void* d_out, void* y_out,
-                int64_t n, int64_t row_len, double a, double b, void* stream) {
-  const bool all_aligned =
-      repro::aligned16(delta) && repro::aligned16(y) && repro::aligned16(f) &&
-      repro::aligned16(g) && repro::aligned16(dw) && repro::aligned16(d_out) &&
-      repro::aligned16(y_out);
-  const auto split = repro::split_work<T>(n, all_aligned);
-  ws_stage_diag_rows_kernel<T>
-      <<<repro::blocks_for(split.work), repro::kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(delta), static_cast<const T*>(y),
-          static_cast<const T*>(f), static_cast<const T*>(g),
-          static_cast<const T*>(dw), static_cast<const T*>(h_vec),
-          static_cast<T*>(d_out), static_cast<T*>(y_out), split.n_vec,
-          split.work, row_len, static_cast<T>(a), static_cast<T>(b));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 extern "C" int ws_stage_diag_rows_f32(const void* delta, const void* y,
                                       const void* f, const void* g,
@@ -170,8 +114,9 @@ extern "C" int ws_stage_diag_rows_f32(const void* delta, const void* y,
                                       void* d_out, void* y_out, int64_t n,
                                       int64_t row_len, double a, double b,
                                       void* stream) {
-  return launch_rows<float>(delta, y, f, g, dw, h_vec, d_out, y_out, n,
-                            row_len, a, b, stream);
+  return launch<float>(delta, y, f, g, dw, d_out, y_out, n,
+                       repro::PathStep<float>{static_cast<const float*>(h_vec), row_len},
+                       a, b, stream);
 }
 
 extern "C" int ws_stage_diag_rows_f64(const void* delta, const void* y,
@@ -180,6 +125,7 @@ extern "C" int ws_stage_diag_rows_f64(const void* delta, const void* y,
                                       void* d_out, void* y_out, int64_t n,
                                       int64_t row_len, double a, double b,
                                       void* stream) {
-  return launch_rows<double>(delta, y, f, g, dw, h_vec, d_out, y_out, n,
-                             row_len, a, b, stream);
+  return launch<double>(delta, y, f, g, dw, d_out, y_out, n,
+                        repro::PathStep<double>{static_cast<const double*>(h_vec), row_len},
+                        a, b, stream);
 }

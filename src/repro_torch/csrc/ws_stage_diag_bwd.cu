@@ -24,7 +24,9 @@
 // A second entry per dtype (ws_stage_diag_bwd_rows_*) takes one step size
 // per path (the replay of a step of an adaptively realized grid): h =
 // h_vec[e / row_len], looked up per element because a 16-byte pack may
-// straddle two rows.  Bound: (8 * N + N / row_len) * sizeof(T) bytes.
+// straddle two rows; both entries run one kernel templated on where h comes
+// from (elementwise.cuh's ScalarStep / PathStep).  Bound: (8 * N + N /
+// row_len) * sizeof(T) bytes.
 #include "elementwise.cuh"
 
 namespace {
@@ -42,14 +44,14 @@ __device__ __forceinline__ void stage_vjp(T ct_d2, T ct_y2, T g, T dw, T h,
   ct_dw = mul(g, common);
 }
 
-template <typename T>
+template <typename T, typename Step>
 __global__ void __launch_bounds__(repro::kThreads)
 ws_stage_diag_bwd_kernel(const T* __restrict__ ct_d2,
                          const T* __restrict__ ct_y2, const T* __restrict__ g,
                          const T* __restrict__ dw, T* __restrict__ ct_delta,
                          T* __restrict__ ct_f, T* __restrict__ ct_g,
                          T* __restrict__ ct_dw, int64_t n_vec, int64_t work,
-                         T h, T a, T b) {
+                         Step step, T a, T b) {
   using P = repro::Pack<T>;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -62,8 +64,8 @@ ws_stage_diag_bwd_kernel(const T* __restrict__ ct_d2,
       P od, of, og, ow;
 #pragma unroll
       for (int j = 0; j < P::kWidth; ++j) {
-        stage_vjp(vd.v[j], vy.v[j], vg.v[j], vw.v[j], h, a, b, od.v[j],
-                  of.v[j], og.v[j], ow.v[j]);
+        stage_vjp(vd.v[j], vy.v[j], vg.v[j], vw.v[j], step(i * P::kWidth + j), a, b,
+                  od.v[j], of.v[j], og.v[j], ow.v[j]);
       }
       reinterpret_cast<P*>(ct_delta)[i] = od;
       reinterpret_cast<P*>(ct_f)[i] = of;
@@ -71,16 +73,16 @@ ws_stage_diag_bwd_kernel(const T* __restrict__ ct_d2,
       reinterpret_cast<P*>(ct_dw)[i] = ow;
     } else {
       const int64_t e = n_vec * P::kWidth + (i - n_vec);
-      stage_vjp(ct_d2[e], ct_y2[e], g[e], dw[e], h, a, b, ct_delta[e],
+      stage_vjp(ct_d2[e], ct_y2[e], g[e], dw[e], step(e), a, b, ct_delta[e],
                 ct_f[e], ct_g[e], ct_dw[e]);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename Step>
 int launch(const void* ct_d2, const void* ct_y2, const void* g,
            const void* dw, void* ct_delta, void* ct_f, void* ct_g,
-           void* ct_dw, int64_t n, double h, double a, double b,
+           void* ct_dw, int64_t n, Step step, double a, double b,
            void* stream) {
   const bool all_aligned =
       repro::aligned16(ct_d2) && repro::aligned16(ct_y2) &&
@@ -88,15 +90,14 @@ int launch(const void* ct_d2, const void* ct_y2, const void* g,
       repro::aligned16(ct_delta) && repro::aligned16(ct_f) &&
       repro::aligned16(ct_g) && repro::aligned16(ct_dw);
   const auto split = repro::split_work<T>(n, all_aligned);
-  ws_stage_diag_bwd_kernel<T>
+  ws_stage_diag_bwd_kernel<T, Step>
       <<<repro::blocks_for(split.work), repro::kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(ct_d2), static_cast<const T*>(ct_y2),
           static_cast<const T*>(g), static_cast<const T*>(dw),
           static_cast<T*>(ct_delta), static_cast<T*>(ct_f),
           static_cast<T*>(ct_g), static_cast<T*>(ct_dw), split.n_vec,
-          split.work, static_cast<T>(h), static_cast<T>(a),
-          static_cast<T>(b));
+          split.work, step, static_cast<T>(a), static_cast<T>(b));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,8 +108,8 @@ extern "C" int ws_stage_diag_bwd_f32(const void* ct_d2, const void* ct_y2,
                                      void* ct_delta, void* ct_f, void* ct_g,
                                      void* ct_dw, int64_t n, double h,
                                      double a, double b, void* stream) {
-  return launch<float>(ct_d2, ct_y2, g, dw, ct_delta, ct_f, ct_g, ct_dw, n, h,
-                       a, b, stream);
+  return launch<float>(ct_d2, ct_y2, g, dw, ct_delta, ct_f, ct_g, ct_dw, n,
+                       repro::ScalarStep<float>{static_cast<float>(h)}, a, b, stream);
 }
 
 extern "C" int ws_stage_diag_bwd_f64(const void* ct_d2, const void* ct_y2,
@@ -117,73 +118,8 @@ extern "C" int ws_stage_diag_bwd_f64(const void* ct_d2, const void* ct_y2,
                                      void* ct_dw, int64_t n, double h,
                                      double a, double b, void* stream) {
   return launch<double>(ct_d2, ct_y2, g, dw, ct_delta, ct_f, ct_g, ct_dw, n,
-                        h, a, b, stream);
+                        repro::ScalarStep<double>{h}, a, b, stream);
 }
-
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(repro::kThreads)
-ws_stage_diag_bwd_rows_kernel(const T* __restrict__ ct_d2,
-                              const T* __restrict__ ct_y2,
-                              const T* __restrict__ g, const T* __restrict__ dw,
-                              const T* __restrict__ h_vec,
-                              T* __restrict__ ct_delta, T* __restrict__ ct_f,
-                              T* __restrict__ ct_g, T* __restrict__ ct_dw,
-                              int64_t n_vec, int64_t work, int64_t row_len,
-                              T a, T b) {
-  using P = repro::Pack<T>;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < work; i += stride) {
-    if (i < n_vec) {
-      const P vd = reinterpret_cast<const P*>(ct_d2)[i];
-      const P vy = reinterpret_cast<const P*>(ct_y2)[i];
-      const P vg = reinterpret_cast<const P*>(g)[i];
-      const P vw = reinterpret_cast<const P*>(dw)[i];
-      P od, of, og, ow;
-#pragma unroll
-      for (int j = 0; j < P::kWidth; ++j) {
-        const T h = h_vec[(i * P::kWidth + j) / row_len];
-        stage_vjp(vd.v[j], vy.v[j], vg.v[j], vw.v[j], h, a, b, od.v[j],
-                  of.v[j], og.v[j], ow.v[j]);
-      }
-      reinterpret_cast<P*>(ct_delta)[i] = od;
-      reinterpret_cast<P*>(ct_f)[i] = of;
-      reinterpret_cast<P*>(ct_g)[i] = og;
-      reinterpret_cast<P*>(ct_dw)[i] = ow;
-    } else {
-      const int64_t e = n_vec * P::kWidth + (i - n_vec);
-      stage_vjp(ct_d2[e], ct_y2[e], g[e], dw[e], h_vec[e / row_len], a, b,
-                ct_delta[e], ct_f[e], ct_g[e], ct_dw[e]);
-    }
-  }
-}
-
-template <typename T>
-int launch_rows(const void* ct_d2, const void* ct_y2, const void* g,
-                const void* dw, const void* h_vec, void* ct_delta, void* ct_f,
-                void* ct_g, void* ct_dw, int64_t n, int64_t row_len, double a,
-                double b, void* stream) {
-  const bool all_aligned =
-      repro::aligned16(ct_d2) && repro::aligned16(ct_y2) &&
-      repro::aligned16(g) && repro::aligned16(dw) &&
-      repro::aligned16(ct_delta) && repro::aligned16(ct_f) &&
-      repro::aligned16(ct_g) && repro::aligned16(ct_dw);
-  const auto split = repro::split_work<T>(n, all_aligned);
-  ws_stage_diag_bwd_rows_kernel<T>
-      <<<repro::blocks_for(split.work), repro::kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(ct_d2), static_cast<const T*>(ct_y2),
-          static_cast<const T*>(g), static_cast<const T*>(dw),
-          static_cast<const T*>(h_vec), static_cast<T*>(ct_delta),
-          static_cast<T*>(ct_f), static_cast<T*>(ct_g),
-          static_cast<T*>(ct_dw), split.n_vec, split.work, row_len,
-          static_cast<T>(a), static_cast<T>(b));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 extern "C" int ws_stage_diag_bwd_rows_f32(const void* ct_d2, const void* ct_y2,
                                           const void* g, const void* dw,
@@ -191,8 +127,9 @@ extern "C" int ws_stage_diag_bwd_rows_f32(const void* ct_d2, const void* ct_y2,
                                           void* ct_f, void* ct_g, void* ct_dw,
                                           int64_t n, int64_t row_len, double a,
                                           double b, void* stream) {
-  return launch_rows<float>(ct_d2, ct_y2, g, dw, h_vec, ct_delta, ct_f, ct_g,
-                            ct_dw, n, row_len, a, b, stream);
+  return launch<float>(ct_d2, ct_y2, g, dw, ct_delta, ct_f, ct_g, ct_dw, n,
+                       repro::PathStep<float>{static_cast<const float*>(h_vec), row_len},
+                       a, b, stream);
 }
 
 extern "C" int ws_stage_diag_bwd_rows_f64(const void* ct_d2, const void* ct_y2,
@@ -201,6 +138,7 @@ extern "C" int ws_stage_diag_bwd_rows_f64(const void* ct_d2, const void* ct_y2,
                                           void* ct_f, void* ct_g, void* ct_dw,
                                           int64_t n, int64_t row_len, double a,
                                           double b, void* stream) {
-  return launch_rows<double>(ct_d2, ct_y2, g, dw, h_vec, ct_delta, ct_f, ct_g,
-                             ct_dw, n, row_len, a, b, stream);
+  return launch<double>(ct_d2, ct_y2, g, dw, ct_delta, ct_f, ct_g, ct_dw, n,
+                        repro::PathStep<double>{static_cast<const double*>(h_vec), row_len},
+                        a, b, stream);
 }

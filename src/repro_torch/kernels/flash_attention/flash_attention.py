@@ -20,7 +20,8 @@ counts the launches, ``ROUTE_LAUNCHES`` splits them by route.
 
 :func:`flash_attention_bwd` is the gradient, from a second source,
 ``csrc/flash_attention_bwd.cu`` (``KERNEL_BWD``): three launches (row
-statistics, dK/dV, dQ) behind one C entry per route.  :func:`route` picks
+statistics, dK/dV, dQ; under GQA on the wgmma route a fourth sums each
+group's per-query-head dK/dV in order) behind one C entry per route.  :func:`route` picks
 it as for the forward: ``"wgmma"`` (bf16 with ``d % 8 == 0``, ``d <= 128``)
 runs every product on the tensor cores, P and dS split into bf16 hi + lo;
 float32 and other bf16 take ``"simt"``, the float32 FMA units.
@@ -57,8 +58,12 @@ _BWD_ENTRY = {"wgmma": {torch.bfloat16: "flash_attention_bwd_bf16_wgmma"},
               "simt": {torch.float32: "flash_attention_bwd_f32",
                        torch.bfloat16: "flash_attention_bwd_bf16"}}
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
+# the wgmma entry takes, after the row statistics, the float32 scratch for
+# each query head's share of dK and dV under GQA (summed over a group after)
+_BWD_WGMMA_ARGS = [ctypes.c_void_p] * 11 + [_I] * 6 + [ctypes.c_double, _I, ctypes.c_void_p]
 KERNEL_BWD = CudaKernel("flash_attention_bwd", "flash_attention_bwd.cu",
-                        {fn: _BWD_ARGS for fns in _BWD_ENTRY.values() for fn in fns.values()})
+                        {fn: _BWD_WGMMA_ARGS if path == "wgmma" else _BWD_ARGS
+                         for path, fns in _BWD_ENTRY.items() for fn in fns.values()})
 #: Launches by route, counted beside ``KERNEL.launches``.
 ROUTE_LAUNCHES = {"wgmma": 0, "mma_tf32": 0, "simt": 0}
 #: Calls of the backward's C entry by route, beside ``KERNEL_BWD.launches``.
@@ -219,12 +224,18 @@ def flash_attention_bwd(q, k, v, out, d_out, *, causal: bool = True, sm_scale=No
     rows = -(-sq // _BW_OWN) * _BW_OWN if path == "wgmma" else sq
     lse = torch.empty(b, hq, rows, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    stats = [pointer(lse), pointer(delta)]
     if path == "wgmma":
         q, k, v, d_out = _aligned(q), _aligned(k), _aligned(v), _aligned(d_out)
+        # each query head's share of dK and dV in float32 (GQA), summed over
+        # its group after
+        part = (torch.empty(b * hq, 2, sk, d, dtype=torch.float32, device=q.device)
+                if hq > hkv else None)
+        stats.append(None if part is None else pointer(part))
     with torch.cuda.device(q.device):
         KERNEL_BWD.launch(_BWD_ENTRY[path][q.dtype], pointer(q), pointer(k), pointer(v),
                           pointer(out), pointer(d_out), pointer(dq), pointer(dk),
-                          pointer(dv), pointer(lse), pointer(delta), b, hq, hkv, sq, sk,
-                          d, sm_scale, int(bool(causal)), stream_handle(q))
+                          pointer(dv), *stats, b, hq, hkv, sq, sk, d, sm_scale,
+                          int(bool(causal)), stream_handle(q))
     BWD_ROUTE_LAUNCHES[path] += 1
     return dq, dk, dv

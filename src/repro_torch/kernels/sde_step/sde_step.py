@@ -40,12 +40,13 @@ counts its launches.
 
 The step size ``h`` is a Python float, or a tensor with one value per path
 (shape: the leading path axes of the state, then unit axes): an adaptive
-solve's per-path steps, which the reference passes to its kernels under
-``vmap``.  :func:`ws_stage_diag` and :func:`ws_stage_diag_bwd` launch their
-second entry for it (``<name>_rows_<dtype>``), which reads
-``h[e / row_len]`` for element ``e`` from a device vector; the other
-kernels have no such entry yet and raise :class:`~repro_torch.NotYetPorted`
-for a tensor ``h`` on the card (their twins take it).
+solve's per-path steps, or a realized grid's, which the reference passes to
+its kernels under ``vmap``.  Every ``h``-taking kernel launches its second
+entry for it (``<name>_rows_<dtype>``; the general pair's on either route,
+``<name>_rows_<dtype>[_staged]``), which reads the step from a device
+vector: ``h_vec[e / row_len]`` for element ``e`` of a flat state, and
+``h_vec[row / rows_per_path]`` for a general-noise row of ``d`` outputs.
+:func:`rows_launches` counts a kernel's launches of those entries.
 """
 from __future__ import annotations
 
@@ -53,7 +54,6 @@ import ctypes
 
 import torch
 
-from ...device import not_yet_ported
 from .._build import CudaKernel, cuda_operands, is_current, pointer, stream_handle
 from . import ref as _ref
 
@@ -68,13 +68,9 @@ __all__ = ["WS_STAGE_DIAG", "WS_STAGE_DIAG_BWD", "INCREMENT_DIAG",
 _P, _N, _D, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
 
 
-def _kernel(name, args):
-    return CudaKernel(name, f"{name}.cu",
-                      {f"{name}_f32": args, f"{name}_f64": args})
-
-
 def _rows_kernel(name, args, rows_args):
-    """A kernel with a scalar-``h`` entry and a per-path-``h`` entry per dtype."""
+    """A kernel with a scalar-``h`` entry and a per-path-``h`` entry per dtype
+    (``<name>_<dtype>``, ``<name>_rows_<dtype>``)."""
     return CudaKernel(name, f"{name}.cu", {
         f"{name}{rows}_{sfx}": a for sfx in ("f32", "f64")
         for rows, a in (("", args), ("_rows", rows_args))})
@@ -92,29 +88,47 @@ WS_STAGE_DIAG_BWD = _rows_kernel("ws_stage_diag_bwd",
 def rows_launches(kernel: CudaKernel) -> int:
     """Launches of ``kernel``'s per-path-``h`` entries (read by difference)."""
     return sum(n for fn, n in kernel.entry_launches.items() if "_rows_" in fn)
-INCREMENT_DIAG = _kernel("increment_diag", [_P] * 4 + [_N, _D, _P])
+
+
+# (f, g, dW, out, n, h, stream); rows: (f, g, dW, h_vec, out, n, row_len, stream).
+INCREMENT_DIAG = _rows_kernel("increment_diag", [_P] * 4 + [_N, _D, _P],
+                              [_P] * 5 + [_N, _N, _P])
 #: Increments one axpy_chain launch takes (kMaxIncs in csrc/axpy_chain.cu).
 MAX_INCS = 8
 # One entry per dtype and chain length s: (y, out, n, stream, incs, coeffs).
 AXPY_CHAIN = CudaKernel("axpy_chain", "axpy_chain.cu", {
     f"axpy_chain_{sfx}_s{s}": [_P, _P, _N, _P] + [_P] * s + [_D] * s
     for sfx in ("f32", "f64") for s in range(1, MAX_INCS + 1)})
-INCREMENT_PRE = _kernel("increment_pre", [_P] * 3 + [_N, _D, _P])
-WS_STAGE_PRE = _kernel("ws_stage_pre", [_P] * 6 + [_N] + [_D] * 3 + [_P])
+# (f, w, out, n, h, stream); rows: (f, w, h_vec, out, n, row_len, stream).
+INCREMENT_PRE = _rows_kernel("increment_pre", [_P] * 3 + [_N, _D, _P],
+                             [_P] * 4 + [_N, _N, _P])
+# (delta, y, f, w, d_out, y_out, n, h, a, b, stream); rows: (delta, y, f, w,
+# h_vec, d_out, y_out, n, row_len, a, b, stream).
+WS_STAGE_PRE = _rows_kernel("ws_stage_pre", [_P] * 6 + [_N] + [_D] * 3 + [_P],
+                            [_P] * 7 + [_N, _N] + [_D] * 2 + [_P])
 GENERAL_ROUTES = ("row", "staged")
 
 
-def _general_kernel(name, args):
-    """A general-noise kernel: one C entry per dtype and route."""
+def _general_kernel(name, args, rows_args):
+    """A general-noise kernel: one C entry per dtype and route, scalar-``h``
+    (``args``) and per-path-``h`` (``rows_args``)."""
     return CudaKernel(name, f"{name}.cu", {
-        f"{name}_{sfx}{'_staged' if r == 'staged' else ''}": args
+        f"{name}{rows}_{sfx}{'_staged' if r == 'staged' else ''}": a
+        for rows, a in (("", args), ("_rows", rows_args))
         for sfx in ("f32", "f64") for r in GENERAL_ROUTES})
 
 
+# (f, g, dW, out, rows, d, m, h, stream); rows entries: (f, g, dW, h_vec, out,
+# rows, d, m, rows_per_path, stream).
 INCREMENT_GENERAL = _general_kernel("increment_general",
-                                    [_P] * 4 + [_N, _I, _I, _D, _P])
+                                    [_P] * 4 + [_N, _I, _I, _D, _P],
+                                    [_P] * 5 + [_N, _I, _I, _N, _P])
+# (delta, y, f, g, dW, d_out, y_out, rows, d, m, h, a, b, stream); rows
+# entries: (delta, y, f, g, dW, h_vec, d_out, y_out, rows, d, m,
+# rows_per_path, a, b, stream).
 WS_STAGE_GENERAL = _general_kernel("ws_stage_general",
-                                   [_P] * 7 + [_N, _I, _I] + [_D] * 3 + [_P])
+                                   [_P] * 7 + [_N, _I, _I] + [_D] * 3 + [_P],
+                                   [_P] * 8 + [_N, _I, _I, _N] + [_D] * 2 + [_P])
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 #: Rows of g of at most this many bytes take the row route.  Measured on an
@@ -144,10 +158,12 @@ def route_launches(kernel: CudaKernel) -> dict:
             for r in GENERAL_ROUTES}
 
 
-def _general_entry(name: str, g: torch.Tensor, dW: torch.Tensor, m: int) -> str:
+def _general_entry(name: str, g: torch.Tensor, dW: torch.Tensor, m: int,
+                   rows: bool = False) -> str:
     aligned = g.data_ptr() % 16 == 0 and dW.data_ptr() % 16 == 0
     staged = general_route(m, g.dtype, aligned) == "staged"
-    return f"{name}_{_SUFFIX[g.dtype]}{'_staged' if staged else ''}"
+    return (f"{name}{'_rows' if rows else ''}_{_SUFFIX[g.dtype]}"
+            f"{'_staged' if staged else ''}")
 
 
 def _on_cuda(name: str, x: torch.Tensor) -> bool:
@@ -175,11 +191,15 @@ def _path_steps(name: str, h: torch.Tensor, like: torch.Tensor):
     return h_vec, like.numel() // max(h_vec.numel(), 1)
 
 
-def _scalar_h_only(name: str, h) -> None:
-    """Raise for a per-path ``h`` on the card: ``name`` has no rows entry."""
-    if isinstance(h, torch.Tensor):
-        raise not_yet_ported(f"per-path step sizes (a tensor h) in the CUDA "
-                             f"{name} kernel")
+def _rows_per_path(name: str, h: torch.Tensor, state: torch.Tensor, d: int):
+    """A per-path step size as a general-noise rows entry takes it:
+    ``(h_vec, rows_per_path)``, the rows of ``d`` outputs in a path of the
+    (broadcast) state."""
+    h_vec, row_len = _path_steps(name, h, state)
+    if row_len % d:
+        raise ValueError(f"{name}: per-path h of shape {tuple(h.shape)} splits "
+                         f"the rows of d = {d} of the state {tuple(state.shape)}")
+    return h_vec, row_len // d
 
 
 def ws_stage_diag(delta, y, f, g, dW, h, *, a: float, b: float):
@@ -238,20 +258,27 @@ def ws_stage_diag_bwd(ct_d2, ct_y2, g, dW, h, *, a: float, b: float):
     return tuple(outs)
 
 
-def increment_diag(f, g, dW, h: float):
-    """``k = f*h + g*dW`` shaped like ``f``."""
+def increment_diag(f, g, dW, h):
+    """``k = f*h + g*dW`` shaped like ``f``.  ``h`` is a float or one value
+    per path (the rows entry)."""
     if not _on_cuda("increment_diag", f):
         return _ref.increment_diag_ref(f, g, dW, h)
-    _scalar_h_only("increment_diag", h)
     f, g, dW = cuda_operands(f, g, dW)
     out = torch.empty_like(f)
     n = f.numel()
     if n == 0:
         return out
+    sfx = _SUFFIX[f.dtype]
     with torch.cuda.device(f.device):
-        INCREMENT_DIAG.launch(f"increment_diag_{_SUFFIX[f.dtype]}", pointer(f),
-                              pointer(g), pointer(dW), pointer(out), n,
-                              float(h), stream_handle(f))
+        if isinstance(h, torch.Tensor):
+            h_vec, row_len = _path_steps("increment_diag", h, f)
+            INCREMENT_DIAG.launch(f"increment_diag_rows_{sfx}", pointer(f),
+                                  pointer(g), pointer(dW), pointer(h_vec),
+                                  pointer(out), n, row_len, stream_handle(f))
+        else:
+            INCREMENT_DIAG.launch(f"increment_diag_{sfx}", pointer(f), pointer(g),
+                                  pointer(dW), pointer(out), n, float(h),
+                                  stream_handle(f))
     return out
 
 
@@ -284,11 +311,11 @@ def axpy_chain(y, incs, coeffs):
     return out
 
 
-def increment_pre(f, w, h: float):
-    """``k = f*h + w`` shaped like ``f`` (``w`` is the prediffused ``g*dW``)."""
+def increment_pre(f, w, h):
+    """``k = f*h + w`` shaped like ``f`` (``w`` is the prediffused ``g*dW``).
+    ``h`` is a float or one value per path (the rows entry)."""
     if not _on_cuda("increment_pre", f):
         return _ref.increment_pre_ref(f, w, h)
-    _scalar_h_only("increment_pre", h)
     if not is_current(f):
         with torch.cuda.device(f.device):
             return increment_pre(f, w, h)
@@ -297,27 +324,41 @@ def increment_pre(f, w, h: float):
     n = f.numel()
     if n == 0:
         return out
+    if isinstance(h, torch.Tensor):
+        h_vec, row_len = _path_steps("increment_pre", h, f)
+        INCREMENT_PRE.launch(f"increment_pre_rows_{_SUFFIX[f.dtype]}", f.data_ptr(),
+                             w.data_ptr(), h_vec.data_ptr(), out.data_ptr(), n,
+                             row_len, stream_handle(f))
+        return out
     INCREMENT_PRE.launch(f"increment_pre_{_SUFFIX[f.dtype]}", f.data_ptr(),
                          w.data_ptr(), out.data_ptr(), n, float(h), stream_handle(f))
     return out
 
 
-def ws_stage_pre(delta, y, f, w, h: float, *, a: float, b: float):
-    """Prediffused fused stage; returns ``(delta', y')`` shaped like ``delta``."""
+def ws_stage_pre(delta, y, f, w, h, *, a: float, b: float):
+    """Prediffused fused stage; returns ``(delta', y')`` shaped like
+    ``delta``.  ``h`` is a float or one value per path (the rows entry)."""
     if not _on_cuda("ws_stage_pre", delta):
         return _ref.ws_stage_pre_ref(delta, y, f, w, h, a, b)
-    _scalar_h_only("ws_stage_pre", h)
     delta, y, f, w = cuda_operands(delta, y, f, w)
     d_out = torch.empty_like(delta)
     y_out = torch.empty_like(delta)
     n = delta.numel()
     if n == 0:
         return d_out, y_out
+    sfx = _SUFFIX[delta.dtype]
     with torch.cuda.device(delta.device):
-        WS_STAGE_PRE.launch(f"ws_stage_pre_{_SUFFIX[delta.dtype]}",
-                            pointer(delta), pointer(y), pointer(f), pointer(w),
-                            pointer(d_out), pointer(y_out), n, float(h),
-                            float(a), float(b), stream_handle(delta))
+        if isinstance(h, torch.Tensor):
+            h_vec, row_len = _path_steps("ws_stage_pre", h, delta)
+            WS_STAGE_PRE.launch(f"ws_stage_pre_rows_{sfx}", pointer(delta),
+                                pointer(y), pointer(f), pointer(w), pointer(h_vec),
+                                pointer(d_out), pointer(y_out), n, row_len,
+                                float(a), float(b), stream_handle(delta))
+        else:
+            WS_STAGE_PRE.launch(f"ws_stage_pre_{sfx}", pointer(delta), pointer(y),
+                                pointer(f), pointer(w), pointer(d_out),
+                                pointer(y_out), n, float(h), float(a), float(b),
+                                stream_handle(delta))
     return d_out, y_out
 
 
@@ -338,12 +379,12 @@ def _general_shapes(f, g, dW):
     return tuple(batch), d, m
 
 
-def increment_general(f, g, dW, h: float):
+def increment_general(f, g, dW, h):
     """``k = f*h + g@dW`` per row: ``(..., d)`` from ``f (..., d)``,
-    ``g (..., d, m)`` and ``dW (..., m)``."""
+    ``g (..., d, m)`` and ``dW (..., m)``.  ``h`` is a float or one value per
+    path (the rows entries)."""
     if not _on_cuda("increment_general", f):
         return _ref.increment_general_ref(f, g, dW, h)
-    _scalar_h_only("increment_general", h)
     if not is_current(f):
         with torch.cuda.device(f.device):
             return increment_general(f, g, dW, h)
@@ -354,18 +395,25 @@ def increment_general(f, g, dW, h: float):
     rows = f.numel() // d
     if rows == 0:
         return out
+    if isinstance(h, torch.Tensor):
+        h_vec, per_path = _rows_per_path("increment_general", h, f, d)
+        INCREMENT_GENERAL.launch(
+            _general_entry("increment_general", g, dW, m, rows=True), f.data_ptr(),
+            g.data_ptr(), dW.data_ptr(), h_vec.data_ptr(), out.data_ptr(), rows, d,
+            m, per_path, stream_handle(f))
+        return out
     INCREMENT_GENERAL.launch(
         _general_entry("increment_general", g, dW, m), f.data_ptr(), g.data_ptr(),
         dW.data_ptr(), out.data_ptr(), rows, d, m, float(h), stream_handle(f))
     return out
 
 
-def ws_stage_general(delta, y, f, g, dW, h: float, *, a: float, b: float):
+def ws_stage_general(delta, y, f, g, dW, h, *, a: float, b: float):
     """General-noise fused stage; returns ``(delta', y')`` shaped
-    ``(..., d)`` like the state."""
+    ``(..., d)`` like the state.  ``h`` is a float or one value per path (the
+    rows entries)."""
     if not _on_cuda("ws_stage_general", delta):
         return _ref.ws_stage_general_ref(delta, y, f, g, dW, h, a, b)
-    _scalar_h_only("ws_stage_general", h)
     if not is_current(delta):
         with torch.cuda.device(delta.device):
             return ws_stage_general(delta, y, f, g, dW, h, a=a, b=b)
@@ -380,6 +428,14 @@ def ws_stage_general(delta, y, f, g, dW, h: float, *, a: float, b: float):
     y_out = torch.empty_like(delta)
     rows = delta.numel() // d
     if rows == 0:
+        return d_out, y_out
+    if isinstance(h, torch.Tensor):
+        h_vec, per_path = _rows_per_path("ws_stage_general", h, delta, d)
+        WS_STAGE_GENERAL.launch(
+            _general_entry("ws_stage_general", g, dW, m, rows=True), delta.data_ptr(),
+            y.data_ptr(), f.data_ptr(), g.data_ptr(), dW.data_ptr(), h_vec.data_ptr(),
+            d_out.data_ptr(), y_out.data_ptr(), rows, d, m, per_path, float(a),
+            float(b), stream_handle(delta))
         return d_out, y_out
     WS_STAGE_GENERAL.launch(
         _general_entry("ws_stage_general", g, dW, m), delta.data_ptr(), y.data_ptr(),

@@ -1,8 +1,9 @@
 """LM architecture substrate (port of ``repro.models``): config-driven
-``dense``/``ssm``/``hybrid`` models as ``nn.Module`` parameter trees and
-plain functions on tensors, for inference and training; ``reversible``
+``dense``/``moe``/``ssm``/``hybrid`` models (and the vision and audio
+frontends) as ``nn.Module`` parameter trees and plain functions on tensors,
+for inference and training; ``moe`` is the MoE layer; ``reversible``
 integrates residual depth with EES(2,5) and the reversible adjoint."""
-from . import reversible
+from . import moe, reversible
 from .common import ModelOptions, ShardingPolicy, constrain
 from .transformer import (
     LMParams,
@@ -28,6 +29,7 @@ __all__ = [
     "loss_fn",
     "make_serve_step",
     "make_train_step",
+    "moe",
     "reversible",
     "serve_step",
 ]

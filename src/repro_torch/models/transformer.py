@@ -1,13 +1,18 @@
 """Config-driven model assembly: init, forward, loss, train and serve steps
 (port of ``repro.models.transformer``).
 
-One code path serves the ``dense``, ``ssm`` and ``hybrid`` families:
+One code path serves every family of the reference:
 
-* dense — (attention + MLP) blocks, one per layer;
+* dense / vlm / audio — (attention + MLP) blocks, one per layer;
+* moe — attention + capacity-based top-k MoE blocks (:mod:`.moe`);
 * ssm — Mamba2 (SSD) blocks;
 * hybrid (zamba2) — a Mamba2 stack with one *shared* attention+MLP block
   applied before every layer ``idx % shared_attn_every == 0`` (the shared
   parameters exist once, as in the reference).
+
+The ``patch`` frontend (vlm) projects ``batch["vision_embeds"]`` over the
+first positions of the token embeddings; the ``frames`` frontend (audio)
+projects ``batch["frames"]`` and reads no tokens.
 
 Parameters live in :class:`LMParams`, an ``nn.Module`` whose leaves are
 ``nn.Parameter``s under the reference's key names; the reference's stacked
@@ -17,8 +22,7 @@ conv/SSD states (mamba) in the reference's stacked layout and updates them
 in place.  Training is masked next-token cross-entropy (:func:`loss_fn`)
 through autograd; a gradient through the LM kernels runs their backward
 kernels on the card.  :func:`make_train_step` updates the parameters in
-place.  The ``moe`` family and the ``patch``/``frames`` frontends raise
-:class:`~repro_torch.device.NotYetPorted`.
+place.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core import prng
-from ..device import not_yet_ported, resolve_device
+from ..device import resolve_device
 from .common import ModelOptions, dtype_of
 from .layers import (
     apply_norm,
@@ -42,6 +46,7 @@ from .layers import (
     mlp_block,
     param_dict,
 )
+from .moe import init_moe, moe_block
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_block_decode
 
 __all__ = [
@@ -57,25 +62,33 @@ __all__ = [
 ]
 
 
+#: The reference's optional top-level leaves besides ``shared``.
+_OPTIONAL = ("final_norm", "lm_head", "vision_proj", "frame_proj")
+
+
 class LMParams(nn.Module):
     """The reference's parameter pytree as a module: ``embed``, ``layers``
     (one ``nn.ModuleDict`` of ``nn.ParameterDict``s per layer), and the
-    optional ``shared``, ``final_norm`` and ``lm_head``.  ``params[name]``
-    and ``params.get(name)`` read it as the reference reads its dict."""
+    optional ``shared``, ``final_norm``, ``lm_head`` and the frontends'
+    ``vision_proj`` / ``frame_proj``.  ``params[name]`` and
+    ``params.get(name)`` read it as the reference reads its dict."""
 
     def __init__(self, embed: torch.Tensor, layers: List[nn.ModuleDict],
                  shared: Optional[nn.ModuleDict] = None,
                  final_norm: Optional[torch.Tensor] = None,
-                 lm_head: Optional[torch.Tensor] = None):
+                 lm_head: Optional[torch.Tensor] = None,
+                 vision_proj: Optional[torch.Tensor] = None,
+                 frame_proj: Optional[torch.Tensor] = None):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.layers = nn.ModuleList(layers)
         if shared is not None:
             self.shared = shared
-        if final_norm is not None:
-            self.final_norm = nn.Parameter(final_norm)
-        if lm_head is not None:
-            self.lm_head = nn.Parameter(lm_head)
+        leaves = dict(final_norm=final_norm, lm_head=lm_head,
+                      vision_proj=vision_proj, frame_proj=frame_proj)
+        for name in _OPTIONAL:
+            if leaves[name] is not None:
+                setattr(self, name, nn.Parameter(leaves[name]))
 
     def get(self, name: str, default=None):
         return getattr(self, name, default)
@@ -87,13 +100,6 @@ class LMParams(nn.Module):
         return value
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family == "moe":
-        raise not_yet_ported(f"the moe family ({cfg.name}; models/moe.py)")
-    if cfg.frontend != "none":
-        raise not_yet_ported(f"the {cfg.frontend!r} frontend ({cfg.name})")
-
-
 # ---------------------------------------------------------------------------
 # Parameter init.
 # ---------------------------------------------------------------------------
@@ -102,8 +108,9 @@ def _init_layer(cfg: ArchConfig, key, dtype) -> nn.ModuleDict:
     if cfg.family in ("ssm", "hybrid"):
         return nn.ModuleDict({"mamba": init_mamba_block(cfg, key, dtype)})
     k1, k2 = prng.split(key)
-    return nn.ModuleDict({"attn": init_attn_block(cfg, k1, dtype),
-                          "mlp": init_mlp(cfg, k2, dtype)})
+    block = (("moe", init_moe(cfg, k2, dtype)) if cfg.family == "moe"
+             else ("mlp", init_mlp(cfg, k2, dtype)))
+    return nn.ModuleDict(dict([("attn", init_attn_block(cfg, k1, dtype)), block]))
 
 
 def init_params(cfg: ArchConfig, key, device=None) -> LMParams:
@@ -112,7 +119,6 @@ def init_params(cfg: ArchConfig, key, device=None) -> LMParams:
     from ``split(keys[1], n_layers)[i]``, as the reference's ``vmap`` does,
     so a key names the reference's weights (normals to ``erfinv``'s
     rounding).  Tensors are drawn one at a time on ``device``."""
-    _check_supported(cfg)
     if not isinstance(key, torch.Tensor):
         key = prng.PRNGKey(key, device=device)
     else:
@@ -134,7 +140,12 @@ def init_params(cfg: ArchConfig, key, device=None) -> LMParams:
                   if cfg.norm == "rmsnorm" else None)
     lm_head = (None if cfg.tie_embeddings
                else normal(keys[4], (cfg.d_model, cfg.padded_vocab)))
-    return LMParams(embed, layers, shared, final_norm, lm_head)
+    vision_proj = (normal(keys[5], (cfg.frontend_dim, cfg.d_model))
+                   if cfg.frontend == "patch" else None)
+    frame_proj = (normal(keys[6], (cfg.frontend_dim, cfg.d_model))
+                  if cfg.frontend == "frames" else None)
+    return LMParams(embed, layers, shared, final_norm, lm_head, vision_proj,
+                    frame_proj)
 
 
 def _to_tensor(x, dtype, device) -> torch.Tensor:
@@ -150,16 +161,16 @@ def lm_params_from_jax(params: Mapping[str, Any], *, dtype=None,
                        device=None) -> LMParams:
     """The reference's parameter pytree (a dict of numpy or jax arrays, with
     stacked per-layer leaves) as an :class:`LMParams` on ``device``;
-    ``dtype`` (default: the arrays') converts."""
+    ``dtype`` (default: the arrays') converts.  A ``None`` leaf (the moe
+    block's ``ln`` off rmsnorm) is left out, as ``init_moe`` leaves it."""
     device = resolve_device(device)
-    unknown = set(params) - {"embed", "layers", "shared", "final_norm", "lm_head"}
+    unknown = set(params) - {"embed", "layers", "shared", *_OPTIONAL}
     if unknown:
-        raise not_yet_ported(f"reference parameters {sorted(unknown)} (a frontend)")
-    if "moe" in params["layers"]:
-        raise not_yet_ported("the moe family (models/moe.py)")
+        raise ValueError(f"unknown reference parameters {sorted(unknown)}")
 
     def tensors(tree):
-        return {k: _to_tensor(v, dtype, device) for k, v in tree.items()}
+        return {k: _to_tensor(v, dtype, device) for k, v in tree.items()
+                if v is not None}
 
     stacked = {name: tensors(sub) for name, sub in params["layers"].items()}
     n_layers = next(iter(next(iter(stacked.values())).values())).shape[0]
@@ -171,14 +182,25 @@ def lm_params_from_jax(params: Mapping[str, Any], *, dtype=None,
         shared = nn.ModuleDict({name: param_dict(tensors(sub))
                                 for name, sub in params["shared"].items()})
     opt = {k: _to_tensor(params[k], dtype, device) if k in params else None
-           for k in ("final_norm", "lm_head")}
+           for k in _OPTIONAL}
     return LMParams(_to_tensor(params["embed"], dtype, device), layers, shared,
-                    opt["final_norm"], opt["lm_head"])
+                    **opt)
 
 
 # ---------------------------------------------------------------------------
 # Forward (full sequence: prefill).
 # ---------------------------------------------------------------------------
+
+def _embed_inputs(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    if cfg.frontend == "frames":
+        return batch["frames"] @ params["frame_proj"]
+    h = params["embed"][batch["tokens"]]
+    if cfg.frontend == "patch" and "vision_embeds" in batch:
+        vis = (batch["vision_embeds"] @ params["vision_proj"]).to(h.dtype)
+        # the reference's dynamic_update_slice at (0, 0, 0)
+        h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
+    return h
+
 
 def _mask_pad_vocab(cfg, logits):
     if cfg.padded_vocab == cfg.vocab:
@@ -188,15 +210,19 @@ def _mask_pad_vocab(cfg, logits):
 
 
 def _layer_apply(cfg, opts, shared, h, layer_params, idx):
-    """One layer (the reference's scanned body, MoE aux omitted)."""
+    """One layer (the reference's scanned body); returns (h, the MoE aux
+    increment: a float32 scalar for moe, else None)."""
     if cfg.family in ("ssm", "hybrid"):
         if (cfg.family == "hybrid" and cfg.shared_attn_every and shared is not None
                 and idx % cfg.shared_attn_every == 0):
             h = h + attn_block(cfg, shared["attn"], h, opts)
             h = h + mlp_block(cfg, shared["mlp"], h, opts)
-        return h + mamba_block(cfg, layer_params["mamba"], h, opts)
+        return h + mamba_block(cfg, layer_params["mamba"], h, opts), None
     h = h + attn_block(cfg, layer_params["attn"], h, opts)
-    return h + mlp_block(cfg, layer_params["mlp"], h, opts)
+    if cfg.family == "moe":
+        out, aux = moe_block(cfg, layer_params["moe"], h, opts)
+        return h + out, aux
+    return h + mlp_block(cfg, layer_params["mlp"], h, opts), None
 
 
 def _head(cfg, params, h):
@@ -212,27 +238,30 @@ def forward(
     head_positions: str = "all",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) — or (B, 1, V) for head_positions='last',
-    the prefill case — and the MoE aux-loss scalar, 0 for these families)."""
-    _check_supported(cfg)
-    h = params["embed"][batch["tokens"]]
+    the prefill case — and the MoE aux-loss scalar, summed over the layers;
+    0 for the other families)."""
+    h = _embed_inputs(cfg, params, batch)
     shared = params.get("shared")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     # remat: each layer's activations are recomputed in the backward (the
     # reference's jax.checkpoint of its scanned body); nothing to recompute
     # on a pass without gradients
     remat = opts.remat and torch.is_grad_enabled()
     for idx, layer in enumerate(params.layers):
         if remat:
-            h = checkpoint(_layer_apply, cfg, opts, shared, h, layer, idx,
-                           use_reentrant=False, preserve_rng_state=False)
+            h, aux_inc = checkpoint(_layer_apply, cfg, opts, shared, h, layer, idx,
+                                    use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _layer_apply(cfg, opts, shared, h, layer, idx)
+            h, aux_inc = _layer_apply(cfg, opts, shared, h, layer, idx)
+        if aux_inc is not None:
+            aux = aux + aux_inc
     h, head = _head(cfg, params, h)
     if head_positions == "last":
         h = h[:, -1:, :]
     logits = _mask_pad_vocab(cfg, h @ head)
     if opts.logits_f32:
         logits = logits.float()
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits, aux
 
 
 def loss_fn(cfg: ArchConfig, params, batch, opts: ModelOptions = ModelOptions()):
@@ -257,7 +286,6 @@ def loss_fn(cfg: ArchConfig, params, batch, opts: ModelOptions = ModelOptions())
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
     """Zero caches in the reference's stacked layout (leading layer axis)."""
-    _check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
@@ -290,7 +318,6 @@ def serve_step(
 
     The caches are updated in place and the same dict is returned (the
     reference returns new arrays)."""
-    _check_supported(cfg)
     h = params["embed"][tokens[:, None]]  # (B, 1, D)
     shared = params.get("shared")
     if cfg.family in ("ssm", "hybrid"):
@@ -314,7 +341,10 @@ def serve_step(
             o, _, _ = attn_block_decode(cfg, layer["attn"], h, cache["k"][idx],
                                         cache["v"][idx], pos)
             h = h + o
-            h = h + mlp_block(cfg, layer["mlp"], h, opts)
+            if cfg.family == "moe":
+                h = h + moe_block(cfg, layer["moe"], h, opts)[0]
+            else:
+                h = h + mlp_block(cfg, layer["mlp"], h, opts)
     h, head = _head(cfg, params, h)
     logits = _mask_pad_vocab(cfg, h @ head)[:, 0].float()
     return logits, cache
@@ -345,7 +375,6 @@ def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOption
     ``optimizer.init(list(params.parameters()))``; ``batch`` holds device
     tensors ``tokens``, ``labels`` and optionally ``loss_mask``.
     ``metrics`` holds the device scalars ``loss`` and ``grad_norm``."""
-    _check_supported(cfg)
 
     def train_step(params, opt_state, batch):
         leaves = list(params.parameters())

@@ -639,10 +639,13 @@ def test_ssd_scan_bwd_decay_extremes(cuda):
 
 
 # bf16 across the backward's routes (wgmma at d = 112 and 64, SIMT at
-# d = 36) and its tiles: lengths off the 64- and 128-row tiles, GQA groups
+# d = 36) and its tiles: lengths off the 64- and 128-row tiles, GQA groups;
+# then qwen3-moe-30b-a3b's group of 8 at 2048 tokens, where a whole group's
+# sum in one tensor-core accumulator drifted past the gate
 FLASH_BWD_ROUTE_CASES = [(2, 4, 2, 200, 112, True), (1, 4, 2, 333, 112, False),
                          (2, 4, 4, 65, 112, True), (1, 8, 2, 190, 64, True),
-                         (1, 8, 2, 130, 36, True), (1, 2, 2, 97, 36, False)]
+                         (1, 8, 2, 130, 36, True), (1, 2, 2, 97, 36, False),
+                         (1, 32, 4, 2048, 128, True)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal", FLASH_BWD_ROUTE_CASES)
@@ -881,6 +884,66 @@ def test_rows_entries_equal_twins(cuda, dtype, rows, d, offset):
         assert torch.equal(g, w)
     assert (rows_launches(WS_STAGE_DIAG), rows_launches(WS_STAGE_DIAG_BWD)) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d,offset", [(65536, 16, 0), (1001, 3, 0), (1001, 3, 1)])
+def test_diag_and_pre_rows_entries_equal_twins(cuda, dtype, rows, d, offset):
+    """The per-path-h entries of increment_diag, increment_pre and
+    ws_stage_pre, h varying per row, bitwise to their twins, one launch of
+    each rows entry and none of a scalar one."""
+    from repro_torch.kernels import INCREMENT_DIAG, INCREMENT_PRE, WS_STAGE_PRE
+    from repro_torch.kernels.sde_step import ref as sref
+    from repro_torch.kernels.sde_step.sde_step import (increment_diag, increment_pre,
+                                                       rows_launches, ws_stage_pre)
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + 7)
+    xs = [torch.randn(rows * d + offset, generator=gen, device=cuda,
+                      dtype=dtype)[offset:].reshape(rows, d) for _ in range(4)]
+    h = torch.rand(rows, 1, generator=gen, device=cuda, dtype=dtype)
+    a, b = EES25_2N.A[1], EES25_2N.B[1]
+    kernels = (INCREMENT_DIAG, INCREMENT_PRE, WS_STAGE_PRE)
+    before = [(k.launches, rows_launches(k)) for k in kernels]
+    cases = [(increment_diag(*xs[:3], h), (sref.increment_diag_ref(*xs[:3], h),)),
+             (increment_pre(*xs[:2], h), (sref.increment_pre_ref(*xs[:2], h),)),
+             (ws_stage_pre(*xs, h, a=a, b=b), sref.ws_stage_pre_ref(*xs, h, a, b))]
+    for got, want in cases:
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert [(k.launches, rows_launches(k)) for k in kernels] == \
+        [(n + 1, r + 1) for n, r in before]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d,m,offset", GENERAL_CASES)
+def test_general_rows_entries_equal_twins(cuda, dtype, rows, d, m, offset):
+    """The general pair's per-path-h entries on the route general_route
+    picks, h varying per path of two rows each (the state (paths, 2, d)),
+    bitwise to their twins, one rows launch each."""
+    from repro_torch.kernels.sde_step.sde_step import general_route, rows_launches
+
+    _, (delta, y, f, g, dW) = _general_operands(cuda, dtype, rows, d, m, offset)
+    paths = rows // 2
+    rows = 2 * paths
+    view = lambda x, *tail: x[:rows].reshape(paths, 2, *tail)  # noqa: E731
+    delta, y, f = (view(x, d) for x in (delta, y, f))
+    g, dW = view(g, d, m), view(dW, m)
+    h = torch.rand(paths, 1, 1, generator=torch.Generator(device=cuda).manual_seed(m),
+                   device=cuda, dtype=dtype)
+    a, b = EES25_2N.A[1], EES25_2N.B[1]
+    aligned = g.data_ptr() % 16 == 0 and dW.data_ptr() % 16 == 0
+    route = general_route(m, dtype, aligned)
+    for kern, run, twin in (
+            (INCREMENT_GENERAL, lambda: (increment_general(f, g, dW, h),),
+             lambda: (sref.increment_general_ref(f, g, dW, h),)),
+            (WS_STAGE_GENERAL, lambda: ws_stage_general(delta, y, f, g, dW, h, a=a, b=b),
+             lambda: sref.ws_stage_general_ref(delta, y, f, g, dW, h, a, b))):
+        n_rows = rows_launches(kern)
+        got = _run_on_route(kern, route, run)
+        assert rows_launches(kern) == n_rows + 1
+        for x, w in zip(got, twin()):
+            assert torch.equal(x, w)
 
 
 @pytest.mark.parametrize("spec,adjoint,donate", [

@@ -481,16 +481,20 @@ def test_general_route_choice(m, dtype, aligned, route):
 def test_general_kernels_have_an_entry_per_dtype_and_route():
     for kern, name in ((INCREMENT_GENERAL, "increment_general"),
                        (WS_STAGE_GENERAL, "ws_stage_general")):
-        assert set(kern.functions) == {f"{name}_{sfx}{route}" for sfx in ("f32", "f64")
+        assert set(kern.functions) == {f"{name}{rows}_{sfx}{route}"
+                                       for rows in ("", "_rows") for sfx in ("f32", "f64")
                                        for route in ("", "_staged")}
-        assert len({tuple(a) for a in kern.functions.values()}) == 1  # one signature
+        # one signature for the scalar entries, one for the per-path entries
+        for rows in (False, True):
+            sigs = {tuple(a) for fn, a in kern.functions.items() if ("_rows_" in fn) == rows}
+            assert len(sigs) == 1
         text = kern.source.read_text()
         for fn in kern.functions:
             assert f'extern "C" int {fn}(' in text
 
 
 def test_route_launches_split_entry_counts():
-    kern = sde_step_module._general_kernel("increment_general", [])
+    kern = sde_step_module._general_kernel("increment_general", [], [])
     kern.entry_launches.update({"increment_general_f32": 3, "increment_general_f64_staged": 2,
                                 "increment_general_f32_staged": 4})
     assert sde_step_module.route_launches(kern) == {"row": 3, "staged": 6}
@@ -689,40 +693,137 @@ def test_fused_ws_stage_with_per_path_h_and_its_backward(dtype):
     assert torch.equal(k, tref.increment_diag_ref(*[x.detach() for x in xs[2:]], h))
 
 
+PER_PATH_OPS = {
+    # name: (fused call, twin, number of differentiable state inputs, noise shape)
+    "increment_diag": (lambda xs, g, w, h: (tops.fused_increment(
+        xs[0], g, w, h, noise="diagonal"),), lambda xs, g, w, h: (
+        tref.increment_diag_ref(xs[0], g, w, h),), 1, "diagonal"),
+    "increment_pre": (lambda xs, g, w, h: (tops.fused_increment(
+        xs[0], None, w, h, noise="prediffused"),), lambda xs, g, w, h: (
+        tref.increment_pre_ref(xs[0], w, h),), 1, "prediffused"),
+    "increment_general": (lambda xs, g, w, h: (tops.fused_increment(
+        xs[0], g, w, h, noise="general"),), lambda xs, g, w, h: (
+        tref.increment_general_ref(xs[0], g, w, h),), 1, "general"),
+    "ws_stage_pre": (lambda xs, g, w, h: tops.fused_ws_stage(
+        *xs, None, w, h, a=0.4, b=0.3, noise="prediffused"), lambda xs, g, w, h:
+        tref.ws_stage_pre_ref(*xs, w, h, 0.4, 0.3), 3, "prediffused"),
+    "ws_stage_general": (lambda xs, g, w, h: tops.fused_ws_stage(
+        *xs, g, w, h, a=0.4, b=0.3, noise="general"), lambda xs, g, w, h:
+        tref.ws_stage_general_ref(*xs, g, w, h, 0.4, 0.3), 3, "general"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(PER_PATH_OPS))
+def test_per_path_h_autograd_matches_the_twin(name, dtype):
+    """The autograd layer with a (paths, 1) h: the forward equals the twin
+    bitwise, and the gradient of every state and noise input is the twin's
+    under torch.autograd, to rounding (the backward regroups the products);
+    h broadcasts against (paths, d) cotangents.  The step takes no gradient
+    (the ops' backward returns None for it, whatever its shape)."""
+    fused, twin, n_state, noise = PER_PATH_OPS[name]
+    rows, d, m = 6, 3, 4
+    xs, h = _rows_inputs(n_state, rows, d, dtype, seed=11)
+    rng = np.random.default_rng(12)
+    g = torch.from_numpy(rng.normal(size=(rows, d, m) if noise == "general"
+                                    else (rows, d)).astype(NP[dtype]))
+    w = torch.from_numpy(rng.normal(size=(rows, m) if noise == "general"
+                                    else (rows, d)).astype(NP[dtype]))
+    cts = [torch.from_numpy(rng.normal(size=(rows, d)).astype(NP[dtype]))
+           for _ in range(2)]
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in xs + [g, w, h]]
+        outs = fn(leaves[:n_state], *leaves[n_state:])
+        torch.autograd.backward(list(outs), cts[:len(outs)])
+        return [o.detach() for o in outs], [x.grad for x in leaves]
+
+    got_out, got = grads(fused)
+    want_out, want = grads(twin)
+    for a, b in zip(got_out, want_out):
+        assert torch.equal(a, b)
+    assert got[-1] is None and want[-1] is not None
+    for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+        if noise == "prediffused" and i == n_state:  # g is not an input there
+            assert a is None and b is None
+            continue
+        torch.testing.assert_close(a, b, **TOL[dtype])
+
+
 def test_rows_entry_layout(monkeypatch):
-    """The wrappers' host side, without a card: a tensor h launches the rows
-    entry with h flattened to one value per path and the row length; the
-    scalar entry keeps its arguments; the other h-taking kernels raise."""
+    """The wrappers' host side, without a card: a tensor h launches each
+    kernel's rows entry with h flattened to one value per path and the row
+    length (the general pair: the rows of d outputs a path, on the route
+    general_route picks); the scalar entry keeps its arguments."""
     calls = []
     monkeypatch.setattr(sde_step_module, "_on_cuda", lambda name, x: True)
+    monkeypatch.setattr(sde_step_module, "is_current", lambda x: True)
     monkeypatch.setattr(sde_step_module, "stream_handle", lambda t: 0)
-    monkeypatch.setattr(sde_step_module, "cuda_operands", lambda *ts, **k: list(ts))
+    monkeypatch.setattr(sde_step_module, "cuda_operands", _fake_operands)
     monkeypatch.setattr(sde_step_module.torch.cuda, "device", lambda d: _Null())
-    for kern in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD):
+    kernels = (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, INCREMENT_DIAG, INCREMENT_PRE,
+               WS_STAGE_PRE, INCREMENT_GENERAL, WS_STAGE_GENERAL)
+    for kern in kernels:
         monkeypatch.setattr(kern, "launch", lambda fn, *args: calls.append((fn, args)))
     xs = [torch.zeros(5, 3) for _ in range(5)]
     h = torch.arange(5, dtype=torch.float32).reshape(5, 1)
     ws_stage_diag(*xs, h, a=0.5, b=0.25)
     ws_stage_diag_bwd(*xs[:4], h, a=0.5, b=0.25)
     ws_stage_diag(*xs, 0.125, a=0.5, b=0.25)
-    (f1, a1), (f2, a2), (f3, a3) = calls
-    assert (f1, f2, f3) == ("ws_stage_diag_rows_f32", "ws_stage_diag_bwd_rows_f32",
-                            "ws_stage_diag_f32")
-    assert a1[8:12] == (15, 3, 0.5, 0.25) and a2[9:13] == (15, 3, 0.5, 0.25)
-    assert a3[7:11] == (15, 0.125, 0.5, 0.25)
-    for fn, args in calls:
-        assert len(WS_STAGE_DIAG.functions.get(fn) or WS_STAGE_DIAG_BWD.functions[fn]) \
-            == len(args)
+    increment_diag(*xs[:3], h)
+    increment_pre(*xs[:2], h)
+    ws_stage_pre(*xs[:4], h, a=0.5, b=0.25)
+    increment_diag(*xs[:3], 0.125)
+    increment_pre(*xs[:2], 0.125)
+    ws_stage_pre(*xs[:4], 0.125, a=0.5, b=0.25)
+    names = [fn for fn, _ in calls]
+    assert names == ["ws_stage_diag_rows_f32", "ws_stage_diag_bwd_rows_f32",
+                     "ws_stage_diag_f32", "increment_diag_rows_f32",
+                     "increment_pre_rows_f32", "ws_stage_pre_rows_f32",
+                     "increment_diag_f32", "increment_pre_f32", "ws_stage_pre_f32"]
+    args = [a for _, a in calls]
+    assert args[0][8:12] == (15, 3, 0.5, 0.25) and args[1][9:13] == (15, 3, 0.5, 0.25)
+    assert args[2][7:11] == (15, 0.125, 0.5, 0.25)
+    assert args[3][5:7] == (15, 3) and args[4][4:6] == (15, 3)
+    assert args[5][7:11] == (15, 3, 0.5, 0.25)
+    assert args[6][4:6] == (15, 0.125) and args[7][3:5] == (15, 0.125)
+    assert args[8][6:10] == (15, 0.125, 0.5, 0.25)
+    # the general pair: (rows, d, m, rows_per_path) on both routes, the
+    # state's leading axes (2, 4) against h's (2, 1, 1)
+    general_calls = []
+    for m, route in ((2, ""), (128, "_staged")):
+        calls = []
+        g, w = torch.zeros(2, 4, 3, m), torch.zeros(2, 4, m)
+        hg = torch.ones(2, 1, 1)
+        state = [torch.zeros(2, 4, 3) for _ in range(3)]
+        increment_general(state[0], g, w, hg)
+        ws_stage_general(*state, g, w, hg, a=0.5, b=0.25)
+        increment_general(state[0], g, w, 0.125)
+        ws_stage_general(*state, g, w, 0.125, a=0.5, b=0.25)
+        assert [fn for fn, _ in calls] == [
+            f"increment_general_rows_f32{route}", f"ws_stage_general_rows_f32{route}",
+            f"increment_general_f32{route}", f"ws_stage_general_f32{route}"]
+        (_, a1), (_, a2), (_, a3), (_, a4) = calls
+        assert a1[5:9] == (8, 3, m, 4) and a2[8:14] == (8, 3, m, 4, 0.5, 0.25)
+        assert a3[4:8] == (8, 3, m, 0.125) and a4[7:13] == (8, 3, m, 0.125, 0.5, 0.25)
+        general_calls += calls
+    for fn, a in list(zip(names, args)) + general_calls:
+        kern = next(k for k in kernels if fn in k.functions)
+        assert len(kern.functions[fn]) == len(a), fn
     with pytest.raises(ValueError, match="does not lead"):
         ws_stage_diag(*xs, torch.zeros(3, 1), a=0.5, b=0.25)
-    for fn, args in [(increment_diag, xs[:3]), (increment_pre, xs[:2]),
-                     (increment_general, [xs[0], torch.zeros(5, 3, 2), torch.zeros(5, 2)])]:
-        with pytest.raises(NotImplementedError, match="per-path step sizes"):
-            fn(*args, h)
-    for fn, args in [(ws_stage_pre, xs[:4]),
-                     (ws_stage_general, xs[:3] + [torch.zeros(5, 3, 2), torch.zeros(5, 2)])]:
-        with pytest.raises(NotImplementedError, match="per-path step sizes"):
-            fn(*args, h, a=0.5, b=0.25)
+    with pytest.raises(ValueError, match="does not lead"):
+        increment_pre(*xs[:2], torch.zeros(3, 1))
+    with pytest.raises(ValueError, match="splits the rows"):
+        increment_general(xs[0], torch.zeros(5, 3, 2), torch.zeros(5, 2),
+                          torch.ones(5, 3))
+
+
+def _fake_operands(*ts, shapes=None):
+    """cuda_operands without a card: each operand broadcast to its shape."""
+    if shapes is None:
+        return list(ts)
+    return [t.expand(s).contiguous() for t, s in zip(ts, shapes)]
 
 
 class _Null:
@@ -733,8 +834,14 @@ class _Null:
         return False
 
 
-def test_rows_entries_are_in_the_sources():
-    for kern in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD):
-        text = kern.source.read_text()
-        for fn in kern.functions:
-            assert f'extern "C" int {fn}(' in text, fn
+@pytest.mark.parametrize("kern", [WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, INCREMENT_DIAG,
+                                  INCREMENT_PRE, WS_STAGE_PRE, INCREMENT_GENERAL,
+                                  WS_STAGE_GENERAL], ids=lambda k: k.name)
+def test_rows_entries_are_in_the_sources(kern):
+    """Every h-taking kernel has a per-path entry per dtype (the general pair
+    on both routes), each exported by its source."""
+    rows = [fn for fn in kern.functions if "_rows_" in fn]
+    assert len(rows) == (4 if kern.name.endswith("general") else 2)
+    text = kern.source.read_text()
+    for fn in kern.functions:
+        assert f'extern "C" int {fn}(' in text, fn

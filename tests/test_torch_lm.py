@@ -9,9 +9,14 @@ weights are carried across with ``lm_params_from_jax`` and ``forward``,
 ``serve_step`` and the decode ``Engine`` are held to the reference in
 float32 at the reference's decode-vs-forward tolerance (atol 2e-5).  The
 port's ``init_params`` is held to the reference's draws in a float32
-subprocess (x64 off, the reference's default).  What is not ported raises
-``NotYetPorted``; training is held to the reference in
-``tests/test_torch_lm_train.py``.
+subprocess (x64 off, the reference's default).  The moe family and the
+``patch`` / ``frames`` frontends (``qwen3-moe-30b-a3b``, ``qwen2-vl-2b`` with
+``vision_embeds``, ``hubert-xlarge`` on frames; ``olmoe-1b-7b`` through its
+weights only, as the reference's tier-1 keeps its smoke run out) are held
+to the reference the same way: ``forward``, ``loss_fn`` and its gradients,
+``serve_step``, decode == forward, the decode ``Engine`` and checkpoints.
+What is not ported raises ``NotYetPorted``; training is held to the
+reference in ``tests/test_torch_lm_train.py``.
 """
 import dataclasses
 import json
@@ -30,6 +35,7 @@ from repro.models import ModelOptions as JModelOptions
 from repro.models import forward as jforward
 from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
+from repro.models import loss_fn as jloss_fn
 from repro.models import make_serve_step as jmake_serve_step
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import ServeConfig as JServeConfig
@@ -40,10 +46,16 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import (LMParams, ModelOptions, ShardingPolicy, forward, init_cache,
                                 init_params, lm_params_from_jax, loss_fn, make_serve_step,
                                 make_train_step, serve_step)
+from repro_torch.optim import adamw
 from repro_torch.serving import Engine, ServeConfig
+from repro_torch.train import restore_checkpoint, save_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["zamba2-7b", "mamba2-130m", "qwen3-1.7b", "olmo-1b", "qwen1.5-32b", "yi-9b"]
+# the moe family and the two frontends: held through forward, loss and decode
+FRONTIER = ["qwen3-moe-30b-a3b", "qwen2-vl-2b", "hubert-xlarge"]
+# and through their weights alone
+FRONTIER_WEIGHTS = FRONTIER + ["olmoe-1b-7b"]
 DERIVED = ["resolved_head_dim", "padded_vocab", "d_inner", "ssm_heads", "block_kind",
            "supports_decode", "subquadratic"]
 
@@ -143,7 +155,7 @@ for arch in %r:
             names.append(name)
     out[arch] = dict(worst=worst, names=sorted(names), port=sorted(tp))
 print(json.dumps(out))
-""" % (ARCHS,)
+""" % (ARCHS + FRONTIER_WEIGHTS,)
 
 
 @pytest.fixture(scope="module")
@@ -156,7 +168,7 @@ def float32_init():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FRONTIER_WEIGHTS)
 def test_init_params_draws_the_reference_weights(float32_init, arch):
     r = float32_init[arch]
     assert r["names"] == r["port"]
@@ -338,16 +350,6 @@ def test_cpu_forward_launches_no_kernel(models):
     assert (FLASH_ATTENTION.launches, SSD_SCAN.launches) == before
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b", "qwen2-vl-2b",
-                                  "hubert-xlarge"])
-def test_unported_families_and_frontends_raise(arch):
-    cfg = configs.get_arch(arch).smoke()
-    with pytest.raises(NotYetPorted):
-        init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotYetPorted):
-        init_cache(cfg, 1, 4, device="cpu")
-
-
 def test_training_and_sharding_raise_not_yet_ported(models):
     """Training is ported (``tests/test_torch_lm_train.py`` holds it to the
     reference); sharding on a mesh still raises."""
@@ -368,6 +370,7 @@ def test_training_and_sharding_raise_not_yet_ported(models):
 def test_lm_modules_leave_jax_out():
     code = ("import sys, repro_torch.models, repro_torch.configs, repro_torch.serving, "
             "repro_torch.launch.serve, repro_torch.models.reversible, "
+            "repro_torch.models.moe, "
             "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')); "
@@ -376,3 +379,207 @@ def test_lm_modules_leave_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- the moe family and the patch / frames frontends ------------------------------
+
+def _frontier_batch(cfg, seed, B=2, S=16):
+    """The reference smoke test's batch layout: tokens and labels, plus
+    ``vision_embeds`` (patch) or ``frames`` in place of tokens (frames)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(B, S)),
+             "labels": rng.integers(0, cfg.vocab, size=(B, S))}
+    if cfg.frontend == "patch":
+        batch["vision_embeds"] = rng.normal(
+            size=(B, cfg.n_vision_tokens, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "frames":
+        batch = {"frames": rng.normal(size=(B, S, cfg.frontend_dim)).astype(np.float32),
+                 "labels": batch["labels"]}
+    return batch
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def _reference_tree(jcfg, tparams):
+    """The port's weights as the reference's parameter tree: its structure
+    from ``jax.eval_shape`` of its ``init_params`` (stacked layer leaves,
+    the ``None`` leaves), every leaf from ``tparams`` (the draws themselves
+    are held to the reference's in the float32 subprocess above)."""
+    named = {k: v.detach().numpy() for k, v in tparams.named_parameters()}
+
+    def fill(path, leaf):
+        keys = [p.key for p in path]
+        if keys[0] == "layers":
+            arr = np.stack([named[".".join(["layers", str(i)] + keys[1:])]
+                            for i in range(leaf.shape[0])])
+        else:
+            arr = named[".".join(keys)]
+        assert arr.shape == leaf.shape and arr.dtype == leaf.dtype, keys
+        return jnp.asarray(arr)
+
+    shapes = jax.eval_shape(lambda k: jinit_params(jcfg, k), jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+@pytest.fixture(scope="module")
+def frontier():
+    """Per arch: (cfg, reference params, port params, batch, the reference's
+    logits (all / last), loss, gradients and serve_step logits), the
+    reference run once, jitted."""
+    out = {}
+    for arch in FRONTIER_WEIGHTS:
+        jcfg = jconfigs.get_arch(arch).smoke()
+        cfg = configs.get_arch(arch).smoke()
+        jparams = _reference_tree(jcfg, init_params(cfg, 0, device="cpu"))
+        tparams = lm_params_from_jax(jparams, device="cpu")
+        if arch not in FRONTIER:
+            out[arch] = (cfg, jparams, tparams, None, None)
+            continue
+        batch = _frontier_batch(cfg, seed=len(arch))
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+        def reference(p):  # one compile an arch
+            logits, aux = jforward(jcfg, p, jbatch)
+            last, _ = jforward(jcfg, p, jbatch, head_positions="last")
+            loss, grads = jax.value_and_grad(lambda q: jloss_fn(jcfg, q, jbatch))(p)
+            return logits, last, aux, loss, grads
+
+        logits, last, aux, loss, grads = jax.jit(reference)(jparams)
+        want = {"all": np.asarray(logits), "last": np.asarray(last), "aux": float(aux),
+                "loss": float(loss), "grads": grads}
+        if cfg.supports_decode:
+            jstep = jax.jit(jmake_serve_step(jcfg))
+            jcache = jinit_cache(jcfg, 2, 8)
+            steps = []
+            for i in range(8):
+                lg, jcache = jstep(jparams, jcache, jnp.asarray(batch["tokens"][:, i]),
+                                   jnp.int32(i))
+                steps.append(np.asarray(lg))
+            want["serve"] = steps
+        out[arch] = (cfg, jparams, tparams, batch, want)
+    return out
+
+
+@pytest.mark.parametrize("arch", FRONTIER_WEIGHTS)
+def test_frontier_params_round_trip(frontier, arch):
+    """``lm_params_from_jax`` takes the reference's tree with the stacked moe
+    leaves (``ln``, ``router``, ``wg``, ``wu``, ``wd``) and ``vision_proj`` /
+    ``frame_proj``, leaf for leaf, under ``init_params``' names."""
+    cfg, jparams, tparams, _, _ = frontier[arch]
+    named = dict(tparams.named_parameters())
+    leaves = _leaves(jparams)
+    assert sorted(named) == sorted(name for name, _ in leaves)
+    for name, arr in leaves:
+        np.testing.assert_array_equal(named[name].detach().numpy(), arr)
+    assert sorted(dict(init_params(cfg, 0, device="cpu").named_parameters())) == sorted(named)
+    assert ("layers.0.moe.router" in named) == (cfg.family == "moe")
+    assert ("vision_proj" in named) == (cfg.frontend == "patch")
+    assert ("frame_proj" in named) == (cfg.frontend == "frames")
+    assert sum(p.numel() for p in named.values()) == sum(a.size for _, a in leaves)
+
+
+@pytest.mark.parametrize("arch", FRONTIER)
+@pytest.mark.parametrize("head_positions", ["all", "last"])
+def test_frontier_forward_matches_reference(frontier, arch, head_positions):
+    cfg, _, tparams, batch, want = frontier[arch]
+    with torch.no_grad():
+        got, aux = forward(cfg, tparams, _torch_batch(batch), head_positions=head_positions)
+    assert got.shape == want[head_positions].shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want[head_positions], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(float(aux), want["aux"], rtol=0, atol=2e-5)
+    assert (float(aux) > 0) == (cfg.family == "moe")
+
+
+@pytest.mark.parametrize("arch", FRONTIER)
+def test_frontier_loss_and_gradients_match_reference(frontier, arch):
+    """``loss_fn`` (with ``0.01 * aux / n_layers`` for moe) and the gradient
+    of every leaf, against ``jax.value_and_grad`` of the reference's."""
+    cfg, _, tparams, batch, want = frontier[arch]
+    leaves = dict(tparams.named_parameters())
+    loss = loss_fn(cfg, tparams, _torch_batch(batch))
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    np.testing.assert_allclose(float(loss.detach()), want["loss"], rtol=0, atol=2e-5)
+    jgrads = dict(_leaves(want["grads"]))
+    for (name, p), g in zip(leaves.items(), grads):
+        g = torch.zeros_like(p) if g is None else g
+        np.testing.assert_allclose(g.numpy(), jgrads[name], rtol=0, atol=2e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-vl-2b"])
+def test_frontier_serve_step_matches_reference(frontier, arch):
+    cfg, _, tparams, batch, want = frontier[arch]
+    toks = torch.from_numpy(batch["tokens"])
+    cache = init_cache(cfg, 2, 8, device="cpu")
+    with torch.no_grad():
+        for i, w in enumerate(want["serve"]):
+            got, cache = serve_step(cfg, tparams, cache, toks[:, i], i)
+            np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-vl-2b"])
+def test_frontier_decode_matches_forward(frontier, arch):
+    """Token-by-token decode equals the full forward; moe with dropless
+    capacity (``capacity_factor=64``), as the reference's test runs it."""
+    cfg, _, tparams, _, _ = frontier[arch]
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+    B, S = 2, 16
+    toks = torch.from_numpy(_tokens(cfg, B, S, seed=4))
+    with torch.no_grad():
+        full, _ = forward(cfg, tparams, {"tokens": toks})
+        cache = init_cache(cfg, B, S, device="cpu")
+        outs = [serve_step(cfg, tparams, cache, toks[:, i], i)[0] for i in range(S)]
+    torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=0, atol=2e-5)
+
+
+def test_moe_engine_tokens_match_reference(frontier):
+    """A moe model decodes through ``serve_step`` in the ``Engine``: the
+    reference engine's greedy tokens."""
+    cfg, jparams, tparams, _, _ = frontier["qwen3-moe-30b-a3b"]
+    want = _drain(JEngine, JServeConfig, jconfigs.get_arch("qwen3-moe-30b-a3b").smoke(),
+                  jparams)
+    assert _drain(Engine, ServeConfig, cfg, tparams) == want
+
+
+def test_encoder_only_engine_is_refused(frontier):
+    cfg, _, tparams, _, _ = frontier["hubert-xlarge"]
+    with pytest.raises(ValueError, match="encoder-only"):
+        Engine(cfg, tparams)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-vl-2b"])
+def test_frontier_checkpoint_round_trip_is_bitwise(arch, tmp_path):
+    """A moe or frontend model after one AdamW step, with its optimizer
+    state, saved and restored into fresh weights bitwise (bf16 leaves
+    included)."""
+    cfg = dataclasses.replace(configs.get_arch(arch).smoke(), dtype="bfloat16")
+    params = init_params(cfg, 1, device="cpu")
+    opt = adamw(1e-3)
+    state = opt.init(list(params.parameters()))
+    batch = _torch_batch(_frontier_batch(cfg, seed=3))
+    if cfg.frontend == "patch":
+        batch["vision_embeds"] = batch["vision_embeds"].to(torch.bfloat16)
+    params, state, _ = make_train_step(cfg, opt)(params, state, batch)
+    save_checkpoint(str(tmp_path), 1, (params, state))
+    fresh = init_params(cfg, 2, device="cpu")
+    fresh_state = opt.init(list(fresh.parameters()))
+    restore_checkpoint(str(tmp_path), 1, (fresh, fresh_state))
+    # the router stays float32 under a bf16 model, as in the reference
+    assert {p.dtype for p in params.parameters()} == (
+        {torch.bfloat16, torch.float32} if cfg.family == "moe" else {torch.bfloat16})
+    for (name, a), b in zip(params.named_parameters(), fresh.parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for a, b in zip(_tensors(state), _tensors(fresh_state)):
+        assert torch.equal(a, b)
+
+
+def _tensors(tree):
+    """The tensors of a tuple/list tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensors(item)]
+    return []

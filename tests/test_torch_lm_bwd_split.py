@@ -8,7 +8,9 @@ operands, the lo parts left for the tensor cores to truncate
 (``split_lo_truncated``), which holds the same limits as rounding them.  Each design is emulated here in plain torch, in the kernel's
 order, and held to the limits ``chip_smoke.py`` phase 3 and 18b hold the
 kernels to; a witness shows that a single rounding (one bf16 P and dS, one
-TF32 pass) misses them.  Inputs are numpy draws from a seed.
+TF32 pass) misses them.  The tensor cores' accumulation toward zero is
+emulated too: a GQA group's dK sum drifts less flushed per query head.
+Inputs are numpy draws from a seed.
 """
 import functools
 import math
@@ -105,6 +107,55 @@ def test_attention_bwd_single_bf16_rounding_misses_the_gate():
     ins, want = _attention_case()
     got = _emulated_attention_bwd(*ins, _mm_bf16_single)
     assert min(_gate_ratio(g, w) for g, w in zip(got, want)) > 10.0
+
+
+# -- attention: a GQA group's dK and dV, one accumulator or one a head ------
+
+def _round_toward_zero(x):
+    """float64 -> float32, toward zero (the tensor cores' accumulation)."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _group_sum(terms, heads_per_acc, rounding):
+    """The dkdv launch's sum of one key's (heads, rows, d) terms: k-steps of
+    16 rows added into a float32 accumulator with ``rounding`` (each step's
+    16 products and the accumulator summed exactly, then rounded), a fresh
+    accumulator every ``heads_per_acc`` heads, the accumulators added in head
+    order to nearest."""
+    heads, rows, d = terms.shape
+    total = None
+    for h0 in range(0, heads, heads_per_acc):
+        acc = np.zeros(d, np.float32)
+        for h in range(h0, h0 + heads_per_acc):
+            for r in range(0, rows, 16):
+                acc = rounding(acc.astype(np.float64) + terms[h, r:r + 16].sum(0))
+        total = acc if total is None else (total.astype(np.float64) + acc).astype(np.float32)
+    return total
+
+
+def test_gqa_dk_flushed_per_head_drifts_less_than_one_accumulator():
+    """A KV head's dK and dV over its group of 8 query heads x 2048 rows:
+    rounded toward zero at every k-step into one accumulator, the sum drifts
+    several times as far as with a fresh accumulator per head (what
+    ``flash_attention_bwd``'s dkdv launch does for GQA), and far beyond
+    rounding to nearest."""
+    rng = np.random.default_rng(27)
+    heads, rows, d = 8, 2048, 128
+    weight = 1.0 / (1.0 + np.arange(rows) / 64.0)  # the early rows weigh most
+    ds = (rng.normal(size=(heads, rows)) * weight).astype(np.float32)
+    q = rng.normal(size=(heads, rows, d)).astype(np.float32)
+    terms = ds[:, :, None].astype(np.float64) * q.astype(np.float64)
+    exact = terms.sum(axis=(0, 1))
+    err = {name: np.abs(_group_sum(terms, per, rounding) - exact).mean()
+           for name, per, rounding in (
+               ("one accumulator", heads, _round_toward_zero),
+               ("a head each", 1, _round_toward_zero),
+               ("to nearest", heads, lambda x: x.astype(np.float32)))}
+    assert err["one accumulator"] > 3 * err["a head each"]
+    assert err["a head each"] > 3 * err["to nearest"]
 
 
 # -- the SSD: within-chunk products in TF32 hi + lo ----------------------------
