@@ -60,6 +60,12 @@ the vision and audio frontends at full width — and checks what comes out:
    ``ssd_scan_bwd`` at the reference's shapes, the decay extremes (also
    against the float64 twin), zamba2-7b's and mamba2-130m's layers (1e-4 of
    each gradient's max|.|), timed at zamba2-7b's, with each launch apart;
+   both attention kernels in bf16 at sequences past 2048 tokens
+   (``FLASH_LONG_SHAPES``: zamba2-7b's head at 4096, qwen3-moe-30b-a3b's GQA
+   group of 8 and hubert-xlarge's non-causal d = 80 at 8192) against their
+   float32 twins one KV group at a time, each output's ratio to phase 3's
+   bf16 gate printed (the tensor cores' toward-zero accumulation, ROADMAP
+   C6), timed beside SDPA's forward and backward;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
    plain path), with shapes, finiteness, A against D, A against a CPU run of
    the plain path, paths/s, dispatch counts and a profile of one dispatch;
@@ -145,8 +151,8 @@ the vision and audio frontends at full width — and checks what comes out:
    (y_final, ys, t_final, counts), every path at t1, O only through the
    per-path ``ws_stage_diag`` entry; paths/s, trials, host syncs, mean
    counts; one short tick profiled (device ms a trial, against O's host
-   ms a trial); O again through the async engine, bitwise to the sync
-   drain; (b) float64, 256 of O's paths: the controller on the card and on
+   ms a trial); O's first tick (65,536 paths) again through the async
+   engine, bitwise to the sync drain's; (b) float64, 256 of O's paths: the controller on the card and on
    the CPU, beside the card's own run with h0 one ulp up, whose per-path
    spread sigma sets the gate: the means of the counts, of y_final and of
    its squared deviation within 6 sigma / sqrt(256) of the CPU's, their
@@ -239,14 +245,27 @@ the vision and audio frontends at full width — and checks what comes out:
    the kernel path against the plain path (1e-4 of max|logit|) and decode
    against the forward (atol 2e-5), moe at dropless capacity, on the tokens
    before a sequence's first token whose expert set differs (at most 1% of
-   tokens may).
+   tokens may);
+20. mesh data parallelism (``repro_torch.launch.mesh``): (a) requests A-C
+   through ``SDESampleEngine`` with its slots sharded on
+   ``make_sample_mesh(1)`` over a world of one NCCL rank, bitwise phase 4's
+   drain, paths/s beside phase 4's, ``ws_stage_diag`` launched; (b) the
+   Table-1 EES(2,5) step (kernels, reversible adjoint) for 3 AdamW steps on
+   ``make_train_mesh(1)``, bitwise the steps without a mesh, ms a step,
+   ``ws_stage_diag_bwd`` launched, and the mesh step captured by
+   ``make_scanned_step`` into a CUDA graph, bitwise the sequential steps;
+   (c) two processes on the one card over gloo's CUDA collectives (NCCL
+   refuses two ranks on one device): request A sharded (held to one rank's
+   drain) and one Table-1 step (the gradient within the reorder bound of
+   one device's).
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
 m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
 runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient,
 phase 16; phase 17, which must launch none; phase 18a's first run; the
-paths of 15d; phase 19's counted forwards and training steps) and
+paths of 15d; phase 19's counted forwards and training steps; 20a's drain
+and 20b's mesh steps) and
 read just after; a kernel of the path with no launch there fails the run.  The second-to-last
 line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
 kernel was first held to, as in earlier runs — for the per-path entries
@@ -257,7 +276,8 @@ Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
 (eager launches plus each graph's captured launches times its replays) and
 ``replayed_phase_16``, ``flash_attention`` and ``ssd_scan``
 ``launches_phase_18``, ``flash_attention`` and ``flash_attention_bwd``
-``launches_phase_19``, ``axpy_chain`` ``launches_phase_15d``; the five
+``launches_phase_19``, ``ws_stage_diag`` and ``ws_stage_diag_bwd``
+``launches_phase_20``, ``axpy_chain`` ``launches_phase_15d``; the five
 other per-path entries count 15d's paths; the backward kernels count phase
 18a's run, and name the reference function whose ``jax.grad`` they
 compute) and the last line
@@ -269,11 +289,13 @@ of the jax package ``repro``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1136,6 +1158,117 @@ def lm_bwd_kernel_phase(torch, timer):
     return stats
 
 
+# Sequences past 2048 tokens, bf16 on the wgmma routes (ROADMAP C6: the
+# tensor cores add each wgmma k-step into a float32 accumulator rounding
+# toward zero, so a long sum in one accumulator drifts): zamba2-7b's head at
+# 4096 tokens, qwen3-moe-30b-a3b's GQA group of 8 and hubert-xlarge's
+# non-causal d = 80 at 8192.
+FLASH_LONG_SHAPES = ((1, 32, 32, 4096, 112, True, None), (1, 32, 4, 8192, 128, True, None),
+                     (1, 16, 16, 8192, 80, False, None))
+FLASH_LONG_REPS = 5
+
+
+def _per_kv_group(torch, fn, hq, hkv, q_like, k_like):
+    """``fn`` over one KV head and its group of query heads at a time (the
+    twins materialise (sq, sk) float32 scores: 256 MiB a head at 8192);
+    outputs concatenated on the head axis, q-shaped ones before k-shaped."""
+    g = hq // hkv
+    outs = [fn(*(t[:, j * g:(j + 1) * g] for t in q_like),
+               *(t[:, j:j + 1] for t in k_like)) for j in range(hkv)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=1)
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def flash_long_phase(torch, timer):
+    """Phase 3, C6: ``flash_attention`` and ``flash_attention_bwd`` in bf16
+    at ``FLASH_LONG_SHAPES`` against their float32 twins (one KV group at a
+    time) under phase 3's bf16 gates, each gradient's ratio to its gate
+    printed; the backward twice (bitwise-equal runs); both timed beside
+    SDPA's forward and backward (the twins are not timed here: whole, they
+    would hold (b, hq, s, s) float32 scores, 8 GiB at 8192).  Returns the
+    rows {shape: {fwd_us, sdpa_us, bwd_us, sdpa_bwd_us, ratios}}."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES, flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    # drawn from a generator of their own, so no earlier case changes
+    gen = torch.Generator(device="cuda").manual_seed(5434)
+    rows = {}
+    for shape in FLASH_LONG_SHAPES:
+        b, hq, hkv, s, d, causal, scale = shape
+        q, k, v = _flash_inputs(torch, gen, shape, torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        fwd0, bwd0 = ROUTE_LAUNCHES["wgmma"], BWD_ROUTE_LAUNCHES["wgmma"]
+        out = flash_attention(q, k, v, causal=causal, sm_scale=scale)
+        got = flash_attention_bwd(q, k, v, out, do, causal=causal, sm_scale=scale)
+        again = flash_attention_bwd(q, k, v, out, do, causal=causal, sm_scale=scale)
+        check(ROUTE_LAUNCHES["wgmma"] == fwd0 + 1 and BWD_ROUTE_LAUNCHES["wgmma"] == bwd0 + 2,
+              f"flash attention {shape}: not on the wgmma routes")
+        want = _per_kv_group(
+            torch, lambda q_, k_, v_: attention_ref(q_, k_, v_, causal=causal,
+                                                    sm_scale=scale), hq, hkv, (q,), (k, v))
+        torch.cuda.synchronize()
+        diff = (out.float() - want.float()).abs()
+        fwd_ratio = (diff / (8e-3 * want.float().abs() + 1e-3)).max().item()
+        fwd_err = diff.max().item()
+        del want, diff
+        _check_deterministic(torch, "flash_attention_bwd", str(shape), got, again)
+        del again
+        # the twin in float32 on the same inputs (bf16 ones widened exactly)
+        want = _per_kv_group(
+            torch, lambda q_, o_, do_, k_, v_: attention_bwd_ref(
+                q_, k_, v_, o_, do_, causal=causal, sm_scale=scale),
+            hq, hkv, tuple(t.float() for t in (q, out, do)), (k.float(), v.float()))
+        torch.cuda.synchronize()
+        ratios = []
+        for g_, w in zip(got, want):
+            check(g_.shape == w.shape and bool(torch.isfinite(g_).all()),
+                  f"flash_attention_bwd {shape}: non-finite or misshapen gradient")
+            gate = 2.0 ** -8 * w.abs() + 1e-5 * w.abs().max()
+            ratios.append(((g_.float() - w).abs() / gate).max().item())
+        del got, want
+        torch.cuda.empty_cache()
+        print(f"  long sequence bf16 (b,hq,hkv,s,d)={shape[:5]} causal={causal}, wgmma "
+              f"routes: forward max_abs_err={fwd_err:.3e}, |got-want| / (8e-3 |want| + "
+              f"1e-3) = {fwd_ratio:.3f} of the gate (tolerance 1, and atol 3e-2); "
+              f"backward dq, dk, dv |got-want| / (2^-8 |want| + 1e-5 max|want|) = "
+              f"{', '.join(f'{r:.3f}' for r in ratios)} of the gate (tolerance 1); two "
+              f"backward runs bitwise equal", flush=True)
+        check(fwd_err <= 3e-2 and fwd_ratio <= 1.0,
+              f"flash_attention {shape} misses the bf16 gate ({fwd_ratio:.3f})")
+        check(max(ratios) <= 1.0,
+              f"flash_attention_bwd {shape} misses the bf16 gate ({max(ratios):.3f})")
+        fwd_ops = 4 * b * hq * d * s * ((s + 1) / 2 if causal else s)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+        us = {
+            "fwd_us": timer.ms(lambda: flash_attention(q, k, v, causal=causal),
+                               "flash_attention_kernel", reps=FLASH_LONG_REPS) * 1e3,
+            "sdpa_us": timer.ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+                                reps=FLASH_LONG_REPS) * 1e3,
+            "bwd_us": timer.ms(lambda: flash_attention_bwd(q, k, v, out, do, causal=causal),
+                               "flash_attention_bwd", reps=FLASH_LONG_REPS) * 1e3,
+            "sdpa_bwd_us": timer.ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                                retain_graph=True),
+                                    reps=FLASH_LONG_REPS) * 1e3}
+        bound_fwd = max(fwd_ops / BF16_FLOPS,
+                        q.element_size() * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S)
+        bound_bwd = max(2.5 * fwd_ops / BF16_FLOPS,
+                        q.element_size() * (4 * q.numel() + 4 * k.numel()) / HBM_BYTES_PER_S)
+        print(f"    device time, L2 flushed, {FLASH_LONG_REPS} calls: flash_attention "
+              f"{us['fwd_us']:.2f} us, scaled_dot_product_attention(is_causal={causal}, "
+              f"enable_gqa=True) {us['sdpa_us']:.2f} us, bound {bound_fwd * 1e6:.2f} us "
+              f"(operations); flash_attention_bwd {us['bwd_us']:.2f} us, SDPA's backward "
+              f"alone {us['sdpa_bwd_us']:.2f} us, bound {bound_bwd * 1e6:.2f} us "
+              f"(operations)", flush=True)
+        rows[shape] = dict(us, fwd_ratio=fwd_ratio, bwd_ratios=ratios)
+        del q, k, v, do, out, leaves, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tick_breakdown(torch, timer, engine, keys, bucket):
     """Device time by kernel over one bucketed single-tick dispatch, the
     share of it spent realizing the threefry increments, and the device's
@@ -1235,6 +1368,7 @@ def serve_phase(torch, timer):
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     n_paths = 6 * SERVE_SLOTS
+    MEASURED["phase4_paths_per_s"] = n_paths / wall
     print(f"  served 4 requests, {n_paths} paths in {wall:.3f} s: "
           f"{n_paths / wall:.0f} paths/s (host wall clock incl. delivery); "
           f"n_dispatches={engine.executor.n_dispatches} "
@@ -1402,6 +1536,8 @@ def table1_phase(torch):
                     for kern in KERNELS if kern.launches > before[kern.name]}
         rows[name] = r
         us = r.seconds / t1.EPOCHS * 1e6
+        if spec.startswith("ees25"):
+            MEASURED["phase7_ees_us"] = us
         print(f"  table1_ou/{name}: terminal moment-MSE {r.loss:.6f} "
               f"(finite={np.isfinite(r.loss)}), {us:.1f} us per training step "
               f"({t1.EPOCHS} epochs x {t1.BATCH} paths x {n_steps} steps, "
@@ -3067,20 +3203,25 @@ def adaptive_phase(torch, timer, params, y0):
           + "; ".join(f"{name[:60]} {us / 1e3 / PROFILE_TRIALS:.2f} ms"
                       for name, (us, _) in top), flush=True)
 
-    # O through the async engine (P equals O bitwise, checked above).
+    # O's first tick through the async engine (P equals O bitwise, checked
+    # above); a path is keyed by its index, so these are O's first paths.
+    # One tick, not O's two: the host-bound drain is the phase's longest.
     async def serve():
         async with AsyncSDESampleEngine(term, y0, cfg, args=params,
                                         device="cuda") as aeng:
-            rid = await aeng.submit(**requests[0])
+            rid = await aeng.submit(**dict(requests[0], n_paths=SERVE_SLOTS))
             return await aeng.result(rid, numpy=True)
 
     start = time.perf_counter()
     async_o = asyncio.run(serve())
     a_wall = time.perf_counter() - start
-    same_async = _same_result(torch, async_o, res_o)
+    head = dataclasses.replace(res_o, **{
+        f: getattr(res_o, f)[:SERVE_SLOTS]
+        for f in ("y_final", "ys", "t_final", "n_accepted", "n_rejected")})
+    same_async = _same_result(torch, async_o, head)
     check(same_async, "the async engine's O differs from the sync drain")
-    print(f"  async engine: O bitwise equal to the sync drain: {same_async} "
-          f"({n_paths / a_wall:.0f} paths/s)", flush=True)
+    print(f"  async engine: O's first {SERVE_SLOTS} paths bitwise equal to the sync "
+          f"drain's: {same_async} ({SERVE_SLOTS / a_wall:.0f} paths/s)", flush=True)
 
     print(f"  (15a: {time.perf_counter() - t_phase:.1f} s)", flush=True)
     t_phase = time.perf_counter()
@@ -3437,10 +3578,11 @@ def _device_ms(timer, fn):
 
 
 def _lsde_step(torch, spec, device, *, dtype=None, n_paths=256, loss=None,
-               **kw):
+               optimizer=None, **kw):
     """A Table-1 LSDE step on ``device`` (weights ``init_lsde(0)``; key
     ``PRNGKey(1)``; ``loss(p, r)`` defaults to the moment MSE against the
-    Table-1 target); returns (step, optimizer, params, state, key)."""
+    Table-1 target, ``optimizer`` to AdamW at 1e-2); returns (step,
+    optimizer, params, state, key)."""
     from repro_torch.benchmarks import table1_ou as t1
     from repro_torch.core import prng
     from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
@@ -3452,7 +3594,7 @@ def _lsde_step(torch, spec, device, *, dtype=None, n_paths=256, loss=None,
     if loss is None:
         tgt = torch.as_tensor(t1.target_paths(), dtype=dtype, device=device)
         loss = lambda p, r: moment_mse(lsde_readout(p, r.ys)[..., 0], tgt)  # noqa: E731
-    opt = adamw(1e-2)
+    opt = optimizer or adamw(1e-2)
     step = make_sde_train_step(
         spec, lsde_term(), opt,
         y0_fn=lambda p: torch.zeros(t1.D_Z, dtype=dtype, device=device) + p.encoder.b,
@@ -5131,6 +5273,295 @@ def moe_frontend_phase(torch, timer):
     return launches
 
 
+# Phase 20: mesh data parallelism on a world of one NCCL rank (20a, 20b),
+# then two processes on the one card over gloo's CUDA collectives (20c:
+# NCCL refuses two ranks on one device).
+MEASURED = {}                # numbers of earlier phases phase 20 prints beside its own
+MESH_TRAIN_STEPS = 3
+MESH_WORKERS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _host_same(got, want) -> bool:
+    """Two sync drains' host results bitwise equal."""
+    return all((getattr(got, f) is None) == (getattr(want, f) is None)
+               and (getattr(got, f) is None or np.array_equal(getattr(got, f),
+                                                               getattr(want, f)))
+               for f in ("y_final", "ys", "diverged"))
+
+
+class _LastGradient:
+    """An optimizer whose state is the last gradient it was given (the
+    parameters move by 1e-2 of it), so a step returns its gradient."""
+
+    @staticmethod
+    def init(params):
+        return [p.detach().clone().zero_() for p in params]
+
+    @staticmethod
+    def update(grads, state, params):
+        return ([p - 1e-2 * g for p, g in zip(params, grads)],
+                [g.clone() for g in grads], grads[0].new_zeros(()))
+
+
+def _ees_table1():
+    from repro_torch.benchmarks import table1_ou as t1
+
+    return next(s for s in t1.solvers() if s[1].startswith("ees25"))
+
+
+def _mesh_serve_a(torch, mesh, slots):
+    """Request A through an engine whose slots are sharded over ``mesh``."""
+    from repro_torch.nsde import init_lsde, lsde_term
+    from repro_torch.serving import SDESampleConfig, SDESampleEngine
+
+    params = init_lsde(0, D_OBS, D_Z, WIDTH, device="cuda")
+    with torch.no_grad():
+        y0 = torch.zeros(D_Z, device="cuda") + params.encoder.b
+    engine = SDESampleEngine(lsde_term(), y0, SDESampleConfig(
+        slots=slots, ticks_per_dispatch=2, mesh=mesh, mesh_axis="mc"), args=params,
+        device="cuda")
+    spec, t1_, n, n_paths, save_every, seed = ABC[0]
+    rid = engine.submit(spec, t1=t1_, n_steps=n, n_paths=n_paths, save_every=save_every,
+                        seed=seed)
+    return engine.run()[rid]
+
+
+def _mesh_grad(torch, mesh=None):
+    """One Table-1 EES(2,5) step's loss and gradient (kernels, reversible
+    adjoint), its optimizer the last-gradient one."""
+    _, spec, n_steps = _ees_table1()
+    kw = {} if mesh is None else {"mesh": mesh, "mesh_axis": "dp"}
+    step, _, params, state, key = _lsde_step(
+        torch, spec, "cuda", n_steps=n_steps, save_every=n_steps // 2,
+        adjoint="reversible", optimizer=_LastGradient(), **kw)
+    _, grads, m = step(params, state, key)
+    return m["loss"], grads
+
+
+def mesh_worker(rank: int, port: int, out: str) -> None:
+    """A phase-20c rank (its own process): a gloo world of MESH_WORKERS on
+    the one card; serves request A with sharded slots, takes one Table-1
+    step on the train mesh and, on rank 0, the same step's two blocks in
+    turn (their partials), saved to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_sample_mesh, make_train_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=MESH_WORKERS)
+    try:
+        a = _mesh_serve_a(torch, make_sample_mesh(), SERVE_SLOTS)
+        loss, grads = _mesh_grad(torch, make_train_mesh())
+        got = {"a": {f: getattr(a, f) for f in ("y_final", "ys", "diverged")},
+               "loss": loss.cpu(), "grads": [g.cpu() for g in grads]}
+        if rank == 0:
+            got["blocks"] = _block_partials(torch)
+        torch.save(got, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _block_partials(torch):
+    """The Table-1 step's path gradient as MESH_WORKERS blocks in turn: each
+    block's parameter partial (for the reorder bound)."""
+    from repro_torch.benchmarks import table1_ou as t1
+    from repro_torch.core import path_keys, prng, sdeint
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
+    from repro_torch.nsde import init_lsde, lsde_readout, lsde_term, moment_mse
+
+    _, spec, n_steps = _ees_table1()
+    params = init_lsde(0, t1.D_OBS, t1.D_Z, t1.WIDTH, device="cuda")
+    leaves = list(params.parameters())
+    tgt = torch.as_tensor(t1.target_paths(), dtype=torch.float32, device="cuda")
+    keys = path_keys(prng.PRNGKey(1, device="cuda"), 256)
+    b = 256 // MESH_WORKERS
+    flats = []
+    for r in range(MESH_WORKERS):
+        res = sdeint(lsde_term(), spec, 0.0, t1.T, n_steps,
+                     torch.zeros(t1.D_Z, device="cuda") + params.encoder.b, None,
+                     args=params, adjoint="reversible", save_every=n_steps // 2,
+                     batch_keys=keys[r * b:(r + 1) * b], device="cuda")
+        flat, treedef = tree_flatten(res)
+        flats.append(flat)
+    whole = [torch.cat([f[i].detach() for f in flats]) for i in range(len(flats[0]))]
+    floats = [i for i, x in enumerate(whole) if x.is_floating_point()]
+    for i in floats:
+        whole[i].requires_grad_()
+    loss = moment_mse(lsde_readout(params, tree_unflatten(treedef, whole).ys)[..., 0], tgt)
+    f_bar = torch.autograd.grad(loss, [whole[i] for i in floats], allow_unused=True)
+    parts = []
+    for r, flat in enumerate(flats):
+        pull = [(flat[i], fb[r * b:(r + 1) * b]) for i, fb in zip(floats, f_bar)
+                if fb is not None and flat[i].requires_grad]
+        g = torch.autograd.grad([o for o, _ in pull], leaves, [c for _, c in pull],
+                                allow_unused=True)
+        parts.append([torch.zeros_like(p).cpu() if x is None else x.cpu()
+                      for p, x in zip(leaves, g)])
+    return parts
+
+
+def mesh_phase(torch, params, y0, sync_abc):
+    """Phase 20: (a) requests A-C through ``SDESampleEngine`` with its
+    slots sharded on a sample mesh of one NCCL rank, bitwise phase 4's
+    drain; (b) the Table-1 EES(2,5) step on a train mesh of one rank,
+    bitwise the step without one, and captured by ``make_scanned_step``;
+    (c) two processes on the one card over gloo: request A and one step.
+    Returns ``{kernel: launches}`` of 20a-20b's paths."""
+    import torch.distributed as dist
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import WS_STAGE_DIAG, WS_STAGE_DIAG_BWD
+    from repro_torch.launch.mesh import make_sample_mesh, make_train_mesh
+    from repro_torch.nsde import lsde_term
+    from repro_torch.serving import SDESampleConfig, SDESampleEngine
+    from repro_torch.train import init_scan_counters, make_scanned_step
+
+    # 20c's ranks start first: they take ~8 s to reach the card
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    port_c = _free_port()
+    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; import chip_smoke; "
+            "chip_smoke.mesh_worker({}, {}, {!r})")
+    workers = [subprocess.Popen([sys.executable, "-c", code.format(
+        REPO, SRC, r, port_c, os.path.join(tmp, "rank"))], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(MESH_WORKERS)]
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                                world_size=1)
+        try:
+            # (a) A-C on sharded slots
+            mesh = make_sample_mesh(1)
+            with torch.no_grad():
+                engine = SDESampleEngine(lsde_term(), y0, SDESampleConfig(
+                    slots=SERVE_SLOTS, ticks_per_dispatch=2, mesh=mesh, mesh_axis="mc"),
+                    args=params, device="cuda")
+                engine.submit("ees25:use_kernels=True", t1=2.0, n_steps=8, n_paths=1024,
+                              seed=99)
+                engine.run()  # warm-up outside the count
+                WS_STAGE_DIAG.launches = 0
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                rids = [engine.submit(s, t1=t1_, n_steps=n, n_paths=p, save_every=se, seed=seed)
+                        for s, t1_, n, p, se, seed in ABC]
+                done = engine.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+            launches = {"ws_stage_diag": WS_STAGE_DIAG.launches}
+            same = all(_host_same(done[r], w) for r, w in zip(rids, sync_abc))
+            n_paths = sum(p for _, _, _, p, _, _ in ABC)
+            print(f"  (a) A-C with slots sharded on make_sample_mesh(1) (one NCCL rank, axis "
+                  f"'mc'): bitwise equal to phase 4's drain: {same}; {n_paths} paths in "
+                  f"{wall:.3f} s, {n_paths / wall:.0f} paths/s (phase 4: "
+                  f"{MEASURED['phase4_paths_per_s']:.0f} paths/s over A-D, host wall with "
+                  f"delivery); ws_stage_diag launches {launches['ws_stage_diag']}", flush=True)
+            check(same, "20a: the sharded drain differs from phase 4's")
+            check(launches["ws_stage_diag"] > 0, "20a launched no ws_stage_diag")
+
+            # (b) the Table-1 step on a train mesh of one rank
+            name, spec, n_steps = _ees_table1()
+            kw = dict(n_steps=n_steps, save_every=n_steps // 2, adjoint="reversible")
+            runs, step_ms = {}, {}
+            for label, mkw in (("plain", {}), ("mesh", {"mesh": make_train_mesh(1),
+                                                        "mesh_axis": "dp"})):
+                step, _, p, state, key = _lsde_step(torch, spec, "cuda", **kw, **mkw)
+                warm = _lsde_step(torch, spec, "cuda", **kw, **mkw)
+                step(warm[2], warm[3], warm[4])  # a warm-up step on other weights
+                WS_STAGE_DIAG_BWD.launches = 0
+                losses = []
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for i in range(MESH_TRAIN_STEPS):
+                    p, state, m = step(p, state, prng.fold_in(key, i))
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+                step_ms[label] = (time.perf_counter() - start) / MESH_TRAIN_STEPS * 1e3
+                runs[label] = (p, state, torch.stack(losses))
+                if label == "mesh":
+                    launches["ws_stage_diag_bwd"] = WS_STAGE_DIAG_BWD.launches
+            bitwise = (_pair_equal(torch, runs["plain"][:2], runs["mesh"][:2])
+                       and torch.equal(runs["plain"][2], runs["mesh"][2]))
+            print(f"  (b) {name} ({spec}, {n_steps} steps, reversible adjoint), "
+                  f"{MESH_TRAIN_STEPS} AdamW steps on make_train_mesh(1) (axis 'dp') vs "
+                  f"without a mesh: parameters, optimizer state and losses bitwise: "
+                  f"{bitwise}; ms a step (host wall, after a warm-up step) mesh "
+                  f"{step_ms['mesh']:.2f}, plain {step_ms['plain']:.2f} (phase 7: "
+                  f"{MEASURED['phase7_ees_us'] / 1e3:.2f} over 60 epochs); "
+                  f"ws_stage_diag_bwd launches {launches['ws_stage_diag_bwd']}", flush=True)
+            check(bitwise, "20b: the mesh step differs from the single-device step")
+            check(launches["ws_stage_diag_bwd"] > 0, "20b launched no ws_stage_diag_bwd")
+            # the mesh step captured into a CUDA graph, against sequential steps
+            step, _, p_g, state_g, key_g = _lsde_step(torch, spec, "cuda", **kw,
+                                                      mesh=make_train_mesh(1), mesh_axis="dp")
+            scanned = make_scanned_step(step, MESH_TRAIN_STEPS)
+            p_g, state_g, counters, hist = scanned(p_g, state_g, init_scan_counters("cuda"),
+                                                   key_g, 0)
+            torch.cuda.synchronize()
+            replay = (scanned.graphed and _pair_equal(torch, (p_g, state_g), runs["mesh"][:2])
+                      and torch.equal(hist["loss"], runs["mesh"][2]))
+            print(f"  (b) make_scanned_step captured the mesh step into a CUDA graph: "
+                  f"{scanned.graphed} (capturable={step.capturable}); its chunk of "
+                  f"{MESH_TRAIN_STEPS} bitwise the sequential mesh steps: {replay}", flush=True)
+            check(replay, "20b: the graphed mesh step differs from the sequential steps")
+            del scanned, step
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+
+        # (c) two ranks on the one card over gloo
+        for r, proc in enumerate(workers):
+            _, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"20c rank {r} failed (rc {proc.returncode}): "
+                  f"{err[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank.{r}"), weights_only=False)
+                 for r in range(MESH_WORKERS)]
+        a_same = all(np.array_equal(ranks[r]["a"][f], getattr(sync_abc[0], f))
+                     for r in range(MESH_WORKERS) for f in ("y_final", "diverged"))
+        a_err = float(np.abs(ranks[0]["a"]["y_final"] - sync_abc[0].y_final).max())
+        ranks_same = (torch.equal(ranks[0]["loss"], ranks[1]["loss"])
+                      and all(torch.equal(x, y) for x, y in zip(ranks[0]["grads"],
+                                                                ranks[1]["grads"])))
+        loss, grads = _mesh_grad(torch)
+        eps = torch.finfo(torch.float32).eps
+        ratio = 0.0
+        for i, (g2, g1) in enumerate(zip(ranks[0]["grads"], grads)):
+            spread = sum(part[i].abs() for part in ranks[0]["blocks"])
+            d = (g2 - g1.cpu()).abs()
+            ratio = max(ratio, (d / (eps * spread).clamp_min(1e-38)).max().item())
+        loss_rel = abs(ranks[0]["loss"].item() / loss.item() - 1.0)
+        loss_bitwise = torch.equal(ranks[0]["loss"], loss.cpu())
+        print(f"  (c) {MESH_WORKERS} processes on the one card (gloo, CUDA tensors): request A "
+              f"({ABC[0][3]} paths) sharded bitwise to 20a's and phase 4's: {a_same} "
+              f"(max|diff| {a_err:.3e}); one Table-1 step: both ranks' gradients equal: "
+              f"{ranks_same}; loss vs one device {loss_rel:.3e} relative (bitwise: "
+              f"{loss_bitwise}); gradient vs one "
+              f"device at most {ratio:.3f} eps sum_r |g_r| (limit {256 // MESH_WORKERS - 1}: "
+              f"the reorder bound of a block's {256 // MESH_WORKERS} paths over the blocks' "
+              f"partials)", flush=True)
+        check(a_err <= 1e-5 * max(1.0, float(np.abs(sync_abc[0].y_final).max())),
+              "20c: request A sharded over two ranks differs from one rank's")
+        check(ranks_same and loss_rel <= 1e-6 and ratio <= 256 // MESH_WORKERS - 1,
+              "20c: the two-rank step's gradient is outside the reorder bound")
+    finally:  # a failed gate above leaves no rank running
+        for proc in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp_dir.cleanup()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5187,6 +5618,9 @@ def main() -> int:
     rows_kernel_phase(torch, timer, stats)
     stats.update(lm_kernel_phase(torch, timer))
     stats.update(lm_bwd_kernel_phase(torch, timer))
+    start = time.perf_counter()
+    flash_long_phase(torch, timer)
+    print(f"  (the long sequences: {time.perf_counter() - start:.1f} s)", flush=True)
 
     phase("phase 4: serve requests A-D")
     params, y0, sync_abc = serve_phase(torch, timer)
@@ -5294,6 +5728,11 @@ def main() -> int:
     p19_launches = moe_frontend_phase(torch, timer)
     print(f"  the attention kernels launched on phase 19's paths: {p19_launches}",
           flush=True)
+
+    phase("phase 20: mesh data parallelism (sharded serving and the Table-1 step on a "
+          "world of one NCCL rank; two ranks on the card over gloo)")
+    mesh_launches = mesh_phase(torch, params, y0, sync_abc)
+    print(f"  launched on 20a-20b's paths: {mesh_launches}", flush=True)
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -5342,6 +5781,7 @@ def main() -> int:
          **({"launches_phase_18": lm_train_launches[name]}
             if name in ("flash_attention", "ssd_scan") else {}),
          **({"launches_phase_19": p19_launches[name]} if name in p19_launches else {}),
+         **({"launches_phase_20": mesh_launches[name]} if name in mesh_launches else {}),
          **({"launches_phase_15d": axpy_15d} if name == "axpy_chain" else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -4,16 +4,19 @@ record every payload carries, and for the paper's tables a value-and-grad,
 one optimizer step on an ``nn.Module`` and the peak memory of a call."""
 from __future__ import annotations
 
+import contextlib
 import fnmatch
 import json
 import os
+import socket
 import time
 from typing import Callable, Optional
 
 import torch
 
 __all__ = ["emit", "time_fn", "synchronize", "device_record", "percentile",
-           "check_out", "write_out", "value_and_grad", "opt_step", "peak_bytes"]
+           "check_out", "write_out", "value_and_grad", "opt_step", "peak_bytes",
+           "process_world"]
 
 
 def emit(name: str, us_per_call: float, derived) -> None:
@@ -51,6 +54,28 @@ def device_record(device: torch.device) -> dict:
         return {"platform": device.type}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
             "count": torch.cuda.device_count()}
+
+
+@contextlib.contextmanager
+def process_world(device: torch.device):
+    """The caller's ``torch.distributed`` world, or, when none is initialised,
+    a world of one on 127.0.0.1 (NCCL on the card, gloo on the CPU) for the
+    body, destroyed after; yields the world size.  The mesh ladders run over
+    every rank of it."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield dist.get_world_size()
+        return
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield 1
+    finally:
+        dist.destroy_process_group()
 
 
 def percentile(sorted_xs, q: float) -> float:

@@ -21,6 +21,13 @@ tick, each exactly one ``sdeint`` batch; with ``active_steps`` and
 ``step_size`` it runs the padded bucketed mode of the serving executor, in
 which tick ``t`` integrates ``active_steps[t]`` steps of the exact size
 ``step_size`` and so equals the unpadded solve of that horizon.
+
+``mesh``/``mesh_axis`` fan the batch out over a mesh axis
+(:mod:`repro_torch.launch.mesh`), the reference's ``shard_map``: every rank
+calls with the same keys, solves its contiguous block of them and
+all-gathers every result leaf in rank order, so each rank returns the
+whole result — the same as one device's, since a path is a function of its
+key alone.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from ..device import not_yet_ported, resolve_device
+from ..device import resolve_device
 from . import prng
 from .adaptive import integrate_adaptive
 from .adjoint import SolveResult, solve
@@ -178,6 +185,32 @@ def _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, *, args=None,
     return one
 
 
+def _fanout(mesh, mesh_axis, n_batch: int):
+    """This rank's :class:`~repro_torch.launch.mesh.AxisBlock` for a batch of
+    ``n_batch`` sharded over ``mesh_axis`` (``mesh`` defaults to the ambient
+    ``with mesh:``), or None without a mesh axis."""
+    if mesh_axis is None:
+        if mesh is not None:
+            raise ValueError("mesh given without mesh_axis; name the axis to shard over")
+        return None
+    from ..launch.mesh import ambient_mesh, axis_block
+
+    block = axis_block(mesh if mesh is not None else ambient_mesh(), mesh_axis)
+    if n_batch % block.world != 0:
+        raise ValueError(
+            f"mesh axis {mesh_axis!r} of size {block.world} does not divide "
+            f"the batch of {n_batch} trajectories"
+        )
+    return block
+
+
+def _gathered(out, block, dim: int):
+    """Every leaf of a rank's result gathered along its batch axis ``dim``."""
+    from ..launch.mesh import gather_blocks
+
+    return tree_map(lambda x: gather_blocks(x, block, dim), out)
+
+
 def _saves_last(out, batch):
     """solve stacks saves first; sdeint's layout is ``(*batch, n_saves, ...)``."""
     if out.ys is not None and batch:
@@ -232,8 +265,15 @@ def sdeint(
     ``bm_tol`` (the tree's leaf resolution), ``bounded`` and ``save_at``,
     and return an :class:`~repro_torch.core.adaptive.AdaptiveResult` with
     per-path ``t_final``, ``h_final``, ``n_accepted`` and ``n_rejected``
-    (``ys`` is ``(B, len(save_at), ...)``).  Mesh fan-out is not ported yet
-    and raises.
+    (``ys`` is ``(B, len(save_at), ...)``).
+
+    ``mesh``/``mesh_axis`` shard the batch over that axis of a
+    ``DeviceMesh`` (:func:`~repro_torch.launch.mesh.make_sample_mesh`);
+    ``mesh`` defaults to the ambient ``with mesh:`` block, and the axis size
+    must divide ``B``.  Every rank passes the same ``batch_keys``, solves its
+    contiguous block and returns the whole result, gathered in rank order
+    outside autograd (train data-parallel with ``make_sde_train_step(...,
+    mesh=...)``, which pulls each rank's share of the gradient back).
     """
     device = resolve_device(device)
     one = _trajectory_fn(
@@ -249,9 +289,11 @@ def sdeint(
         if key is None:
             raise ValueError("pass key= for a single trajectory or batch_keys= for a batch")
         return one(key.to(device))
-    if mesh_axis is not None or mesh is not None:
-        raise not_yet_ported("mesh fan-out (mesh/mesh_axis; ROADMAP A14b)")
-    return one(batch_keys.to(device))
+    block = _fanout(mesh, mesh_axis, batch_keys.shape[0])
+    batch_keys = batch_keys.to(device)
+    if block is None:
+        return one(batch_keys)
+    return _gathered(one(batch_keys[block.rows(batch_keys.shape[0])]), block, 0)
 
 
 def _stack_ticks(outs):
@@ -291,7 +333,9 @@ def sdeint_ticks(
     ``active_steps`` the ``T`` live step counts as host integers; tick ``t``
     equals ``sdeint(term, solver, t0, t0 + active_steps[t]*h,
     active_steps[t], ...)`` over the same keys, and only live steps run.
-    Other keyword arguments are as for :func:`sdeint`.
+    ``mesh``/``mesh_axis`` shard each tick's batch axis as in :func:`sdeint`
+    (the tick axis stays sequential).  Other keyword arguments are as for
+    :func:`sdeint`.
     """
     if tick_keys.dim() < 3:
         raise ValueError(
@@ -300,10 +344,15 @@ def sdeint_ticks(
             f"(dtype {tick_keys.dtype}); for a single flat batch call "
             "sdeint(..., batch_keys=keys)"
         )
-    if mesh_axis is not None or mesh is not None:
-        raise not_yet_ported("mesh fan-out (mesh/mesh_axis; ROADMAP A14b)")
     device = resolve_device(device)
+    block = _fanout(mesh, mesh_axis, tick_keys.shape[1])
     tick_keys = tick_keys.to(device)
+    if block is not None:
+        out = sdeint_ticks(term, solver, t0, t1, n_steps, y0,
+                           tick_keys[:, block.rows(tick_keys.shape[1])],
+                           active_steps=active_steps, step_size=step_size,
+                           device=device, **kwargs)
+        return _gathered(out, block, 1)
     n_ticks = tick_keys.shape[0]
     if active_steps is not None:
         if step_size is None:

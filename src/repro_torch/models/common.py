@@ -4,7 +4,7 @@
 The port runs on one device, so the sharding hooks are the identity: a
 :class:`ShardingPolicy` naming mesh axes, decode-cache constraints, or a
 :func:`constrain` spec raise :class:`~repro_torch.device.NotYetPorted`
-(multi-device layouts come with ROADMAP A14b).  ``remat`` rematerialises
+(multi-device layouts come with ROADMAP A14d: DTensor tensor parallelism).  ``remat`` rematerialises
 each layer in the backward (``torch.utils.checkpoint``), as the reference's
 ``jax.checkpoint`` of its scanned layer; it changes nothing on a pass
 without gradients.  ``bf16_ar_barrier`` pins nothing on one device.
@@ -35,7 +35,7 @@ class ShardingPolicy:
     def __post_init__(self):
         if (self.batch_axes, self.model_axis, self.seq_axes) != (None, None, None):
             raise not_yet_ported("ShardingPolicy with mesh axes (multi-device "
-                                 "activation sharding)")
+                                 "activation sharding; ROADMAP A14d)")
 
     def hidden(self, h):
         return h
@@ -73,7 +73,7 @@ class ModelOptions:
                                  "dry run's cost isolation)")
         if self.cache_constraints is not None:
             raise not_yet_ported("ModelOptions.cache_constraints (decode-cache "
-                                 "layout pins on a mesh)")
+                                 "layout pins on a mesh; ROADMAP A14d)")
 
     def constrain_cache(self, name: str, x):
         return x
@@ -86,8 +86,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 def constrain(x, spec=None):
     """The reference's sharding constraint: ``spec=None`` returns ``x``; a
-    spec (a mesh layout) raises ``NotYetPorted`` (ROADMAP A14b)."""
+    spec (a mesh layout) raises ``NotYetPorted`` (ROADMAP A14d)."""
     if spec is not None:
         raise not_yet_ported("constrain with a sharding spec (multi-device "
-                             "activation sharding; ROADMAP A14b)")
+                             "activation sharding; ROADMAP A14d)")
     return x

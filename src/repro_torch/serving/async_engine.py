@@ -80,6 +80,12 @@ class AsyncSDESampleEngine:
 
     The serve task starts with the first ``submit`` and idles (no polling,
     no device work) whenever the queue is empty.
+
+    With ``cfg.mesh`` each rank runs its own engine, and each rank's serve
+    loop plans from its own queue: every rank must submit the same requests
+    in the same order between the same awaits (a ``submit`` that does not
+    wait for queue space does not yield to the serve loop), so that every
+    rank plans the same ticks and their collectives pair up.
     """
 
     def __init__(self, term, y0, cfg: SDESampleConfig = SDESampleConfig(),

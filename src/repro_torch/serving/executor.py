@@ -32,7 +32,7 @@ import torch
 from ..core.registry import get_solver, parse_solver_spec
 from ..core.sdeint import sdeint_ticks
 from ..core.solvers import ButcherSolver, LowStorageSolver, MCFSolver, Milstein, ReversibleHeun
-from ..device import not_yet_ported, resolve_device
+from ..device import resolve_device
 from ..kernels import _build
 from ..kernels.sde_step import sde_step as _sk
 from ..kernels.williamson2n.williamson2n import KERNEL as _WILLIAMSON2N
@@ -90,7 +90,10 @@ class TickExecutor:
 
     ``term``/``y0``/``args`` define the process; ``guard`` is the in-loop
     blow-up threshold every solve carries (None: no guard); ``device``
-    (default ``"cuda"``) is where the solves run.
+    (default ``"cuda"``) is where the solves run.  ``mesh`` + ``mesh_axis``
+    (both or neither) shard each tick's slot axis over that mesh axis
+    through ``sdeint_ticks``: each rank solves its block of the slots and
+    every rank gets the whole tick back.
 
     :meth:`dispatch` fixes the two pieces of torch state that are
     thread-local, so that it behaves the same from any thread (the async
@@ -117,14 +120,14 @@ class TickExecutor:
                 f"mesh={'set' if mesh is not None else 'None'}, "
                 f"mesh_axis={mesh_axis!r}"
             )
-        if mesh is not None:
-            raise not_yet_ported("sharded dispatch (mesh/mesh_axis; ROADMAP A14b)")
         self.term = term
         self.y0 = y0
         self.args = args
         self.noise_shape = noise_shape
         self.dtype = dtype
         self.guard = guard
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.device = resolve_device(device)
         # None off CUDA: every stream operation below is then skipped.
         self.stream = (torch.cuda.current_stream(self.device)
@@ -144,7 +147,8 @@ class TickExecutor:
         if cache_key not in self._callables:
             common = dict(args=self.args, noise_shape=self.noise_shape,
                           dtype=self.dtype, guard=self.guard,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh,
+                          mesh_axis=self.mesh_axis)
             if isinstance(key, BucketKey):
                 bk = key
 

@@ -37,7 +37,11 @@ Adaptive requests (an ``"ees25:adaptive"``-style spec with ``rtol`` /
 a Virtual Brownian Tree per path; their results carry per-path
 ``t_final``, ``n_accepted`` and ``n_rejected``.
 
-Not ported yet (it raises): mesh-sharded slots.
+With ``mesh``/``mesh_axis`` in the config each tick's slot axis is sharded
+over a mesh axis (``slots`` a multiple of its size): every rank runs the
+same engine on the same requests — the scheduler's plan is deterministic,
+so each plans the same ticks — solves its block of every tick's slots, and
+gathers the rest, so every rank holds every request's results.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ import torch
 from ..core.prng import PRNGKey
 from ..core.registry import parse_solver_spec, select_solver
 from ..core.sdeint import path_keys
-from ..device import not_yet_ported, resolve_device
+from ..device import resolve_device
 from .bucketing import BucketKey, BucketingConfig, bucket_key, group_key
 from .executor import TickExecutor, enable_persistent_compile_cache
 from .scheduler import (
@@ -74,8 +78,8 @@ class SDESampleConfig:
     slots: int = 64              # trajectories integrated per tick
     dtype: Any = torch.float32
     ticks_per_dispatch: int = 1  # ticks per host round trip
-    mesh: Any = None             # not yet ported
-    mesh_axis: Optional[str] = None
+    mesh: Any = None             # device mesh to shard the slot axis over
+    mesh_axis: Optional[str] = None  # mesh axis name (slots % axis size == 0)
     # Plan and key-pack dispatch N+1 while the device runs dispatch N; the
     # plan sequence and the samples are unchanged.
     double_buffer: bool = True
@@ -125,7 +129,14 @@ class SDESampleEngine:
                 "both in SDESampleConfig (e.g. make_sample_mesh() + 'mc')"
             )
         if cfg.mesh is not None:
-            raise not_yet_ported("mesh-sharded serving slots (ROADMAP A14b)")
+            from ..launch.mesh import axis_size
+
+            axis = axis_size(cfg.mesh, cfg.mesh_axis)
+            if cfg.slots % axis != 0:
+                raise ValueError(
+                    f"slots={cfg.slots} must be a multiple of mesh axis "
+                    f"{cfg.mesh_axis!r} (size {axis}) to shard the slot axis"
+                )
         self.device = resolve_device(device)
         self.term = term
         self.y0 = y0
@@ -144,6 +155,7 @@ class SDESampleEngine:
         )
         self.executor = TickExecutor(
             term, y0, args=args, noise_shape=noise_shape, dtype=cfg.dtype,
+            mesh=cfg.mesh, mesh_axis=cfg.mesh_axis,
             guard=cfg.guard_threshold, device=self.device,
         )
         self._key_cache: Dict[int, torch.Tensor] = {}

@@ -24,7 +24,7 @@ Layout::
   inputs of a captured CUDA graph (or the parameters of a module).
 
 Elastic re-sharding onto another mesh (the reference's ``shardings``)
-belongs to mesh data parallelism (ROADMAP A14b).
+belongs to the sharded parameters of ROADMAP A14d.
 """
 from __future__ import annotations
 

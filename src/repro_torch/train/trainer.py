@@ -1,4 +1,4 @@
-"""Training of the port (port of ``repro.train.trainer``, one device).
+"""Training of the port (port of ``repro.train.trainer``).
 
 Three layers, each optional, as the reference's (and the LM's accumulating
 step, :func:`make_accum_train_step`, ``train_loop``'s default):
@@ -35,11 +35,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import prng
-from ..core.pytree import tree_blowup, tree_leaves, tree_map
+from ..core.pytree import tree_blowup, tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..core.registry import get_solver
 from ..core.sdeint import path_keys, sdeint
 from ..device import not_yet_ported, resolve_device
 from ..kernels._build import GraphLaunches
+from ..launch.mesh import axis_block, gather_blocks
 from ..models import ModelOptions, loss_fn, make_train_step
 from ..models.transformer import apply_update
 from ..optim import adamw, cosine_schedule
@@ -72,10 +73,10 @@ def make_accum_train_step(cfg, optimizer, opts: ModelOptions, microbatches: int 
     ``accum_dtype`` (default float32), divided by ``microbatches`` and
     applied once; the loss is the mean of the microbatch losses.  The
     parameters are updated in place.  ``grad_constraint`` (a sharding of
-    the accumulation buffer) is not ported yet (ROADMAP A14b)."""
+    the accumulation buffer) is not ported yet (ROADMAP A14d)."""
     if grad_constraint is not None:
         raise not_yet_ported("make_accum_train_step's grad_constraint (a sharded "
-                             "accumulation buffer; ROADMAP A14b)")
+                             "accumulation buffer; ROADMAP A14d)")
     if microbatches <= 1:
         return make_train_step(cfg, optimizer, opts)
     adt = accum_dtype or torch.float32
@@ -95,6 +96,41 @@ def make_accum_train_step(cfg, optimizer, opts: ModelOptions, microbatches: int 
         return params, opt_state, {"loss": lsum / microbatches, "grad_norm": gnorm}
 
     return step
+
+
+def _train_block(mesh, mesh_axis, chunk_paths: int):
+    """This rank's :class:`~repro_torch.launch.mesh.AxisBlock` of a
+    microbatch's paths, or None without a mesh (the reference's checks)."""
+    if mesh_axis is None:
+        if mesh is not None:
+            raise ValueError("mesh given without mesh_axis; name the axis to shard over")
+        return None
+    if mesh is None:
+        raise ValueError(
+            "mesh_axis given without mesh: pass mesh="
+            "make_sample_mesh()/make_train_mesh() explicitly")
+    block = axis_block(mesh, mesh_axis)
+    if chunk_paths % block.world != 0:
+        raise ValueError(
+            f"mesh axis {mesh_axis!r} of size {block.world} does not divide "
+            f"the per-microbatch path count {chunk_paths}")
+    return block
+
+
+def _rank_ordered_sum(partials, block):
+    """Every rank's parameter partials, all-gathered (one flat buffer a
+    dtype) and summed in rank order, the same on every rank."""
+    out = list(partials)
+    for dtype in dict.fromkeys(p.dtype for p in partials):
+        idx = [i for i, p in enumerate(partials) if p.dtype == dtype]
+        flat = torch.cat([partials[i].reshape(-1) for i in idx])
+        ranks = gather_blocks(flat[None], block)
+        total = ranks[0]
+        for r in range(1, block.world):
+            total = total + ranks[r]
+        for i, part in zip(idx, total.split([partials[i].numel() for i in idx])):
+            out[i] = part.view_as(partials[i])
+    return out
 
 
 def make_sde_train_step(
@@ -154,7 +190,24 @@ def make_sde_train_step(
 
     ``device`` (default ``"cuda"``, which raises without a GPU) is where the
     step runs; ``key``, ``params`` and the loss's data live there.
-    ``mesh``/``mesh_axis`` (data parallelism) are not ported yet (A14b).
+
+    Every step takes the reference's mesh structure, with or without a
+    mesh: (1) solve this rank's block of the paths; (2) gather the result
+    leaves (integer ones ride along); (3) take the loss on the gathered
+    result, with its direct parameter gradient and the result's cotangent;
+    (4) pull this block's share of the cotangent back through this rank's
+    solve; (5) gather the parameter partials and sum them in rank order;
+    (6) add the direct gradient.  ``mesh``/``mesh_axis`` (a
+    :func:`~repro_torch.launch.mesh.make_train_mesh`) shard the paths of
+    each microbatch (its axis size must divide ``n_paths // microbatches``);
+    every rank passes the same parameters and key and gets the same
+    update.  Without a mesh the block is every path and nothing is
+    gathered, so a mesh of one rank gives the single-device step bitwise.
+    With ``W`` ranks the result leaves and the loss are the single-device
+    ones wherever the per-path work does not depend on the block's size;
+    the gradients sum ``W`` partials in rank order where one device sums
+    all paths in one weight-gradient product, so they agree to a reorder
+    bound, not bitwise (ROADMAP C, "Known cross-framework differences").
     """
     device = resolve_device(device)
     solver = get_solver(solver)
@@ -163,26 +216,46 @@ def make_sde_train_step(
         raise ValueError(
             f"microbatches={microbatches} does not divide n_paths={n_paths}")
     chunk_paths = n_paths // microbatches
-    if mesh is not None or mesh_axis is not None:
-        raise not_yet_ported("mesh data parallelism (mesh/mesh_axis; ROADMAP A14b)")
+    block = _train_block(mesh, mesh_axis, chunk_paths)
 
-    def batch_loss(params, keys):
-        r = sdeint(term, solver, t0, t1, n_steps, y0_fn(params), None,
-                   args=params, adjoint=adjoint, save_every=save_every,
-                   save_at=save_at, rtol=rtol, atol=atol, remat_chunk=remat_chunk,
-                   noise_shape=noise_shape, batch_keys=keys,
-                   bulk_increments=bulk_increments, device=device)
-        return loss_fn_result(params, r)
+    def solve_block(params, keys):
+        return sdeint(term, solver, t0, t1, n_steps, y0_fn(params), None,
+                      args=params, adjoint=adjoint, save_every=save_every,
+                      save_at=save_at, rtol=rtol, atol=atol, remat_chunk=remat_chunk,
+                      noise_shape=noise_shape, batch_keys=keys,
+                      bulk_increments=bulk_increments, device=device)
 
     def loss_and_grads(params, leaves, keys):
+        rows = slice(None) if block is None else block.rows(keys.shape[0])
+        # (1) this rank's block, its graph kept for the pullback
         if microbatches == 1:
-            loss = batch_loss(params, keys)
+            res = solve_block(params, keys[rows])
         else:
-            loss = checkpoint(batch_loss, params, keys, use_reentrant=False,
-                              preserve_rng_state=False)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(leaves, grads)]
+            res = checkpoint(solve_block, params, keys[rows], use_reentrant=False,
+                             preserve_rng_state=False)
+        # (2) the result leaves, gathered
+        flat, treedef = tree_flatten(res)
+        floats = [i for i, x in enumerate(flat) if x.is_floating_point()]
+        whole = [x.detach() if block is None else gather_blocks(x, block) for x in flat]
+        for i in floats:
+            whole[i].requires_grad_()
+        # (3) the loss on the whole result: direct gradient and cotangent
+        loss = loss_fn_result(params, tree_unflatten(treedef, whole))
+        grads = torch.autograd.grad(loss, leaves + [whole[i] for i in floats],
+                                    allow_unused=True)
+        g_direct, f_bar = grads[:len(leaves)], grads[len(leaves):]
+        # (4) this block's share of the cotangent through this rank's solve
+        pull = [(flat[i], fb[rows]) for i, fb in zip(floats, f_bar)
+                if fb is not None and flat[i].requires_grad]
+        partial = (torch.autograd.grad([o for o, _ in pull], leaves, [c for _, c in pull],
+                                       allow_unused=True)
+                   if pull else [None] * len(leaves))
+        partial = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, partial)]
+        # (5) the partials of every rank, summed in rank order
+        g_paths = partial if block is None else _rank_ordered_sum(partial, block)
+        # (6)
+        grads = [gp if gd is None else gd + gp for gd, gp in zip(g_direct, g_paths)]
+        return loss.detach(), grads
 
     def step(params, opt_state, key):
         leaves = list(params.parameters())

@@ -352,17 +352,18 @@ def test_cpu_forward_launches_no_kernel(models):
 
 def test_training_and_sharding_raise_not_yet_ported(models):
     """Training is ported (``tests/test_torch_lm_train.py`` holds it to the
-    reference); sharding on a mesh still raises."""
+    reference); sharding the LM on a mesh still raises, and names the item
+    that ports it (ROADMAP A14d: tensor parallelism on DTensor)."""
     cfg, _, tparams = models["qwen3-1.7b"]
     toks = torch.zeros(1, 4, dtype=torch.int64)
     loss = loss_fn(cfg, tparams, {"tokens": toks, "labels": toks})
     assert loss.shape == () and bool(torch.isfinite(loss))
     assert callable(make_train_step(cfg, None))
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(NotYetPorted, match="A14d"):
         ShardingPolicy(batch_axes=("data",))
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(NotYetPorted, match="A14d"):
         ShardingPolicy(model_axis="model")
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(NotYetPorted, match="A14d"):
         ModelOptions(cache_constraints={"k": None})
     assert ModelOptions(remat=True).remat
 

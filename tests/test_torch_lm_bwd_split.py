@@ -158,6 +158,113 @@ def test_gqa_dk_flushed_per_head_drifts_less_than_one_accumulator():
     assert err["a head each"] > 3 * err["to nearest"]
 
 
+# -- attention at 8192 tokens: one accumulator a head's rows or a row's keys ---
+
+LONG_S, LONG_D = 8192, 128  # qwen3-moe-30b-a3b's and hubert-xlarge's long cases
+
+
+def _toward_zero(x):
+    """float64 -> float32 toward zero, in torch (the tensor cores' accumulation)."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _accumulate(terms_a, terms_b):
+    """sum_r a[r, i] b[r, :] for every i, as one wgmma accumulator takes it:
+    k-steps of 16 rows, each step's products and the accumulator summed
+    exactly, then rounded toward zero."""
+    a, b = terms_a.double(), terms_b.double()
+    acc = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
+    for r in range(0, a.shape[0], 16):
+        acc = _toward_zero(acc.double() + a[r:r + 16].T @ b[r:r + 16])
+    return acc
+
+
+LONG_KEYS = LONG_ROWS = 512  # dK's first keys and dQ's last rows: the longest sums
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: these loops of small products run slowest on a
+    thread pool that shares its cores with other test processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _long_case():
+    """One causal head at 8192 tokens, d = 128, bf16 inputs from a seed, as
+    the kernel forms them in float32, in blocks of rows: the row statistics
+    (lse, D = rowsum(dO O), O rounded to bf16) and the largest |dQ| and
+    |dK| of the whole head (the gate's absolute term); then dS = P (dP - D)
+    for dK's first ``LONG_KEYS`` keys (every row) and dQ's last
+    ``LONG_ROWS`` rows (every key), the sums that run over the most terms."""
+    rng = np.random.default_rng(28)
+    q, k, v, do = (_bf16(torch.from_numpy(rng.normal(size=(LONG_S, LONG_D)).astype(np.float32)))
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(LONG_D)
+    rows = torch.arange(LONG_S)
+
+    def scores(r0, r1, keys):
+        s = (q[r0:r1] @ k[keys].T) * scale
+        return s.masked_fill(rows[r0:r1, None] < rows[keys][None, :], -torch.inf)
+
+    lse, delta = torch.empty(LONG_S), torch.empty(LONG_S)
+    dk, dq_top = torch.zeros(LONG_S, LONG_D), 0.0
+    for r0 in range(0, LONG_S, 1024):
+        s = scores(r0, r0 + 1024, slice(None))
+        lse[r0:r0 + 1024] = torch.logsumexp(s, -1)
+        p = torch.exp(s - lse[r0:r0 + 1024, None])
+        delta[r0:r0 + 1024] = (do[r0:r0 + 1024] * _bf16(p @ v)).sum(-1)
+        ds = p * (do[r0:r0 + 1024] @ v.T - delta[r0:r0 + 1024, None])
+        dq_top = max(dq_top, (ds @ k).abs().max().item() * scale)
+        dk += ds.T @ q[r0:r0 + 1024]
+    dk_top = dk.abs().max().item() * scale
+
+    def d_scores(r0, r1, keys):
+        p = torch.exp(scores(r0, r1, keys) - lse[r0:r1, None])
+        return p * (do[r0:r1] @ v[keys].T - delta[r0:r1, None])
+
+    return (q, k, d_scores(0, LONG_S, slice(0, LONG_KEYS)),
+            d_scores(LONG_S - LONG_ROWS, LONG_S, slice(None)), dq_top, dk_top)
+
+
+def _long_gate_ratio(got, want, top):
+    """``_gate_ratio`` with the gate's absolute term taken from the whole
+    tensor's largest |want|, ``top``, as phase 3 takes it."""
+    return ((got - want).abs() / (BF16_REL * want.abs() + BF16_ABS * top)).max().item()
+
+
+def test_long_dq_one_accumulator_over_8192_keys_stays_within_the_gate(one_thread):
+    """dQ's accumulator sums a query row's 8192 keys (the last rows sum the
+    most): its drift stays within the gate's absolute slack, 1e-5 max|dQ|,
+    so no rounding of the output can take it past the gate."""
+    _, k, _, ds_rows, dq_top, _ = _long_case()
+    scale = 1.0 / math.sqrt(LONG_D)
+    exact = (ds_rows.double() @ k.double()) * scale
+    got = _accumulate(ds_rows.T.contiguous(), k) * scale
+    assert (got.double() - exact).abs().max() / dq_top < 0.2e-5
+    assert _long_gate_ratio(_bf16(got), exact.float(), dq_top) <= 1.0
+
+
+def test_long_dk_one_head_accumulator_holds_the_gate_by_rounding_room(one_thread):
+    """dK's accumulator sums one head's 8192 rows (the kernel's design since
+    the GQA split): on the first keys, which sum the most rows and hold the
+    largest elements, it holds phase 3's elementwise bf16 gate (the card
+    measured 0.97-0.99 of it over whole tensors), but its drift at the
+    largest elements passes the gate's absolute slack, 1e-5 max|dK|: the
+    gate holds because bf16's rounding of those elements leaves room, not
+    for every draw by construction (ROADMAP C6, closed by measurement)."""
+    q, _, ds_keys, _, _, dk_top = _long_case()
+    scale = 1.0 / math.sqrt(LONG_D)
+    exact = (ds_keys.double().T @ q.double()) * scale
+    got = _accumulate(ds_keys, q) * scale
+    assert _long_gate_ratio(_bf16(got), exact.float(), dk_top) <= 1.0
+    assert (got.double() - exact).abs().max() / dk_top > 1e-5
+
+
 # -- the SSD: within-chunk products in TF32 hi + lo ----------------------------
 
 def _tf32(a):

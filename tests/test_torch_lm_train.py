@@ -194,10 +194,10 @@ def test_accum_with_one_microbatch_is_the_train_step_and_constraints_wait(jparam
         runs.append(tparams)
     for a, b in zip(runs[0].parameters(), runs[1].parameters()):
         assert torch.equal(a, b)
-    with pytest.raises(NotYetPorted, match="A14b"):
+    with pytest.raises(NotYetPorted, match="A14d"):
         make_accum_train_step(cfg, opt, ModelOptions(), microbatches=2,
                               grad_constraint=lambda t: t)
     x = torch.ones(2)
     assert constrain(x, None) is x
-    with pytest.raises(NotYetPorted, match="A14b"):
+    with pytest.raises(NotYetPorted, match="A14d"):
         constrain(x, ("data",))

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,24 +111,73 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     calls[entry](device="cpu")
 
 
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of one rank on 127.0.0.1, destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _same(a, b):
+    from repro_torch.core.pytree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
 @pytest.mark.parametrize("what", ["mesh", "trainer mesh", "engine mesh"])
-def test_unported_features_raise_not_yet_ported(what):
-    """Mesh data parallelism waits for ROADMAP A14b, and says so."""
+def test_unported_features_raise_not_yet_ported(what, world_of_one):
+    """Mesh data parallelism is ported (its gloo tests:
+    ``tests/test_torch_mesh.py``): these cases, which held its
+    ``NotYetPorted``, now hold the reference's validation and a mesh of
+    one rank, bitwise the run without a mesh."""
+    from repro_torch.launch.mesh import make_sample_mesh, make_train_mesh
+
     key = PRNGKey(0, device="cpu")
     y0 = torch.zeros(2)
-    run = {
-        "trainer mesh": lambda: _train_step(mesh=object(), mesh_axis="dp",
-                                            device="cpu"),
-        "mesh": lambda: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, device="cpu",
-                               batch_keys=path_keys(key, 2), mesh_axis="mc",
-                               mesh=object()),
-        "engine mesh": lambda: SDESampleEngine(
-            _term(), y0, SDESampleConfig(mesh=object(), mesh_axis="mc"),
-            device="cpu"),
-    }
-    with pytest.raises(NotYetPorted, match="not yet ported") as err:
-        run[what]()
-    assert "A14b" in str(err.value)
+    if what == "mesh":
+        run = lambda **kw: sdeint(_term(), "ees25", 0.0, 1.0, 2, y0, device="cpu",  # noqa: E731
+                                  batch_keys=path_keys(key, 2), **kw)
+        with pytest.raises(ValueError, match="mesh_axis"):
+            run(mesh=object())
+        assert _same(run(mesh=make_sample_mesh(1, device="cpu"), mesh_axis="mc"), run())
+    elif what == "trainer mesh":
+        with pytest.raises(ValueError, match="mesh_axis"):
+            _train_step(mesh_axis="dp", device="cpu")
+        out = []
+        for kw in ({}, {"mesh": make_train_mesh(1, device="cpu"), "mesh_axis": "dp"}):
+            params = init_lsde(0, 1, 2, 4, device="cpu")
+            opt = adamw(1e-2)
+            step = make_sde_train_step(
+                "ees25", _term(), opt, lambda p: torch.zeros(2),
+                lambda p, r: (r.y_final ** 2).mean() + sum((w ** 2).sum() for w in
+                                                          p.parameters()),
+                t0=0.0, t1=1.0, n_steps=2, n_paths=4, device="cpu", **kw)
+            _, state, metrics = step(params, opt.init(list(params.parameters())), key)
+            out.append((list(params.parameters()), state, metrics["loss"]))
+        assert _same(out[0], out[1])
+    else:
+        with pytest.raises(ValueError, match="mesh and mesh_axis together"):
+            SDESampleEngine(_term(), y0, SDESampleConfig(mesh_axis="mc"), device="cpu")
+        drains = []
+        for kw in ({}, {"mesh": make_sample_mesh(1, device="cpu"), "mesh_axis": "mc"}):
+            engine = SDESampleEngine(_term(), y0, SDESampleConfig(slots=4, **kw),
+                                     device="cpu")
+            rid = engine.submit("ees25", t1=1.0, n_steps=2, n_paths=6, seed=3)
+            engine.run()
+            drains.append(engine.done[rid])
+        assert np.array_equal(drains[0].y_final, drains[1].y_final)
+        assert np.array_equal(drains[0].diverged, drains[1].diverged)
 
 
 @pytest.mark.parametrize("what", [

@@ -734,13 +734,21 @@ def test_bench_resilience_trainer_section_matches_reference():
 
 
 def test_bench_training_records_and_mesh_note():
+    """The records, and (since mesh data parallelism is ported) the mesh
+    ladder over a world of one: one record per mesh config, the sharded
+    step bitwise the single-device one."""
     from repro_torch.benchmarks import bench_training
 
     out = bench_training.run(device="cpu", configs=(("full", 8, 1), ("reversible", 8, 2)),
-                             k_sweep=(2, 4), n_steps=4)
+                             k_sweep=(2, 4), n_steps=4,
+                             mesh_configs=(("reversible", 8, 1), ("full", 8, 2)))
     assert [(r["adjoint"], r["microbatches"], r["steps_per_call"]) for r in out["records"]] \
         == [("full", 1, 2), ("full", 1, 4), ("reversible", 2, 2), ("reversible", 2, 4)]
     assert all(r["graphed"] is False and r["us_per_step_scanned"] > 0
                for r in out["records"])
-    assert out["mesh_records"] == [] and "A14b" in out["mesh_note"]
+    assert [(r["adjoint"], r["microbatches"], r["world_size"]) for r in out["mesh_records"]] \
+        == [("reversible", 1, 1), ("full", 2, 1)]
+    assert all(r["grads_bitwise_vs_single"] and r["us_per_step_sharded"] > 0
+               for r in out["mesh_records"])
+    assert "A14b" not in out["mesh_note"] and "world of 1" in out["mesh_note"]
     assert out["device"] == {"platform": "cpu"}
