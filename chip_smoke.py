@@ -19,8 +19,9 @@ served and differentiated, scanned training steps captured as CUDA
 graphs under the train loops, the paper's manifold experiments
 (Tables 3 and 4, served manifold requests, Fig 8's SO(3) rates), and the LM
 trained at full width through the attention and SSD kernels and their
-backward kernels, with EES(2,5) over residual depth, and the moe family and
-the vision and audio frontends at full width — and checks what comes out:
+backward kernels, with EES(2,5) over residual depth, the moe family and
+the vision and audio frontends at full width, and the LM sharded over
+DTensor meshes — and checks what comes out:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off, bf16 GEMMs
    reducing in float32;
@@ -242,7 +243,8 @@ the vision and audio frontends at full width — and checks what comes out:
    ``Engine`` refusing it): a 2 x 2048 forward and training steps; each
    with ms, tokens/s, peak memory, the device's busy share and the attention
    launches by route (all ``wgmma``); before each, in float32 at 2 layers,
-   the kernel path against the plain path (1e-4 of max|logit|) and decode
+   the kernel path against the plain path (1e-4 of max|logit| over the
+   real vocab) and decode
    against the forward (atol 2e-5), moe at dropless capacity, on the tokens
    before a sequence's first token whose expert set differs (at most 1% of
    tokens may);
@@ -257,7 +259,25 @@ the vision and audio frontends at full width — and checks what comes out:
    (c) two processes on the one card over gloo's CUDA collectives (NCCL
    refuses two ranks on one device): request A sharded (held to one rank's
    drain) and one Table-1 step (the gradient within the reorder bound of
-   one device's).
+   one device's);
+21. the LM's tensor, expert and sequence parallelism on DTensor: (a)
+   zamba2-7b at full width, bf16, 12 layers, B = 2 x 2048, remat: two AdamW
+   steps of ``make_train_step`` with every parameter a DTensor on a (1, 1)
+   ``("data", "model")`` mesh of one NCCL rank under
+   ``ShardingPolicy(("data",), "model")``, step by step beside the steps
+   without a mesh: losses, every gradient and every parameter bitwise, the
+   four LM kernels' launches exact and on the ``wgmma`` route, ms a step of
+   both; (b) a (1, 2) mesh as two gloo processes on the card: zamba2-7b in
+   float32 at 2 layers (logits within 1e-5 of max|logit| of the one-rank
+   run, gradients within 18b's limit), bf16 at 4 layers (one step, the
+   loss within 2e-2), four decode ticks with ``cache_pspecs``-pinned
+   caches (the same greedy tokens), olmoe-1b-7b's prefill at 2 layers with
+   32 + 32 experts (float32: at most 1% of tokens flip an expert set, the
+   logits before a flip within 1e-5; bf16: at most 20% flip, the logits
+   before one within 2e-2, and bitwise a one-rank witness whose attention
+   output products are split and summed in bf16 as the mesh sums them),
+   every logit gate over the real vocab (the pad columns hold -1e9); each
+   rank's kernels on its half of the heads and experts, on their routes.
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
@@ -265,7 +285,7 @@ m = 128 request, phase 10's runs, phase 11's counted prefill, the kernel
 runs of 13a-13c and of 14a-14c, request O of 15a, 15c's kernel gradient,
 phase 16; phase 17, which must launch none; phase 18a's first run; the
 paths of 15d; phase 19's counted forwards and training steps; 20a's drain
-and 20b's mesh steps) and
+and 20b's mesh steps; 21a's mesh steps) and
 read just after; a kernel of the path with no launch there fails the run.  The second-to-last
 line is the ``{"kernels": [...]}`` record (``launches`` counts the path each
 kernel was first held to, as in earlier runs — for the per-path entries
@@ -277,7 +297,8 @@ Euclidean-path kernels ``launches_phase_13``, ``ws_stage_diag``
 ``replayed_phase_16``, ``flash_attention`` and ``ssd_scan``
 ``launches_phase_18``, ``flash_attention`` and ``flash_attention_bwd``
 ``launches_phase_19``, ``ws_stage_diag`` and ``ws_stage_diag_bwd``
-``launches_phase_20``, ``axpy_chain`` ``launches_phase_15d``; the five
+``launches_phase_20``, the four LM kernels ``launches_phase_21``,
+``axpy_chain`` ``launches_phase_15d``; the five
 other per-path entries count 15d's paths; the backward kernels count phase
 18a's run, and name the reference function whose ``jax.grad`` they
 compute) and the last line
@@ -4960,12 +4981,40 @@ class _ExpertSets:
         return False
 
 
-def _p19_compare(torch, label, got, want, sets_got, sets_want, limit, rel=True):
+def _split_row_products(torch, weights, parts):
+    """A mode under which each ``x @ w`` with ``w`` among ``weights`` runs
+    as a (1, ``parts``) mesh runs a row-parallel product: a partial product
+    for each block of w's rows (x's last dim split alike), each rounded to
+    the product's dtype, summed in that dtype in rank order, as the
+    all-reduce of the partial sums adds them.  One rank then carries the
+    mesh's rounding (21b's witness)."""
+    from torch.overrides import TorchFunctionMode
+
+    ids = {id(w) for w in weights}
+
+    class SplitRowProducts(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if (getattr(func, "__name__", "") in ("matmul", "__matmul__") and len(args) == 2
+                    and id(args[1]) in ids):
+                x, w = args
+                n = w.shape[0] // parts
+                out = x[..., :n] @ w[:n]
+                for i in range(1, parts):
+                    out = out + x[..., i * n:(i + 1) * n] @ w[i * n:(i + 1) * n]
+                return out
+            return func(*args, **(kwargs or {}))
+
+    return SplitRowProducts()
+
+
+def _flip_err(torch, got, want, sets_got, sets_want, vocab, rel=True):
     """Logits ``got`` against ``want`` (B, S, V) on the tokens before each
     sequence's first token whose expert set differs in any layer (causal
-    attention carries a flip to every later token); prints and gates the
-    flip share and the difference."""
+    attention carries a flip to every later token): (tokens with a flip,
+    tokens kept, max |diff| there, of max|want| when ``rel``).  Only the
+    first ``vocab`` columns are compared: the pad columns hold -1e9."""
     b, s = got.shape[:2]
+    got, want = got[..., :vocab], want[..., :vocab]
     flips = torch.zeros(b, s, dtype=torch.bool, device=got.device)
     for a, w in zip(sets_got, sets_want):
         flips |= (a != w).any(-1).reshape(b, s)
@@ -4975,6 +5024,13 @@ def _p19_compare(torch, label, got, want, sets_got, sets_want, limit, rel=True):
     n_flip, n_keep = int(flips.sum()), int(keep.sum())
     scale = want.abs().max().item() if rel else 1.0
     err = ((got - want).abs()[keep].max().item() / scale) if n_keep else 0.0
+    return n_flip, n_keep, err
+
+
+def _p19_compare(torch, label, got, want, sets_got, sets_want, limit, vocab, rel=True):
+    """:func:`_flip_err`, printed and gated."""
+    b, s = got.shape[:2]
+    n_flip, n_keep, err = _flip_err(torch, got, want, sets_got, sets_want, vocab, rel)
     share = n_flip / (b * s)
     print(f"  {label}: {n_flip} of {b * s} tokens route to another expert set in some "
           f"layer ({share:.2%}; limit {P19_FLIP_SHARE:.0%}); on the {n_keep} tokens before "
@@ -5005,7 +5061,8 @@ def _p19_checks(torch, arch):
                 runs[path] = (forward(cfg, params, batch, opts)[0], rec.calls)
         _p19_compare(torch, f"{arch} float32, {cfg.n_layers} layers, B={P19_CHECK_BATCH} x "
                      f"{P19_CHECK_LEN}: kernel path vs plain path", runs["kernel"][0],
-                     runs["plain"][0], runs["kernel"][1], runs["plain"][1], P19_LOGIT_REL)
+                     runs["plain"][0], runs["kernel"][1], runs["plain"][1], P19_LOGIT_REL,
+                     cfg.vocab)
         if not cfg.supports_decode:
             return
         toks = batch["tokens"][:, :P19_DECODE_LEN]
@@ -5021,7 +5078,7 @@ def _p19_checks(torch, arch):
                      for layer in range(len(rec.calls))]
         _p19_compare(torch, f"{arch} float32: decode ({P19_DECODE_LEN} tokens, "
                      f"serve_step) vs forward", torch.stack(steps, dim=1), full,
-                     per_layer, rec.calls, P19_DECODE_ATOL, rel=False)
+                     per_layer, rec.calls, P19_DECODE_ATOL, cfg.vocab, rel=False)
 
 
 def _p19_engine(torch, cfg, params):
@@ -5562,6 +5619,542 @@ def mesh_phase(torch, params, y0, sync_abc):
     return launches
 
 
+TP_TRAIN_STEPS = 2           # 21a: AdamW steps on a (1, 1) mesh against no mesh
+TP_WORKERS = 2               # 21b: ranks on the one card (gloo), a (1, 2) mesh
+TP_F32 = (2, 1, 512)         # 21b: zamba2-7b float32 (layers, batch, tokens)
+TP_BF16 = (4, 1, 2048)       # 21b: zamba2-7b bf16, one training step
+TP_MOE = (2, 2, 2048)        # 21b: olmoe-1b-7b prefill, float32 and bf16
+TP_DECODE = (2, 4)           # 21b: zamba2-7b float32 decode: batch, ticks
+TP_LOGIT_REL = 1e-5          # 21b float32 logits (zamba2-7b; olmoe before a flip), of max|logit|
+TP_LOSS_ATOL = 2e-2          # 21b bf16 loss (the reference's, tests/test_launch_distributed.py)
+TP_MOE_REL = 2e-2            # 21b bf16 moe logits before a flip, of max|logit|
+# 21b bf16 moe: tokens whose expert set flips against the one-rank run.
+# The row-parallel sums' bf16 rounding moves the router's near-ties: a
+# one-rank witness with that rounding flips the same 14.45% and equals the
+# two ranks bitwise (NVIDIA H100 80GB HBM3, 700 W), which is gated.
+TP_MOE_FLIP = 0.2
+
+
+class _RecordedGrads:
+    """An optimizer that keeps the gradients of its last update (each
+    rank's local tensors) and otherwise is ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = [getattr(g, "to_local", lambda g=g: g)() for g in grads]
+        return self.inner.update(grads, state, params)
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def tp_one_rank_card(torch):
+    """21a: zamba2-7b at full width, bf16, 12 layers, B = 2 x 2048, remat:
+    two AdamW steps of ``make_train_step`` with every parameter a DTensor
+    on a ("data", "model") mesh of one NCCL rank under
+    ``ShardingPolicy(("data",), "model")``, step by step beside the same
+    steps without a mesh: losses, gradients and parameters bitwise; the
+    mesh run's launches of the four LM kernels by route; ms a step of
+    both.  Returns the mesh run's launches."""
+    from contextlib import nullcontext
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention.flash_attention import (BWD_ROUTE_LAUNCHES,
+                                                                     ROUTE_LAUNCHES)
+    from repro_torch.launch.mesh import param_shardings, place
+    from repro_torch.models import ModelOptions, ShardingPolicy, init_params, make_train_step
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=LM_TRAIN_LAYERS)
+    n_inv = -(-cfg.n_layers // cfg.shared_attn_every)
+    data = SyntheticTokens(DataConfig(LM_TRAIN_BATCH, LM_TRAIN_LEN, cfg.vocab))
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(i).items()}
+               for i in range(TP_TRAIN_STEPS)]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros(1, 1, dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        runs = {}
+        for label in ("plain", "mesh"):
+            params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+            opts = ModelOptions(remat=True)
+            if label == "mesh":
+                place(params, param_shardings(mesh, params))
+                opts = ModelOptions(remat=True, shard=ShardingPolicy(("data",), "model"))
+            opt = _RecordedGrads(adamw(cosine_schedule(3e-4, 10, LM_TRAIN_STEPS)))
+            runs[label] = {"params": params, "opt": opt,
+                           "state": opt.init(list(params.parameters())),
+                           "step": make_train_step(cfg, opt, opts), "walls": [],
+                           "losses": [], "ctx": mesh if label == "mesh" else nullcontext()}
+        launched, fwd, bwd = {}, dict.fromkeys(ROUTE_LAUNCHES, 0), dict.fromkeys(
+            BWD_ROUTE_LAUNCHES, 0)
+        same_grads = True
+        for i in range(TP_TRAIN_STEPS):
+            for label, r in runs.items():
+                _zero_launches()
+                ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
+                BWD_ROUTE_LAUNCHES.update(dict.fromkeys(BWD_ROUTE_LAUNCHES, 0))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with r["ctx"]:
+                    _, r["state"], metrics = r["step"](r["params"], r["state"], batches[i])
+                torch.cuda.synchronize()
+                r["walls"].append(time.perf_counter() - t0)
+                r["losses"].append(metrics["loss"])
+                if label == "mesh":
+                    for k, n in _read_launches().items():
+                        launched[k] = launched.get(k, 0) + n
+                    for k in fwd:
+                        fwd[k] += ROUTE_LAUNCHES[k]
+                    for k in bwd:
+                        bwd[k] += BWD_ROUTE_LAUNCHES[k]
+            same_grads &= all(torch.equal(a, b) for a, b in zip(runs["plain"]["opt"].grads,
+                                                                runs["mesh"]["opt"].grads))
+            for r in runs.values():
+                r["opt"].grads = None
+        same_params = all(torch.equal(a, _local(b)) for a, b in zip(
+            runs["plain"]["params"].parameters(), runs["mesh"]["params"].parameters()))
+        same_losses = torch.equal(torch.stack(runs["plain"]["losses"]),
+                                  torch.stack(runs["mesh"]["losses"]))
+        placed = sum(1 for p in runs["mesh"]["params"].parameters() if hasattr(p, "to_local"))
+        n_par = len(list(runs["mesh"]["params"].parameters()))
+    finally:
+        dist.destroy_process_group()
+    walls = {label: ", ".join(f"{w * 1e3:.1f}" for w in r["walls"]) for label, r in runs.items()}
+    print(f"  (a) zamba2-7b bf16, {cfg.n_layers} of 81 layers at full width, B="
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_LEN}, remat: {TP_TRAIN_STEPS} AdamW steps of "
+          f"make_train_step with {placed} of {n_par} parameters DTensors on a (1, 1) "
+          f"('data', 'model') mesh of one NCCL rank: losses "
+          f"{', '.join(f'{float(v):.6f}' for v in runs['mesh']['losses'])}; bitwise the "
+          f"steps without a mesh: losses {same_losses}, every gradient {same_grads}, every "
+          f"parameter {same_params}; ms a step (host wall, step 1 with its warm-up) mesh "
+          f"{walls['mesh']}, no mesh {walls['plain']}; the mesh run's launches {launched}; "
+          f"flash_attention by route {fwd}, flash_attention_bwd by route {bwd}", flush=True)
+    check(placed == n_par, "21a: not every parameter is a DTensor")
+    check(same_losses and same_grads and same_params,
+          "21a: the (1, 1) mesh steps differ from the steps without a mesh")
+    want = {"flash_attention": 2 * n_inv * TP_TRAIN_STEPS,
+            "ssd_scan": 2 * cfg.n_layers * TP_TRAIN_STEPS,
+            "flash_attention_bwd": n_inv * TP_TRAIN_STEPS,
+            "ssd_scan_bwd": cfg.n_layers * TP_TRAIN_STEPS}
+    check({k: launched.get(k, 0) for k in want} == want,
+          f"21a: the LM kernels launched {launched}, not {want}")
+    check(fwd["wgmma"] == want["flash_attention"]
+          and bwd["wgmma"] == want["flash_attention_bwd"],
+          f"21a: the attention took the routes {fwd} / {bwd}")
+    del runs, batches
+    torch.cuda.empty_cache()
+    return {k: launched.get(k, 0) for k in LM_KERNELS}
+
+
+class _LocalShapes:
+    """Records what the LM kernels' wrappers and the experts' GEMMs were
+    handed on this rank (their module globals, wrapped): attention's
+    (batch, query heads, KV heads, dtype), the scan's (batch, heads,
+    state), the experts' local count."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+        from repro_torch.models import moe
+
+        self.mods = (fa_ops, ssd_ops, moe)
+        self.inner = (fa_ops.flash_attention, fa_ops.flash_attention_bwd, ssd_ops.ssd_scan,
+                      ssd_ops.ssd_scan_bwd, moe._experts)
+        self.seen = {k: set() for k in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                                        "ssd_scan_bwd", "experts")}
+        fa, fab, ssd, ssdb, experts = self.inner
+
+        def heads(name, fn):
+            def wrapped(q, k, *a, **kw):
+                self.seen[name].add((q.shape[0], q.shape[1], k.shape[1], str(q.dtype)[6:]))
+                return fn(q, k, *a, **kw)
+            return wrapped
+
+        def scan(name, fn):
+            def wrapped(x, dt, A, B, *a, **kw):
+                self.seen[name].add((x.shape[0], x.shape[2], B.shape[2]))
+                return fn(x, dt, A, B, *a, **kw)
+            return wrapped
+
+        def local_experts(p, xe):
+            self.seen["experts"].add(p["wg"].shape[0])
+            return experts(p, xe)
+
+        fa_ops.flash_attention = heads("flash_attention", fa)
+        fa_ops.flash_attention_bwd = heads("flash_attention_bwd", fab)
+        ssd_ops.ssd_scan, ssd_ops.ssd_scan_bwd = scan("ssd_scan", ssd), scan("ssd_scan_bwd", ssdb)
+        moe._experts = local_experts
+        return self
+
+    def __exit__(self, *exc):
+        fa_ops, ssd_ops, moe = self.mods
+        (fa_ops.flash_attention, fa_ops.flash_attention_bwd, ssd_ops.ssd_scan,
+         ssd_ops.ssd_scan_bwd, moe._experts) = self.inner
+        return False
+
+    def report(self):
+        return {k: sorted(v) for k, v in self.seen.items() if v}
+
+
+def _tp_tokens(torch, cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(b, s + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+            "labels": torch.from_numpy(toks[:, 1:]).cuda()}
+
+
+def _tp_grads(torch, cfg, params, batch, opts, ctx):
+    """The loss's gradients, each laid out as its parameter and whole."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.transformer import settle
+    from repro_torch.spmd import full
+
+    leaves = list(params.parameters())
+    with ctx:
+        loss = loss_fn(cfg, params, batch, opts)
+    grads = torch.autograd.grad(loss, leaves)
+    return [full(settle(g, p)) for g, p in zip(grads, leaves)]
+
+
+def _tp_checks(torch, rank):
+    """21b on one rank of a (1, 2) ("data", "model") mesh: the float32
+    forward and gradients, one bf16 training step, the moe prefill and a
+    decode, each beside the one-rank run (rank 0 runs it first, without a
+    mesh, while rank 1 waits)."""
+    from contextlib import nullcontext
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention.flash_attention import (BWD_ROUTE_LAUNCHES,
+                                                                     ROUTE_LAUNCHES)
+    from repro_torch.launch.mesh import cache_shardings, param_shardings, place
+    from repro_torch.models import (ModelOptions, ShardingPolicy, forward, init_cache,
+                                    init_params, make_train_step, moe, serve_step)
+    from repro_torch.optim import adamw
+    from repro_torch.spmd import full
+
+    mesh = DeviceMesh("cuda", torch.arange(TP_WORKERS).reshape(1, TP_WORKERS),
+                      mesh_dim_names=("data", "model"))
+    policy = ShardingPolicy(("data",), "model")
+    one = nullcontext()
+    out = {}
+
+    def fresh(cfg, seed=0, placed=True):
+        params = init_params(cfg, prng.PRNGKey(seed, device="cuda"), device="cuda")
+        return place(params, param_shardings(mesh, params)) if placed else params
+
+    def counted(fn):
+        _zero_launches()
+        ROUTE_LAUNCHES.update(dict.fromkeys(ROUTE_LAUNCHES, 0))
+        BWD_ROUTE_LAUNCHES.update(dict.fromkeys(BWD_ROUTE_LAUNCHES, 0))
+        with _LocalShapes() as shapes:
+            res = fn()
+        torch.cuda.synchronize()
+        return res, {"launches": _read_launches(), "fwd": dict(ROUTE_LAUNCHES),
+                     "bwd": dict(BWD_ROUTE_LAUNCHES), "shapes": shapes.report()}
+
+    # float32: logits and gradients
+    layers, b, s = TP_F32
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=layers, dtype="float32")
+    batch = _tp_tokens(torch, cfg, b, s, 211)
+    if rank == 0:
+        ref = fresh(cfg, placed=False)
+        with torch.no_grad():
+            ref_logits = forward(cfg, ref, batch)[0]
+        ref_grads = _tp_grads(torch, cfg, ref, batch, ModelOptions(), one)
+    dist.barrier()
+    params = fresh(cfg)
+    opts = ModelOptions(shard=policy)
+
+    def f32():
+        with torch.no_grad(), mesh:
+            logits = full(forward(cfg, params, batch, opts)[0])
+        return logits, _tp_grads(torch, cfg, params, batch, opts, mesh)
+
+    (logits, grads), out["f32"] = counted(f32)
+    if rank == 0:
+        got, want = logits[..., :cfg.vocab], ref_logits[..., :cfg.vocab]
+        out["f32"]["logit_rel"] = ((got - want).abs().max() / want.abs().max()).item()
+        big = max(g.abs().max().item() for g in ref_grads)
+        out["f32"]["grad_ratio"] = max(
+            (g - w).abs().max().item() / (LM_GRAD_REL * max(w.abs().max().item(), 1e-2 * big))
+            for g, w in zip(grads, ref_grads))
+        del ref_logits, ref_grads
+    del logits, grads
+
+    # decode: the same float32 weights, caches pinned by cache_pspecs
+    nb, ticks = TP_DECODE
+    prompts = torch.from_numpy(np.random.default_rng(212).integers(
+        0, cfg.vocab, size=(nb,))).cuda()
+
+    def decode(p, cache, dopts, ctx):
+        tok, toks = prompts, []
+        with torch.no_grad(), ctx:
+            for pos in range(ticks):
+                logits, cache = serve_step(cfg, p, cache, tok, pos, dopts)
+                tok = full(logits).argmax(-1)
+                toks.append(tok)
+        return torch.stack(toks)
+
+    cache = init_cache(cfg, nb, ticks, device="cuda")
+    shardings, pins = cache_shardings(mesh, cache, batch=nb)
+    toks, out["decode"] = counted(lambda: decode(
+        params, place(cache, shardings), ModelOptions(shard=policy, cache_constraints=pins),
+        mesh))
+    if rank == 0:
+        want = decode(ref, init_cache(cfg, nb, ticks, device="cuda"), ModelOptions(), one)
+        out["decode"]["tokens_equal"] = bool(torch.equal(toks, want))
+        out["decode"]["tokens"] = toks.tolist()
+        del ref
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # bf16: one training step
+    layers, b, s = TP_BF16
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=layers)
+    batch = _tp_tokens(torch, cfg, b, s, 213)
+    opt = adamw(3e-4)
+    if rank == 0:
+        ref = fresh(cfg, placed=False)
+        t0 = time.perf_counter()
+        _, _, m = make_train_step(cfg, opt, ModelOptions(remat=True))(
+            ref, opt.init(list(ref.parameters())), batch)
+        ref_loss = float(m["loss"])
+        out["one_rank_step_ms"] = (time.perf_counter() - t0) * 1e3
+        del ref, m
+        torch.cuda.empty_cache()
+    dist.barrier()
+    params = fresh(cfg)
+    state = opt.init(list(params.parameters()))
+    step = make_train_step(cfg, opt, ModelOptions(remat=True, shard=policy))
+
+    def bf16():
+        t0 = time.perf_counter()
+        with mesh:
+            _, _, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        return float(m["loss"]), (time.perf_counter() - t0) * 1e3
+
+    (loss, ms), out["bf16"] = counted(bf16)
+    out["bf16"].update(loss=loss, step_ms=ms)
+    if rank == 0:
+        out["bf16"]["ref_loss"] = ref_loss
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    # moe: olmoe-1b-7b prefill, experts split over the model axis; float32
+    # (routing held as phase 19 holds it), then bf16, also beside a one-rank
+    # witness whose attention output products (olmoe's only row-parallel
+    # ones: its experts are split whole) are split as the mesh splits them
+    layers, b, s = TP_MOE
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_arch("olmoe-1b-7b"), n_layers=layers, dtype=dtype)
+        batch = _tp_tokens(torch, cfg, b, s, 214)
+        if rank == 0:
+            ref = fresh(cfg, placed=False)
+            with torch.no_grad(), _ExpertSets(moe) as rec:
+                ref_logits = forward(cfg, ref, batch)[0]
+            ref_sets = rec.calls
+            if dtype == "bfloat16":
+                wo = [w for n, w in ref.named_parameters() if n.split(".")[-1] == "wo"]
+                with (torch.no_grad(), _ExpertSets(moe) as rec,
+                      _split_row_products(torch, wo, TP_WORKERS)):
+                    wit_logits = forward(cfg, ref, batch)[0]
+                wit_sets, n_split = rec.calls, len(wo)
+            del ref
+            torch.cuda.empty_cache()
+        dist.barrier()
+        params = fresh(cfg)
+
+        def prefill():
+            with torch.no_grad(), mesh, _ExpertSets(moe) as rec:
+                logits = full(forward(cfg, params, batch, ModelOptions(shard=policy))[0])
+            return logits, rec.calls
+
+        (logits, sets), out[f"moe {dtype}"] = counted(prefill)
+        if rank == 0:
+            rep = out[f"moe {dtype}"]
+            n_flip, n_keep, err = _flip_err(torch, logits, ref_logits, sets, ref_sets,
+                                            cfg.vocab)
+            rep.update(flip_share=n_flip / (b * s), kept=n_keep, logit_rel=err,
+                       max_logit=ref_logits[..., :cfg.vocab].abs().max().item(),
+                       finite=bool(torch.isfinite(logits).all()),
+                       shape_ok=tuple(logits.shape) == (b, s, cfg.padded_vocab))
+            if dtype == "bfloat16":
+                n_flip, n_keep, err = _flip_err(torch, wit_logits, ref_logits, wit_sets,
+                                                ref_sets, cfg.vocab)
+                rep["witness"] = dict(flip_share=n_flip / (b * s), kept=n_keep, logit_rel=err,
+                                      split=n_split)
+                n_flip, n_keep, err = _flip_err(torch, logits, wit_logits, sets, wit_sets,
+                                                cfg.vocab)
+                rep["vs_witness"] = dict(flip_share=n_flip / (b * s), kept=n_keep,
+                                         logit_rel=err,
+                                         bitwise=bool(torch.equal(logits, wit_logits)))
+                del wit_logits, wit_sets
+            del ref_logits, ref_sets
+        del params, logits, sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(rank: int, port: int, out: str) -> None:
+    """A phase-21b rank (its own process): a gloo world of TP_WORKERS on the
+    one card; its report saved to ``out.<rank>`` as JSON.  A crash prints
+    its Python stack (``faulthandler``) to the stderr phase 21 reports."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=TP_WORKERS)
+    try:
+        report = _tp_checks(torch, rank)
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump(report, f, default=list)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(torch):
+    """Phase 21: the LM's tensor, expert and sequence parallelism on DTensor.
+    (a) a (1, 1) mesh of one NCCL rank against no mesh, bitwise; (b) two
+    processes on the one card over gloo on a (1, 2) mesh.  Returns 21a's
+    launches."""
+    launches = tp_one_rank_card(torch)
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        code = ("import sys; sys.path[:0] = [{!r}, {!r}]; import chip_smoke; "
+                "chip_smoke.tp_worker({}, {}, {!r})")
+        workers = [subprocess.Popen([sys.executable, "-c", code.format(
+            REPO, SRC, r, port, os.path.join(tmp, "rank"))], cwd=REPO, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(TP_WORKERS)]
+        try:
+            for r, proc in enumerate(workers):
+                _, err = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"21b rank {r} failed (rc {proc.returncode}): "
+                      f"{err[-4000:]}")
+        finally:  # a failed gate above leaves no rank running
+            for proc in workers:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        ranks = []
+        for r in range(TP_WORKERS):
+            with open(os.path.join(tmp, f"rank.{r}")) as f:
+                ranks.append(json.load(f))
+    zero = ranks[0]
+    for r, rep in enumerate(ranks):
+        for part in ("f32", "decode", "bf16", "moe float32", "moe bfloat16"):
+            print(f"  (b) rank {r}, {part}: launches {rep[part]['launches']}; flash_attention "
+                  f"by route {rep[part]['fwd']}, flash_attention_bwd by route "
+                  f"{rep[part]['bwd']}; local shapes {rep[part]['shapes']}", flush=True)
+    f32, bf16, dec = zero["f32"], zero["bf16"], zero["decode"]
+    moe32, moe16 = zero["moe float32"], zero["moe bfloat16"]
+    print(f"  (b) {TP_WORKERS} processes on the one card (gloo, CUDA tensors), mesh (1, "
+          f"{TP_WORKERS}): zamba2-7b float32 {TP_F32[0]} layers B={TP_F32[1]} x {TP_F32[2]}: "
+          f"logits {f32['logit_rel']:.3e} of max|logit| from the one-rank run (limit "
+          f"{TP_LOGIT_REL:g}), gradients at most {f32['grad_ratio']:.3f} of 18b's limit "
+          f"({LM_GRAD_REL:g} of each leaf's max|.|, at least 1% of the largest leaf's); "
+          f"bf16 {TP_BF16[0]} layers B={TP_BF16[1]} x {TP_BF16[2]}, one AdamW step: loss "
+          f"{bf16['loss']:.6f} vs one rank {bf16['ref_loss']:.6f} (limit {TP_LOSS_ATOL:g}); "
+          f"{bf16['step_ms']:.1f} ms (rank 0), {ranks[1]['bf16']['step_ms']:.1f} ms (rank 1), "
+          f"one rank without a mesh {zero['one_rank_step_ms']:.1f} ms (host wall, first step "
+          f"each); olmoe-1b-7b {TP_MOE[0]} layers prefill B={TP_MOE[1]} x {TP_MOE[2]}, float32: "
+          f"{moe32['flip_share']:.2%} of tokens route to another expert set in some layer "
+          f"(limit {P19_FLIP_SHARE:.0%}), on the {moe32['kept']} tokens before each "
+          f"sequence's first such token max |diff| {moe32['logit_rel']:.3e} of max|logit| "
+          f"({moe32['max_logit']:.4f}; limit {TP_LOGIT_REL:g}); bf16: "
+          f"{moe16['flip_share']:.2%} flipped (limit {TP_MOE_FLIP:.0%}), on the "
+          f"{moe16['kept']} tokens before the first flips max |diff| "
+          f"{moe16['logit_rel']:.3e} of max|logit| ({moe16['max_logit']:.4f}; limit "
+          f"{TP_MOE_REL:g}); the one-rank witness with its {moe16['witness']['split']} "
+          f"attention output products split in {TP_WORKERS} and summed in bf16: "
+          f"{moe16['witness']['flip_share']:.2%} flipped against the one-rank run, max |diff| "
+          f"{moe16['witness']['logit_rel']:.3e} on {moe16['witness']['kept']} tokens; the "
+          f"two ranks against the witness: {moe16['vs_witness']['flip_share']:.2%} flipped, "
+          f"max |diff| {moe16['vs_witness']['logit_rel']:.3e} of max|logit| on "
+          f"{moe16['vs_witness']['kept']} tokens, bitwise (gated) "
+          f"{moe16['vs_witness']['bitwise']}; zamba2-7b "
+          f"decode, {TP_DECODE[1]} ticks of B={TP_DECODE[0]} with cache_pspecs-pinned "
+          f"caches: greedy tokens equal to the one-rank run's: {dec['tokens_equal']} "
+          f"{dec['tokens']}; "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    check(f32["logit_rel"] <= TP_LOGIT_REL, "21b: the float32 logits are outside the limit")
+    check(f32["grad_ratio"] <= 1.0, "21b: the float32 gradients are outside the limit")
+    check(abs(bf16["loss"] - bf16["ref_loss"]) <= TP_LOSS_ATOL
+          and bf16["loss"] == ranks[1]["bf16"]["loss"], "21b: the bf16 step's loss is off")
+    check(moe32["flip_share"] <= P19_FLIP_SHARE and moe32["kept"] > 0
+          and moe32["logit_rel"] <= TP_LOGIT_REL,
+          "21b: the float32 moe prefill is outside its limits")
+    check(moe16["finite"] and moe16["shape_ok"] and moe16["kept"] > 0
+          and moe16["flip_share"] <= TP_MOE_FLIP and moe16["logit_rel"] <= TP_MOE_REL,
+          "21b: the bf16 moe prefill is not finite, of the wrong shape or outside its limits")
+    check(moe16["vs_witness"]["bitwise"],
+          "21b: the bf16 moe prefill differs from the one-rank witness of its reduction")
+    check(dec["tokens_equal"], "21b: the sharded decode's tokens differ")
+    from repro_torch.configs import get_arch
+
+    f32_cfg, moe_cfg = get_arch("zamba2-7b"), get_arch("olmoe-1b-7b")
+    half = TP_WORKERS
+    for r, rep in enumerate(ranks):
+        for part, want in (("f32", {"flash_attention": (TP_F32[1], f32_cfg.n_heads // half,
+                                                        f32_cfg.n_kv_heads // half, "float32"),
+                                    "ssd_scan": (TP_F32[1], f32_cfg.ssm_heads // half,
+                                                 f32_cfg.ssm_state)}),
+                           ("bf16", {"flash_attention": (TP_BF16[1], f32_cfg.n_heads // half,
+                                                         f32_cfg.n_kv_heads // half, "bfloat16"),
+                                     "ssd_scan": (TP_BF16[1], f32_cfg.ssm_heads // half,
+                                                  f32_cfg.ssm_state)}),
+                           *((f"moe {dt}", {"flash_attention": (
+                               TP_MOE[1], moe_cfg.n_heads // half, moe_cfg.n_kv_heads // half, dt),
+                               "experts": moe_cfg.n_experts // half})
+                             for dt in ("float32", "bfloat16"))):
+            rep_p = rep[part]
+            for name, shape in want.items():
+                check([list(shape)] == rep_p["shapes"].get(name) if name != "experts"
+                      else rep_p["shapes"].get(name) == [shape],
+                      f"21b rank {r} {part}: {name} saw {rep_p['shapes'].get(name)}, "
+                      f"not {shape}")
+            check(all(rep_p["launches"].get(k, 0) > 0 for k in (
+                ("flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
+                if not part.startswith("moe") else ("flash_attention",))),
+                f"21b rank {r} {part}: the LM kernels launched {rep_p['launches']}")
+            # float32 attention: forward on mma_tf32, backward on its one
+            # (SIMT) route; bf16: both on wgmma
+            f32_part = want["flash_attention"][3] == "float32"
+            launched = rep_p["launches"]
+            check(rep_p["fwd"]["mma_tf32" if f32_part else "wgmma"]
+                  == launched.get("flash_attention", 0)
+                  and rep_p["bwd"]["simt" if f32_part else "wgmma"]
+                  == launched.get("flash_attention_bwd", 0),
+                  f"21b rank {r} {part}: attention took the routes {rep_p['fwd']} / "
+                  f"{rep_p['bwd']}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5733,6 +6326,12 @@ def main() -> int:
           "world of one NCCL rank; two ranks on the card over gloo)")
     mesh_launches = mesh_phase(torch, params, y0, sync_abc)
     print(f"  launched on 20a-20b's paths: {mesh_launches}", flush=True)
+
+    phase("phase 21: tensor, expert and sequence parallelism of the LM on DTensor (a (1, 1) "
+          "mesh of one NCCL rank against no mesh; two ranks on the card over gloo)")
+    tp_launches = tp_phase(torch)
+    print(f"  the LM kernels launched on 21a's path (the (1, 1) mesh steps): {tp_launches}",
+          flush=True)
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"
@@ -5782,6 +6381,7 @@ def main() -> int:
             if name in ("flash_attention", "ssd_scan") else {}),
          **({"launches_phase_19": p19_launches[name]} if name in p19_launches else {}),
          **({"launches_phase_20": mesh_launches[name]} if name in mesh_launches else {}),
+         **({"launches_phase_21": tp_launches[name]} if name in tp_launches else {}),
          **({"launches_phase_15d": axpy_15d} if name == "axpy_chain" else {})}
         for name in sources]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -18,8 +18,15 @@ to size drives them, as does a ``DeviceMesh`` (``shape`` with
 ``mesh_dim_names``).  A spec is a :class:`PartitionSpec`: a tuple with one
 entry per tensor dim, each ``None``, an axis name or a tuple of axis
 names, equal to the reference's ``PartitionSpec`` entries.
-:func:`shardings_for` turns specs into DTensor placements; nothing in the
-port shards a parameter with them yet (ROADMAP A14d).
+:func:`shardings_for` turns specs into DTensor placements.
+
+:func:`place` is the reference's ``jax.device_put(params,
+shardings_for(mesh, param_pspecs(...)))``: it turns an
+:class:`~repro_torch.models.LMParams` (in place: its parameters become
+``nn.Parameter``s wrapping DTensors) and an optimizer state into DTensors
+laid out by :func:`param_shardings` / :func:`opt_state_shardings`, each
+rank keeping its shard of the full values it holds (nothing is sent).
+:func:`gather_full` is the inverse.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..optim.optimizers import OptState
+from ..spmd import full, is_dtensor, local_shard, placements_for, redistribute
 
 __all__ = [
     "make_production_mesh",
@@ -48,6 +56,12 @@ __all__ = [
     "AxisBlock",
     "axis_block",
     "gather_blocks",
+    "Sharding",
+    "param_shardings",
+    "opt_state_shardings",
+    "cache_shardings",
+    "place",
+    "gather_full",
 ]
 
 
@@ -310,18 +324,20 @@ def opt_state_pspecs(mesh, abstract_opt_state, pspecs_params, *, zero1: bool = F
     across ``"data"``; only the updated ones are gathered once a step."""
     if not zero1:
         return OptState(step=P(), mu=pspecs_params, nu=pspecs_params)
-
-    def extend(spec, leaf):
-        shape = tuple(leaf.shape)
-        entries = list(spec) + [None] * (len(shape) - len(spec))
-        for i, (dim, e) in enumerate(zip(shape, entries)):
-            if e is None and dim % axis_size(mesh, "data") == 0 and dim > 1:
-                entries[i] = "data"
-                break
-        return _safe(mesh, shape, entries)
-
-    mu = _map_specs(extend, pspecs_params, abstract_opt_state.mu)
+    mu = _map_specs(lambda spec, leaf: _zero1(mesh, spec, tuple(leaf.shape)),
+                    pspecs_params, abstract_opt_state.mu)
     return OptState(step=P(), mu=mu, nu=mu)
+
+
+def _zero1(mesh, spec, shape) -> PartitionSpec:
+    """``spec`` with its first replicated dim that ``"data"`` divides (and
+    longer than 1) sharded on ``"data"``."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, e) in enumerate(zip(shape, entries)):
+        if e is None and dim % axis_size(mesh, "data") == 0 and dim > 1:
+            entries[i] = "data"
+            break
+    return _safe(mesh, shape, entries)
 
 
 def abstract_param_tree(params) -> dict:
@@ -414,16 +430,158 @@ def shardings_for(mesh, pspecs):
     """Each spec as DTensor placements on ``mesh`` (a ``DeviceMesh``): per
     mesh dim, ``Shard(i)`` for the tensor dim ``i`` whose entry names that
     axis, else ``Replicate()``.  A tree of placement tuples."""
-    from torch.distributed.tensor import Replicate, Shard
+    return _map_specs(lambda spec, _leaf=None: placements_for(mesh, spec), pspecs, pspecs)
 
-    names = tuple(mesh.mesh_dim_names)
 
-    def placements(spec, _leaf=None):
-        out = []
-        for axis in names:
-            dims = [i for i, e in enumerate(spec)
-                    if e == axis or (isinstance(e, tuple) and axis in e)]
-            out.append(Shard(dims[0]) if dims else Replicate())
-        return tuple(out)
+# ---------------------------------------------------------------------------
+# Placing parameters and optimizer states.
+# ---------------------------------------------------------------------------
 
-    return _map_specs(placements, pspecs, pspecs)
+class Sharding(NamedTuple):
+    """A DTensor layout: ``placements`` on ``mesh`` (the reference's
+    ``NamedSharding``)."""
+
+    mesh: Any
+    placements: tuple
+
+
+def _param_specs(mesh, params, fsdp: bool) -> dict:
+    """``{name: spec}`` for each of ``params.named_parameters()`` by
+    :func:`param_pspecs`'s rules on the reference layout (a layer's spec is
+    its stacked leaf's without the layer axis)."""
+    specs = param_pspecs(mesh, abstract_param_tree(params), fsdp=fsdp)
+    out = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            out[name] = P(*specs["layers"][parts[2]][parts[3]][1:])
+        elif parts[0] == "shared":
+            out[name] = specs["shared"][parts[1]][parts[2]]
+        else:
+            out[name] = specs[parts[0]]
+    return out
+
+
+def param_shardings(mesh, params, *, fsdp: bool = False) -> dict:
+    """``{name: Sharding}`` for each of ``params.named_parameters()`` (an
+    :class:`~repro_torch.models.LMParams`), by :func:`param_pspecs`'s
+    rules."""
+    return {name: Sharding(mesh, placements_for(mesh, spec))
+            for name, spec in _param_specs(mesh, params, fsdp).items()}
+
+
+def opt_state_shardings(mesh, params, *, fsdp: bool = False,
+                        zero1: bool = False) -> OptState:
+    """``OptState(step=None, mu=[Sharding], nu=[Sharding])`` for an
+    optimizer state of ``list(params.parameters())``, by
+    :func:`opt_state_pspecs`'s rules (``zero1``: each moment's first
+    replicated dim that ``"data"`` divides sharded on it, a layer's own
+    dims, as the port keeps its layers apart); the step stays as it is,
+    the same scalar on every rank."""
+    specs = _param_specs(mesh, params, fsdp)
+    mu = [Sharding(mesh, placements_for(
+        mesh, _zero1(mesh, specs[name], tuple(p.shape)) if zero1 else specs[name]))
+        for name, p in params.named_parameters()]
+    return OptState(step=None, mu=mu, nu=list(mu))
+
+
+def cache_shardings(mesh, cache, *, batch: int):
+    """A decode cache's layout by :func:`cache_pspecs`: the stacked leaves'
+    :class:`Sharding` tree (for :func:`place`) and the per-layer specs by
+    leaf name (for ``ModelOptions(cache_constraints=...)``; the shared
+    attention's caches go by ``"k"`` and ``"v"``, as the reference's)."""
+    specs = cache_pspecs(mesh, cache, batch=batch)
+    shardings = _map_specs(lambda spec, _: Sharding(mesh, placements_for(mesh, spec)),
+                           specs, specs)
+    flat = dict(specs.get("mamba", {}))
+    for key in ("k", "v", "shared_k", "shared_v"):
+        if key in specs:
+            flat[key[-1]] = specs[key]
+    return shardings, {name: P(*spec[1:]) for name, spec in flat.items()}
+
+
+def _placed(leaf, sharding, value=None):
+    """``leaf`` laid out by ``sharding`` (None: as it is), holding ``value``
+    (a full tensor) or its own values.  A DTensor already laid out so is
+    written in place and returned."""
+    from torch.distributed.tensor import DTensor
+
+    if sharding is None:
+        if value is not None:
+            with torch.no_grad():
+                if is_dtensor(leaf):
+                    leaf.to_local().copy_(local_shard(value, leaf.device_mesh,
+                                                      leaf.placements))
+                else:
+                    leaf.copy_(value)
+        return leaf
+    mesh, pl = sharding
+    if is_dtensor(leaf) and leaf.device_mesh == mesh:
+        if tuple(leaf.placements) == tuple(pl):
+            return _placed(leaf, None, value)
+        if value is None:  # DTensor's own collective between the layouts
+            return redistribute(leaf, pl)
+    if value is None:
+        value = full(leaf.detach())
+    value = value.to(device=leaf.device, dtype=leaf.dtype)
+    return DTensor.from_local(local_shard(value, mesh, pl).clone(), mesh, pl,
+                              run_check=False)
+
+
+def _set_param(module, name: str, tensor):
+    owner, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner) if owner else module
+    old = getattr(owner, leaf)
+    setattr(owner, leaf, torch.nn.Parameter(tensor, requires_grad=old.requires_grad))
+
+
+def place(tree, shardings, *, values=None):
+    """``tree`` laid out by ``shardings``: an ``nn.Module`` with a dict
+    ``{parameter name: Sharding}`` (its parameters replaced in place by
+    ``nn.Parameter``s wrapping DTensors, the module returned), an
+    :class:`OptState` with an ``OptState`` of shardings, a dict, list or
+    tuple with one of the same structure, a tensor with a
+    :class:`Sharding` (None: left as it is).  Each rank keeps its shard of the full values it holds;
+    a DTensor leaf is redistributed on its own mesh, gathered first onto
+    another.
+    ``values`` (``{id(leaf): full tensor}``) gives a leaf other values, as
+    a checkpoint restore does; a leaf already laid out so is written in
+    place."""
+    values = values or {}
+    if isinstance(tree, torch.nn.Module):
+        shardings = shardings or {}
+        for name, p in list(tree.named_parameters()):
+            new = _placed(p, shardings.get(name), values.get(id(p)))
+            if new is not p:
+                _set_param(tree, name, new)
+        return tree
+    if isinstance(tree, OptState):
+        shardings = shardings or OptState(None, None, None)
+        return OptState(*(place(t, s, values=values) for t, s in zip(tree, shardings)))
+    if isinstance(tree, dict):
+        shardings = shardings or {}
+        return {k: place(v, shardings.get(k), values=values) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        shardings = [None] * len(tree) if shardings is None else shardings
+        return type(tree)(place(t, s, values=values) for t, s in zip(tree, shardings))
+    if isinstance(tree, torch.Tensor):
+        return _placed(tree, shardings, values.get(id(tree)))
+    return tree
+
+
+def gather_full(tree):
+    """The inverse of :func:`place`: every DTensor of ``tree`` as its full
+    tensor on every rank (a collective each rank of its mesh joins); a
+    module's parameters are replaced in place."""
+    if isinstance(tree, torch.nn.Module):
+        for name, p in list(tree.named_parameters()):
+            if is_dtensor(p):
+                _set_param(tree, name, full(p.detach()))
+        return tree
+    if isinstance(tree, OptState):
+        return OptState(*(gather_full(t) for t in tree))
+    if isinstance(tree, dict):
+        return {k: gather_full(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_full(t) for t in tree)
+    return full(tree) if isinstance(tree, torch.Tensor) else tree

@@ -11,6 +11,12 @@ Two interchangeable implementations of causal/bidirectional GQA attention:
 Both accept q (B, H, Sq, hd), k/v (B, KV, Sk, hd) and broadcast KV heads by
 GQA grouping.  :func:`decode_attention` is the one-token path against a
 cache (plain torch; it reaches no kernel, as in the reference).
+
+Under a mesh (DTensor inputs) both run on each rank's local shard, heads
+sharded where the head counts divide the mesh axis
+(:func:`repro_torch.spmd.heads_layout`): ``flash`` takes the DTensors to
+the kernel's dispatch, which maps them to the shards itself, and
+``chunked`` is mapped here.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention.ops import attention as flash_dispatch
+from ..spmd import heads_layout, local_map, mesh_of
 
 __all__ = ["gqa_attention", "decode_attention"]
 
@@ -64,6 +71,12 @@ def gqa_attention(
             return flash_dispatch(
                 q, k, v, causal=causal, sm_scale=sm_scale, use_kernel=use_flash
             )
+    mesh = mesh_of(q, k, v)
+    if mesh is not None:
+        pl = heads_layout(mesh, q, 1, (q.shape[1], k.shape[1]))
+        return local_map(lambda *t: _chunked(*t, causal=causal, sm_scale=sm_scale,
+                                             chunk=chunk),
+                         mesh, (q, k, v), (pl, pl, pl), pl)
     return _chunked(q, k, v, causal=causal, sm_scale=sm_scale, chunk=chunk)
 
 
@@ -73,6 +86,11 @@ def decode_attention(q, k_cache, v_cache, pos, *, sm_scale: Optional[float] = No
     ``pos`` (an int or a 0-d integer tensor) is the index of the *current*
     token (attend to cols <= pos).  O(S_max) per token.
     """
+    mesh = mesh_of(q, k_cache, v_cache)
+    if mesh is not None:
+        pl = heads_layout(mesh, q, 1, (q.shape[1], k_cache.shape[1]))
+        return local_map(lambda *t: decode_attention(*t, pos, sm_scale=sm_scale),
+                         mesh, (q, k_cache, v_cache), (pl, pl, pl), pl)
     b, hq, one, d = q.shape
     _, hk, smax, _ = k_cache.shape
     group = hq // hk

@@ -1,15 +1,20 @@
 """Shared model plumbing: options, sharding policy, dtype helpers (port of
 ``repro.models.common``).
 
-The port runs on one device, so the sharding hooks are the identity: a
-:class:`ShardingPolicy` naming mesh axes, decode-cache constraints, or a
-:func:`constrain` spec raise :class:`~repro_torch.device.NotYetPorted`
-(multi-device layouts come with ROADMAP A14d: DTensor tensor parallelism).  ``remat`` rematerialises
-each layer in the backward (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` of its scanned layer; it changes nothing on a pass
-without gradients.  ``bf16_ar_barrier`` pins nothing on one device.
-``attn_impl="stub"`` (the reference's dry-run cost isolation) raises
-``NotYetPorted``.
+A :class:`ShardingPolicy` naming mesh axes lays activations out on the
+ambient mesh (``with mesh:``, :func:`repro_torch.launch.mesh.ambient_mesh`)
+exactly where the reference's ``with_sharding_constraint`` does: each hook
+takes the reference's ``PartitionSpec`` for its layout and redistributes
+the activation, a DTensor, to those placements (a plain tensor is the
+replicated value every rank holds).  With no axes every hook, like
+:func:`constrain` with ``spec=None`` and :meth:`ModelOptions.constrain_cache`
+without ``cache_constraints``, returns its input unchanged.  ``remat``
+rematerialises each layer in the backward (``torch.utils.checkpoint``), as
+the reference's ``jax.checkpoint`` of its scanned layer; it changes nothing
+on a pass without gradients.  ``bf16_ar_barrier`` pins nothing: eager torch
+runs ops in program order, so there is no upcast for a compiler to hoist
+above the all-reduce.  ``attn_impl="stub"`` (the reference's dry-run cost
+isolation) raises ``NotYetPorted``.
 """
 from __future__ import annotations
 
@@ -19,35 +24,51 @@ from typing import Optional
 import torch
 
 from ..device import not_yet_ported
+from ..spmd import mesh_of, placements_for, redistribute
 
 __all__ = ["ModelOptions", "ShardingPolicy", "NO_SHARDING", "dtype_of", "constrain"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
-    """Activation sharding constraints; only the default (no axes) is
-    ported, and every hook then returns its input unchanged."""
+    """Activation sharding constraints (None = leave the layout as it comes).
 
-    batch_axes: Optional[tuple] = None
-    model_axis: Optional[str] = None
-    seq_axes: Optional[tuple] = None
+    ``batch_axes`` shards the batch dim of activations; ``model_axis`` shards
+    heads / ffn-hidden / experts; ``seq_axes`` (optional) shards the sequence
+    dim instead of batch for long-context small-batch cells (SP).  A spec
+    entry whose axes do not divide its dim is left replicated.
+    """
 
-    def __post_init__(self):
-        if (self.batch_axes, self.model_axis, self.seq_axes) != (None, None, None):
-            raise not_yet_ported("ShardingPolicy with mesh axes (multi-device "
-                                 "activation sharding; ROADMAP A14d)")
+    batch_axes: Optional[tuple] = None  # e.g. ("pod", "data")
+    model_axis: Optional[str] = None  # e.g. "model"
+    seq_axes: Optional[tuple] = None  # e.g. ("data",) for long-context
 
     def hidden(self, h):
-        return h
+        """(B, S, D) activation constraint."""
+        if self.batch_axes is None and self.seq_axes is None:
+            return h
+        return constrain(h, (self.batch_axes, self.seq_axes, None))
 
     def ffn(self, h):
-        return h
+        """(B, S, F) hidden constraint: model-shard the wide dim."""
+        if self.batch_axes is None and self.model_axis is None:
+            return h
+        return constrain(h, (self.batch_axes, self.seq_axes, self.model_axis))
 
     def heads(self, x):
-        return x
+        """(B, H, S, hd) attention layout constraint."""
+        if self.batch_axes is None and self.model_axis is None:
+            return x
+        return constrain(x, (self.batch_axes, self.model_axis, self.seq_axes, None))
 
     def moe_dispatch(self, x):
-        return x
+        """Expert-parallel layout of the port's expert-major dispatch
+        ``(E, groups * cap, d)``: experts on the model axis, the groups on
+        the batch axes (the reference's ``P(batch, model, None, None)`` on
+        its ``(groups, E, cap, d)``)."""
+        if self.batch_axes is None and self.model_axis is None:
+            return x
+        return constrain(x, (self.model_axis, self.batch_axes, None))
 
 
 NO_SHARDING = ShardingPolicy()
@@ -61,22 +82,23 @@ class ModelOptions:
     shard: ShardingPolicy = NO_SHARDING
     logits_f32: bool = True  # cast the logits to float32 at the head
     ssd_chunk: int = 128
+    # Decode-cache layout pins: name -> spec of the *per-layer* cache leaf
+    # (leading layer axis stripped), as the reference's
     cache_constraints: Optional[dict] = None
     # "real" only: the reference's "stub" (the dry run's cost isolation)
     # comes with the dry run (ROADMAP A16)
     attn_impl: str = "real"
-    bf16_ar_barrier: bool = False  # identity on one device
+    bf16_ar_barrier: bool = False  # nothing to pin in eager torch
 
     def __post_init__(self):
         if self.attn_impl != "real":
             raise not_yet_ported(f"ModelOptions.attn_impl={self.attn_impl!r} (the "
                                  "dry run's cost isolation)")
-        if self.cache_constraints is not None:
-            raise not_yet_ported("ModelOptions.cache_constraints (decode-cache "
-                                 "layout pins on a mesh; ROADMAP A14d)")
 
     def constrain_cache(self, name: str, x):
-        return x
+        if self.cache_constraints is None or name not in self.cache_constraints:
+            return x
+        return constrain(x, self.cache_constraints[name])
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -85,9 +107,14 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def constrain(x, spec=None):
-    """The reference's sharding constraint: ``spec=None`` returns ``x``; a
-    spec (a mesh layout) raises ``NotYetPorted`` (ROADMAP A14d)."""
-    if spec is not None:
-        raise not_yet_ported("constrain with a sharding spec (multi-device "
-                             "activation sharding; ROADMAP A14d)")
-    return x
+    """The reference's sharding constraint: ``spec=None`` returns ``x``;
+    otherwise ``x`` laid out as ``spec`` on its mesh (a DTensor's) or the
+    ambient one (a plain tensor: the replicated value)."""
+    if spec is None:
+        return x
+    mesh = mesh_of(x)
+    if mesh is None:
+        from ..launch.mesh import ambient_mesh
+
+        mesh = ambient_mesh()
+    return redistribute(x, placements_for(mesh, spec, x.shape), mesh)

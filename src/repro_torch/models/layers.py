@@ -4,6 +4,13 @@ of ``repro.models.layers``).
 Parameters are ``nn.ParameterDict``s under the reference's key names; every
 block is a function ``f(params, x, ...)`` on tensors.  Weight layouts are the
 reference's (``x @ w`` with ``w`` as ``(d_in, d_out)``).
+
+Under a mesh the weights are DTensors placed by the reference's rules
+(``repro_torch.launch.mesh.param_pspecs``): the column products
+(``wq``/``wk``/``wv``/``wg``/``wu``) come out sharded on their last dim,
+which the head split keeps on the heads, and the row products
+(``wo``/``wd``) come out as partial sums that the caller's ``hidden``
+constraint reduces.  The sharding hooks sit where the reference's do.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import prng
+from ..spmd import block_of, is_dtensor, like, redistribute, replicated_partials
 from .attention import decode_attention, gqa_attention
 from .common import ModelOptions
 
@@ -50,6 +58,8 @@ def scaled_normal(key, shape, scale: float, dtype, *, divide: bool = False):
 def rmsnorm(scale, x, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if is_dtensor(var):  # a mean over a sharded dim: reduced here, replicated
+        var = replicated_partials(var)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
 
@@ -80,7 +90,7 @@ def rope(x, positions, theta: float = 10000.0):
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., :, None].float() * freqs  # (..., S, half)
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = like(torch.cos(ang), x), like(torch.sin(ang), x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -114,17 +124,31 @@ def init_attn_block(cfg, key, dtype) -> nn.ParameterDict:
     return param_dict(p)
 
 
+def split_last(x, n: int):
+    """(..., n * hd) -> (..., n, hd).  A DTensor sharded on its last dim
+    keeps that sharding on the ``n`` axis where ``n`` divides the mesh axis
+    and is gathered on the mesh axes where it does not (DTensor cannot
+    split a sharded dim unevenly)."""
+    last = x.dim() - 1
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        x = redistribute(x, tuple(
+            Replicate() if p.is_shard() and p.dim == last and n % mesh.size(i) else p
+            for i, p in enumerate(x.placements)))
+    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+
 def _qkv(cfg, p, x, positions):
-    b, s, d = x.shape
-    hd = cfg.resolved_head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = split_last(q, cfg.n_heads).transpose(1, 2)
+    k = split_last(k, cfg.n_kv_heads).transpose(1, 2)
+    v = split_last(v, cfg.n_kv_heads).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -139,6 +163,9 @@ def attn_block(cfg, p, x, opts: ModelOptions):
     h = apply_norm(cfg.norm, p.get("ln"), x)
     positions = torch.arange(s, device=x.device)
     q, k, v = _qkv(cfg, p, h, positions)
+    q = opts.shard.heads(q)
+    k = opts.shard.heads(k)
+    v = opts.shard.heads(v)
     o = gqa_attention(
         q, k, v, causal=cfg.causal, use_flash=opts.use_flash, chunk=opts.attn_chunk
     )
@@ -154,12 +181,37 @@ def position_index(pos, device) -> torch.Tensor:
     return torch.full((1,), int(pos), dtype=torch.int64, device=device)
 
 
+def _write_slot(cache, row, slot):
+    """``cache[:, :, slot] = row`` in place, ``cache`` (B, KV, S, hd).  A
+    DTensor cache takes the row in its own layout on its local tensor; where
+    the sequence is sharded, the rank holding ``slot`` writes it and the
+    others rewrite a row of their own unchanged (no host read of ``slot``)."""
+    row = row.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache.index_copy_(2, slot, row)
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh, pl = cache.device_mesh, cache.placements
+    row = redistribute(row, tuple(Replicate() if p.is_shard() and p.dim == 2 else p
+                                  for p in pl), mesh)
+    start, size = block_of(cache, 2)
+    with torch.no_grad():  # the local tensor itself (a decode write is not differentiated)
+        row, local = row.to_local(), cache.to_local()
+        if size != cache.shape[2]:
+            rel = slot - start
+            mine = ((rel >= 0) & (rel < size)).reshape(())
+            slot = rel.clamp(0, size - 1)
+            row = torch.where(mine, row, local.index_select(2, slot))
+        local.index_copy_(2, slot, row)
+
+
 def attn_block_decode(cfg, p, x, k_cache, v_cache, pos):
     """One-token attention against a cache; returns (out, k_cache, v_cache).
 
     The caches are updated in place (the reference returns new arrays):
     k and v land at index ``pos``, clamped into the cache as
-    ``dynamic_update_slice`` clamps it.
+    ``dynamic_update_slice`` clamps it, in the caches' own layout.
     """
     b, one, d = x.shape
     hd = cfg.resolved_head_dim
@@ -168,8 +220,8 @@ def attn_block_decode(cfg, p, x, k_cache, v_cache, pos):
     q, k, v = _qkv(cfg, p, h, idx)
     # q, k, v: (B, H/KV, 1, hd); insert k, v at position pos.
     slot = idx.clamp(0, k_cache.shape[2] - 1)
-    k_cache.index_copy_(2, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(2, slot, v.to(v_cache.dtype))
+    _write_slot(k_cache, k, slot)
+    _write_slot(v_cache, v, slot)
     o = decode_attention(q, k_cache, v_cache, pos)
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd)
     return o @ p["wo"], k_cache, v_cache
@@ -206,4 +258,5 @@ def mlp_block(cfg, p, x, opts: ModelOptions):
         inner = F.silu(h @ p["wg"]) * (h @ p["wu"])
     else:
         inner = F.gelu(h @ p["wu"], approximate="tanh")  # jax.nn.gelu's default
+    inner = opts.shard.ffn(inner)
     return inner @ p["wd"]

@@ -21,6 +21,15 @@ step repeats its bits on the card.
 
 Aux losses (load balancing, Switch-style, and the router z-loss) are
 returned for the training objective: ``lb_loss + 1e-3 * z_loss`` in float32.
+
+Under a mesh (expert parallelism) the expert weights ``(E, d, f)`` are
+sharded on the experts; routing and the dispatch gather run on each rank's
+tokens (data-sharded sequences when grouped, every token otherwise, as one
+global group must see them all) with the reference's tie order, the
+dispatch is laid out by ``moe_dispatch`` (experts on the model axis,
+groups on the batch axes), each rank runs its experts' GEMMs, and the
+combine reads the experts gathered back.  The aux statistics are means
+over every rank's tokens.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import prng
+from ..spmd import local_map, mesh_of, moved, placements_of, replicated
 from .common import ModelOptions
 from .layers import apply_norm, param_dict, scaled_normal
 
@@ -158,6 +168,42 @@ def _experts(p, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(gate_h * up_h, p["wd"])
 
 
+def _dispatch(h, router, e: int, k: int, cap: int, grouped: bool, shards: int = 1):
+    """Routing and the dispatch gather of ``h`` (b, s, d) against ``router``
+    (d, e): the dispatch ``xe`` (e, groups * cap, d), the normalised gates
+    (b, s, k), the slot and assignment maps of :func:`_expert_major`, and
+    the aux statistics (the router's mean probabilities, the experts' mean
+    loads, the mean squared log-partition), each divided by ``shards``, the
+    ranks whose tokens they average."""
+    b, s, d = h.shape
+    logits = h.float() @ router  # (b, s, e)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, k)  # (b, s, k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    me = torch.mean(probs, dim=(0, 1)) / shards
+    ce = torch.mean(F.one_hot(gate_idx, e).sum(dim=2).float(), dim=(0, 1)) / shards
+    zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) / shards
+
+    groups, n = (b, s) if grouped else (1, b * s)
+    slot, token, assignment = _expert_major(
+        *_route(gate_idx.reshape(groups, n * k), e, k, cap), e, cap, n, k)
+    xe = _GatherRows.apply(h.reshape(1, b * s, d), token, slot, k)
+    return xe.view(e, groups * cap, d), gate_vals, slot, assignment, me, ce, zl
+
+
+def _combine(down, gate_vals, slot, assignment):
+    """Each token's ``k`` expert outputs, weighted by its gates and summed
+    in index order: (b, s, d)."""
+    b, s, k = gate_vals.shape
+    e, d = down.shape[0], down.shape[-1]
+    contrib = _GatherRows.apply(down.reshape(1, -1, d), slot, assignment, 1)
+    contrib = contrib.view(b * s, k, d) * gate_vals.reshape(b * s, k, 1).to(down.dtype)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out.reshape(b, s, d)
+
+
 def moe_block(cfg, p, x: torch.Tensor, opts: ModelOptions = ModelOptions()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, D), aux loss scalar float32)."""
@@ -165,33 +211,48 @@ def moe_block(cfg, p, x: torch.Tensor, opts: ModelOptions = ModelOptions()
     e, k = cfg.n_experts, cfg.moe_top_k
 
     h = apply_norm(cfg.norm, p.get("ln"), x)
-    logits = h.float() @ p["router"]  # (b, s, e)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = top_k(probs, k)  # (b, s, k)
-    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
-
-    # aux losses (global)
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(F.one_hot(gate_idx, e).sum(dim=2).float(), dim=(0, 1))
-    lb_loss = e * torch.sum(me * ce) / k
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    aux = (lb_loss + 1e-3 * z_loss).float()
-
     grouped = s * k >= e  # per-sequence groups when each row fills experts
-    groups, n = (b, s) if grouped else (1, b * s)
-    cap = _capacity(cfg, n)
-    slot, token, assignment = _expert_major(
-        *_route(gate_idx.reshape(groups, n * k), e, k, cap), e, cap, n, k)
-    xe = _GatherRows.apply(h.reshape(1, b * s, d), token, slot, k)
-    xe = xe.view(e, groups * cap, d)
-    if grouped:
-        xe = opts.shard.moe_dispatch(xe)
-    down = _experts(p, xe)
-    if grouped:
-        down = opts.shard.moe_dispatch(down)
-    contrib = _GatherRows.apply(down.reshape(1, e * groups * cap, d), slot, assignment, 1)
-    contrib = contrib.view(b * s, k, d) * gate_vals.reshape(b * s, k, 1).to(down.dtype)
-    out = contrib[:, 0]
-    for j in range(1, k):
-        out = out + contrib[:, j]
-    return out.reshape(b, s, d).to(x.dtype), aux
+    cap = _capacity(cfg, s if grouped else b * s)
+    mesh = mesh_of(h, p["router"], p["wg"])
+    if mesh is None:
+        xe, gate_vals, slot, assignment, me, ce, zl = _dispatch(h, p["router"], e, k, cap,
+                                                                grouped)
+        if grouped:
+            xe = opts.shard.moe_dispatch(xe)
+        down = _experts(p, xe)
+        if grouped:
+            down = opts.shard.moe_dispatch(down)
+        out = _combine(down, gate_vals, slot, assignment)
+    else:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        # tokens: their data sharding when grouped (a group is a sequence),
+        # every token on every rank otherwise (one global group)
+        ph = tuple(Shard(0) if grouped and pl.is_shard() and pl.dim == 0 else Replicate()
+                   for pl in placements_of(h, mesh))
+        shards = 1
+        for i, pl in enumerate(ph):
+            shards *= mesh.size(i) if pl.is_shard() else 1
+        stat = tuple(Partial() if pl.is_shard() else Replicate() for pl in ph)
+        pd = moved(ph, {0: 1})
+        xe, gate_vals, slot, assignment, me, ce, zl = local_map(
+            lambda h, r: _dispatch(h, r, e, k, cap, grouped, shards), mesh,
+            (h, p["router"]), (ph, (Replicate(),) * mesh.ndim),
+            [pd, ph, None, None, stat, stat, stat])
+        if grouped:
+            xe = opts.shard.moe_dispatch(xe)
+        # each rank's experts, as the expert weights are sharded
+        pw = [placements_of(p[n], mesh) for n in ("wg", "wu", "wd")]
+        pe = tuple(Shard(0) if w.is_shard() and w.dim == 0 else
+                   Shard(1) if x_.is_shard() and x_.dim == 1 else Replicate()
+                   for w, x_ in zip(pw[0], placements_of(xe, mesh)))
+        down = local_map(lambda xe, wg, wu, wd: _experts({"wg": wg, "wu": wu, "wd": wd}, xe),
+                         mesh, (xe, p["wg"], p["wu"], p["wd"]), (pe, *pw), pe)
+        if grouped:
+            down = opts.shard.moe_dispatch(down)
+        out = local_map(_combine, mesh, (down, gate_vals, slot, assignment),
+                        (moved(pe, {1: 1}), ph, None, None), ph)
+        me, ce, zl = (replicated(t) for t in (me, ce, zl))
+    lb_loss = e * torch.sum(me * ce) / k
+    aux = (lb_loss + 1e-3 * zl).float()
+    return out.to(x.dtype), aux

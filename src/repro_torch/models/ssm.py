@@ -8,6 +8,14 @@ shared across heads).  The full-sequence path calls
 :func:`repro_torch.kernels.ssd_scan.ops.ssd` (the CUDA kernel on the card,
 the chunked twin elsewhere).  Decode carries (conv windows, SSD state):
 state size independent of context length.
+
+Under a mesh the projections follow the reference's rules: ``wz``, ``wx``,
+``wB``, ``wC``, ``wdt`` and the convs column-sharded, ``out_proj``
+row-sharded, the per-head and per-channel vectors sharded with them.  The
+depthwise conv and the decode recurrence run on each rank's channels and
+heads (:func:`repro_torch.spmd.local_map`), the scan through its wrapper's
+own local dispatch; the gated RMSNorm over the sharded ``d_inner`` is a
+cross-rank mean.
 """
 from __future__ import annotations
 
@@ -19,8 +27,9 @@ from torch import nn
 
 from ..core import prng
 from ..kernels.ssd_scan.ops import ssd
+from ..spmd import heads_layout, local_map, mesh_of, moved
 from .common import ModelOptions
-from .layers import param_dict, rmsnorm, scaled_normal
+from .layers import param_dict, rmsnorm, scaled_normal, split_last
 
 __all__ = ["init_mamba_block", "mamba_block", "mamba_block_decode", "init_mamba_cache"]
 
@@ -67,7 +76,13 @@ def init_mamba_block(cfg, key, dtype) -> nn.ParameterDict:
 
 
 def _causal_conv(x, w, b):
-    """Depthwise causal conv along seq: x (B, S, C), w (K, C)."""
+    """Depthwise causal conv along seq: x (B, S, C), w (K, C).  Under a
+    mesh each rank convolves its own channels (and batch rows)."""
+    mesh = mesh_of(x, w, b)
+    if mesh is not None:
+        px = heads_layout(mesh, x, 2, (x.shape[2],))
+        return local_map(_causal_conv, mesh, (x, w, b),
+                         (px, moved(px, {2: 1}), moved(px, {2: 0})), px)
     k = w.shape[0]
     pad = F.pad(x, (0, 0, k - 1, 0))
     out = sum(pad[:, i: i + x.shape[1], :] * w[i] for i in range(k))
@@ -89,7 +104,7 @@ def mamba_block(cfg, p, xin, opts: ModelOptions):
     C = F.silu(_causal_conv(C, p["conv_C"], p["conv_bC"]))
     dt = softplus(dt.float() + p["dt_bias"])  # (B,S,nh)
     A = -torch.exp(p["A_log"])  # (nh,)
-    xh = x.reshape(bsz, s, nh, cfg.ssm_head_dim)
+    xh = split_last(x, nh)
     y = ssd(
         xh.float(),
         dt,
@@ -118,9 +133,35 @@ def init_mamba_cache(cfg, batch, dtype, device):
 
 
 def _conv_step(cache, new, w, b):
+    """One conv tick: cache (B, K-1, C), new (B, C); on each rank's own
+    channels under a mesh."""
+    mesh = mesh_of(cache, new, w, b)
+    if mesh is not None:
+        pn = heads_layout(mesh, new, 1, (new.shape[1],))
+        pc = moved(pn, {0: 0, 1: 2})
+        return local_map(_conv_step, mesh, (cache, new, w, b),
+                         (pc, pn, moved(pn, {1: 1}), moved(pn, {1: 0})), [pn, pc])
     window = torch.cat([cache, new[:, None]], dim=1)  # (B, K, C)
     out = torch.einsum("bkc,kc->bc", window, w) + b
     return out, window[:, 1:]
+
+
+def _ssm_step(xh, dt, A, B, C, D, state):
+    """The SSD recurrence for one token: xh (B, nh, dh), dt (B, nh) float32,
+    A and D (nh,), B and C (B, ds), state (B, nh, dh, ds); returns (y, new
+    state).  Under a mesh each rank steps its own heads (B and C whole)."""
+    mesh = mesh_of(xh, dt, A, B, C, D, state)
+    if mesh is not None:
+        px = heads_layout(mesh, xh, 1, (xh.shape[1],))
+        ph, pb = moved(px, {1: 0}), moved(px, {0: 0})
+        return local_map(_ssm_step, mesh, (xh, dt, A, B, C, D, state),
+                         (px, px, ph, pb, pb, ph, px), [px, px])
+    a = torch.exp(A[None] * dt)  # (B, nh)
+    xh = xh.float()
+    dx = dt[..., None] * xh  # (B, nh, dh)
+    S = a[..., None, None] * state + dx[..., None] * B.float()[:, None, None, :]
+    y = torch.einsum("bhds,bs->bhd", S, C.float())
+    return y + D[None, :, None] * xh, S
 
 
 def mamba_block_decode(cfg, p, xin, cache):
@@ -139,12 +180,7 @@ def mamba_block_decode(cfg, p, xin, cache):
     x, B, C = F.silu(x), F.silu(B), F.silu(C)
     dt = softplus(dt.float() + p["dt_bias"])  # (B, nh)
     A = -torch.exp(p["A_log"])
-    a = torch.exp(A[None] * dt)  # (B, nh)
-    xh = x.reshape(bsz, nh, cfg.ssm_head_dim).float()
-    dx = dt[..., None] * xh  # (B, nh, dh)
-    S = a[..., None, None] * cache["state"] + dx[..., None] * B.float()[:, None, None, :]
-    y = torch.einsum("bhds,bs->bhd", S, C.float())
-    y = y + p["D"][None, :, None] * xh
+    y, S = _ssm_step(split_last(x, nh), dt, A, B, C, p["D"], cache["state"])
     y = y.reshape(bsz, di).to(xin.dtype)
     y = rmsnorm(p["gate_norm"], y * F.silu(z))
     out = (y @ p["out_proj"])[:, None]

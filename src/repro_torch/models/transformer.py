@@ -23,6 +23,19 @@ in place.  Training is masked next-token cross-entropy (:func:`loss_fn`)
 through autograd; a gradient through the LM kernels runs their backward
 kernels on the card.  :func:`make_train_step` updates the parameters in
 place.
+
+Tensor, expert and sequence parallelism: with DTensor parameters placed by
+the reference's rules (``repro_torch.launch.mesh.place``) and
+``ModelOptions(shard=ShardingPolicy(...))``, every function here runs the
+reference's SPMD program, one process per card.  The embedding is a
+``F.embedding`` lookup, vocab-parallel on a vocab-sharded table (indexing
+would gather the table); ``hidden`` lays out the residual stream after the
+embedding, after each block's row-parallel product (reducing its partial
+sums, as the reference's partitioner does before the residual add) and
+after each layer.  The loss gathers the vocab-sharded logits of each
+rank's batch rows before ``log_softmax``: aten's own log-softmax, so a mesh
+of one rank is bitwise the no-mesh path (``loss_parallel`` computes
+another one), at the cost of one all-gather of the logits.
 """
 from __future__ import annotations
 
@@ -30,13 +43,16 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core import prng
 from ..device import resolve_device
-from .common import ModelOptions, dtype_of
+from ..spmd import (block_of, full, is_dtensor, like, local_map, mesh_of, moved, placements_of,
+                    redistribute, replicated, replicated_partials)
+from .common import ModelOptions, constrain, dtype_of
 from .layers import (
     apply_norm,
     attn_block,
@@ -191,12 +207,41 @@ def lm_params_from_jax(params: Mapping[str, Any], *, dtype=None,
 # Forward (full sequence: prefill).
 # ---------------------------------------------------------------------------
 
+def _rows(tokens, embed, start: int):
+    """Rows ``tokens - start`` of ``embed`` where they fall in it, zeros
+    elsewhere (this rank's share of a vocab-parallel lookup)."""
+    rel = tokens - start
+    mine = (rel >= 0) & (rel < embed.shape[0])
+    rows = F.embedding(torch.where(mine, rel, 0), embed)
+    return torch.where(mine[..., None], rows, 0)
+
+
+def _lookup(embed, tokens) -> torch.Tensor:
+    """Rows ``tokens`` of ``embed``; vocab-parallel when ``embed`` is a
+    DTensor sharded on the vocab: each rank looks up the rows it holds and
+    the partial sums are reduced (the reference's sharded ``take``)."""
+    mesh = mesh_of(embed)
+    if mesh is None:
+        return F.embedding(tokens, embed)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    pe, pt = embed.placements, placements_of(tokens, mesh)
+    pt = tuple(Replicate() if e.is_shard() and e.dim == 0 else t for e, t in zip(pe, pt))
+    out = tuple(Partial() if e.is_shard() and e.dim == 0 else
+                Shard(tokens.dim()) if e.is_shard() else t for e, t in zip(pe, pt))
+    start = block_of(embed, 0)[0]
+    h = local_map(lambda t, e: _rows(t, e, start), mesh, (tokens, embed), (pt, pe), out)
+    return replicated_partials(h)
+
+
 def _embed_inputs(cfg: ArchConfig, params, batch) -> torch.Tensor:
     if cfg.frontend == "frames":
-        return batch["frames"] @ params["frame_proj"]
-    h = params["embed"][batch["tokens"]]
+        proj = params["frame_proj"]
+        return like(batch["frames"], proj) @ proj
+    h = _lookup(params["embed"], batch["tokens"])
     if cfg.frontend == "patch" and "vision_embeds" in batch:
-        vis = (batch["vision_embeds"] @ params["vision_proj"]).to(h.dtype)
+        proj = params["vision_proj"]
+        vis = (like(batch["vision_embeds"], proj) @ proj).to(h.dtype)
         # the reference's dynamic_update_slice at (0, 0, 0)
         h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
     return h
@@ -205,24 +250,30 @@ def _embed_inputs(cfg: ArchConfig, params, batch) -> torch.Tensor:
 def _mask_pad_vocab(cfg, logits):
     if cfg.padded_vocab == cfg.vocab:
         return logits
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    col = like(torch.arange(logits.shape[-1], device=logits.device), logits)
     return torch.where(col < cfg.vocab, logits, -1e9)
 
 
 def _layer_apply(cfg, opts, shared, h, layer_params, idx):
-    """One layer (the reference's scanned body); returns (h, the MoE aux
-    increment: a float32 scalar for moe, else None)."""
+    """One layer (the reference's scanned body, its ``hidden`` constraint
+    included); returns (h, the MoE aux increment: a float32 scalar for moe,
+    else None)."""
+    res = opts.shard.hidden  # a block's output in the residual's layout
+    aux = None
     if cfg.family in ("ssm", "hybrid"):
         if (cfg.family == "hybrid" and cfg.shared_attn_every and shared is not None
                 and idx % cfg.shared_attn_every == 0):
-            h = h + attn_block(cfg, shared["attn"], h, opts)
-            h = h + mlp_block(cfg, shared["mlp"], h, opts)
-        return h + mamba_block(cfg, layer_params["mamba"], h, opts), None
-    h = h + attn_block(cfg, layer_params["attn"], h, opts)
-    if cfg.family == "moe":
-        out, aux = moe_block(cfg, layer_params["moe"], h, opts)
-        return h + out, aux
-    return h + mlp_block(cfg, layer_params["mlp"], h, opts), None
+            h = h + res(attn_block(cfg, shared["attn"], h, opts))
+            h = h + res(mlp_block(cfg, shared["mlp"], h, opts))
+        h = h + res(mamba_block(cfg, layer_params["mamba"], h, opts))
+    else:
+        h = h + res(attn_block(cfg, layer_params["attn"], h, opts))
+        if cfg.family == "moe":
+            out, aux = moe_block(cfg, layer_params["moe"], h, opts)
+            h = h + res(out)
+        else:
+            h = h + res(mlp_block(cfg, layer_params["mlp"], h, opts))
+    return res(h), aux
 
 
 def _head(cfg, params, h):
@@ -240,7 +291,7 @@ def forward(
     """Returns (logits (B, S, V) — or (B, 1, V) for head_positions='last',
     the prefill case — and the MoE aux-loss scalar, summed over the layers;
     0 for the other families)."""
-    h = _embed_inputs(cfg, params, batch)
+    h = opts.shard.hidden(_embed_inputs(cfg, params, batch))
     shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     # remat: each layer's activations are recomputed in the backward (the
@@ -264,17 +315,34 @@ def forward(
     return logits, aux
 
 
+def _nll_sums(logits, labels, mask):
+    """The masked log-likelihood's sum and the mask's sum."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    return torch.sum(ll * mask), torch.sum(mask)
+
+
 def loss_fn(cfg: ArchConfig, params, batch, opts: ModelOptions = ModelOptions()):
     """Masked next-token cross-entropy over ``batch["labels"]`` and the
-    optional ``batch["loss_mask"]`` (+0.01 * MoE aux / n_layers for moe)."""
+    optional ``batch["loss_mask"]`` (+0.01 * MoE aux / n_layers for moe).
+    Under a mesh each rank sums its batch rows over the whole vocabulary;
+    the loss is replicated."""
     logits, aux = forward(cfg, params, batch, opts)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-    loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    mesh = mesh_of(logits)
+    if mesh is None:
+        num, den = _nll_sums(logits, labels, mask)
+    else:
+        from torch.distributed.tensor import Partial, Replicate
+
+        rows = moved(logits.placements, {0: 0})
+        sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+        num, den = (replicated(t) for t in local_map(
+            _nll_sums, mesh, (logits, labels, mask), (rows, rows, rows), [sums, sums]))
+    loss = -num / torch.clamp(den, min=1.0)
     if cfg.family == "moe":
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss
@@ -306,6 +374,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> Dict[s
     return cache
 
 
+def _pin_cache(cache, opts: ModelOptions):
+    """Lay each stacked cache leaf out as ``opts.cache_constraints`` pins
+    its per-layer slices (the shared attention's by ``"k"``/``"v"``, as the
+    reference's), in the dict; a leaf already so placed is kept, so the
+    decode writes land in the caller's tensors."""
+    pins = opts.cache_constraints
+    if not pins:
+        return
+
+    def pin(name, x):
+        return x if name not in pins else constrain(x, (None,) + tuple(pins[name]))
+
+    for key, name in (("k", "k"), ("v", "v"), ("shared_k", "k"), ("shared_v", "v")):
+        if key in cache:
+            cache[key] = pin(name, cache[key])
+    if "mamba" in cache:
+        cache["mamba"] = {k: pin(k, v) for k, v in cache["mamba"].items()}
+
+
 def serve_step(
     cfg: ArchConfig,
     params: LMParams,
@@ -318,8 +405,10 @@ def serve_step(
 
     The caches are updated in place and the same dict is returned (the
     reference returns new arrays)."""
-    h = params["embed"][tokens[:, None]]  # (B, 1, D)
+    h = opts.shard.hidden(_lookup(params["embed"], tokens[:, None]))  # (B, 1, D)
+    res = opts.shard.hidden
     shared = params.get("shared")
+    _pin_cache(cache, opts)
     if cfg.family in ("ssm", "hybrid"):
         mc = cache["mamba"]
         for idx, layer in enumerate(params.layers):
@@ -329,22 +418,22 @@ def serve_step(
                 o, _, _ = attn_block_decode(cfg, shared["attn"], h,
                                             cache["shared_k"][inv],
                                             cache["shared_v"][inv], pos)
-                h = h + o
-                h = h + mlp_block(cfg, shared["mlp"], h, ModelOptions())
+                h = h + res(o)
+                h = h + res(mlp_block(cfg, shared["mlp"], h, ModelOptions()))
             out, new = mamba_block_decode(cfg, layer["mamba"], h,
                                           {k: v[idx] for k, v in mc.items()})
             for k, v in new.items():
-                mc[k][idx].copy_(v)
-            h = h + out
+                mc[k][idx].copy_(opts.constrain_cache(k, v))
+            h = h + res(out)
     else:
         for idx, layer in enumerate(params.layers):
             o, _, _ = attn_block_decode(cfg, layer["attn"], h, cache["k"][idx],
                                         cache["v"][idx], pos)
-            h = h + o
+            h = h + res(o)
             if cfg.family == "moe":
-                h = h + moe_block(cfg, layer["moe"], h, opts)[0]
+                h = h + res(moe_block(cfg, layer["moe"], h, opts)[0])
             else:
-                h = h + mlp_block(cfg, layer["mlp"], h, opts)
+                h = h + res(mlp_block(cfg, layer["mlp"], h, opts))
     h, head = _head(cfg, params, h)
     logits = _mask_pad_vocab(cfg, h @ head)[:, 0].float()
     return logits, cache
@@ -354,16 +443,25 @@ def serve_step(
 # Step builders.
 # ---------------------------------------------------------------------------
 
+def settle(grad, like_):
+    """A gradient in the layout of ``like_`` (its parameter or accumulation
+    buffer): DTensor's backward leaves partial sums and other layouts,
+    reduced here; a plain gradient is returned as it is."""
+    if is_dtensor(like_):
+        return redistribute(grad, like_.placements, like_.device_mesh)
+    return grad
+
+
 def apply_update(optimizer, params: LMParams, grads, opt_state):
     """One optimizer update written into ``params`` in place; returns the
-    new optimizer state and the gradient norm."""
+    new optimizer state and the gradient norm (a plain tensor)."""
     leaves = list(params.parameters())
     new_p, opt_state, gnorm = optimizer.update(grads, opt_state,
                                                [p.detach() for p in leaves])
     with torch.no_grad():
         for p, v in zip(leaves, new_p):
             p.copy_(v)
-    return opt_state, gnorm
+    return opt_state, full(gnorm)
 
 
 def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOptions()):
@@ -374,15 +472,19 @@ def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOption
     the port's ``make_sde_train_step`` updates its module); ``opt_state`` is
     ``optimizer.init(list(params.parameters()))``; ``batch`` holds device
     tensors ``tokens``, ``labels`` and optionally ``loss_mask``.
-    ``metrics`` holds the device scalars ``loss`` and ``grad_norm``."""
+    ``metrics`` holds the device scalars ``loss`` and ``grad_norm``.
+    DTensor parameters (:func:`repro_torch.launch.mesh.place`) are taken as
+    they are: each gradient is settled into its parameter's layout before
+    the update, which runs shard by shard."""
 
     def train_step(params, opt_state, batch):
         leaves = list(params.parameters())
         loss = loss_fn(cfg, params, batch, opts)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p) if g is None else settle(g, p)
+                 for p, g in zip(leaves, grads)]
         opt_state, gnorm = apply_update(optimizer, params, grads, opt_state)
-        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return params, opt_state, {"loss": full(loss.detach()), "grad_norm": gnorm}
 
     return train_step
 

@@ -12,6 +12,12 @@ parameters and a new :class:`OptState` and changes nothing in place.
 ``params`` and ``grads`` are matching pytrees of tensors (a list of an
 ``nn.Module``'s parameters, for instance).  The step counter is a device
 tensor on the parameters' device, never read back by the host.
+
+DTensor parameters and gradients (one layout each, as the LM's train steps
+settle them) are updated shard by shard; the moments are DTensors placed
+like their parameters, and the global norm is the norm of the whole
+gradient: each leaf's sum of squares is reduced over its shards and the
+leaves are summed in order on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import torch
 
 from ..core.pytree import flatten_up_to, tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..spmd import is_dtensor, replicated
 
 __all__ = ["adamw", "sgd", "cosine_schedule", "clip_by_global_norm",
            "Optimizer", "OptState"]
@@ -44,6 +51,14 @@ def _device_of(params) -> torch.device:
     return leaves[0].device if leaves else torch.device("cpu")
 
 
+def _zeros(p):
+    """A float32 moment of zeros for ``p``, placed like it when it is a
+    DTensor."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
     def lr(step):
         step = torch.as_tensor(step).to(torch.float32)
@@ -57,7 +72,7 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1)
 
 def clip_by_global_norm(grads, max_norm: float):
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+    gn = torch.sqrt(sum(replicated(torch.sum(torch.square(g.to(torch.float32))))
                         for g in leaves))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
@@ -74,12 +89,10 @@ def adamw(
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                      device=p.device)
         return OptState(
             step=torch.zeros((), dtype=torch.int32, device=_device_of(params)),
-            mu=tree_map(zeros, params),
-            nu=tree_map(zeros, params),
+            mu=tree_map(_zeros, params),
+            nu=tree_map(_zeros, params),
         )
 
     def update(grads, state: OptState, params):

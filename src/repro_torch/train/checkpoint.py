@@ -1,5 +1,5 @@
 """Atomic checkpoints in the reference's on-disk layout (port of
-``repro.train.checkpoint``, one host, no re-sharding).
+``repro.train.checkpoint``), with elastic restore onto another mesh.
 
 Layout::
 
@@ -22,9 +22,12 @@ Layout::
 * **Restore writes in place**: every tensor leaf of ``like`` receives the
   saved values with ``copy_``, so a rollback never re-points the static
   inputs of a captured CUDA graph (or the parameters of a module).
-
-Elastic re-sharding onto another mesh (the reference's ``shardings``)
-belongs to the sharded parameters of ROADMAP A14d.
+* **DTensor leaves** are written whole: every rank joins the gather of
+  each one, global rank 0 writes the files, and the ranks meet at a
+  barrier before :func:`save_checkpoint` returns.  A checkpoint of sharded
+  leaves restores in either package, onto any mesh: ``shardings`` lays
+  each leaf out anew (elastic restore), every rank keeping its shard of
+  the saved values.
 """
 from __future__ import annotations
 
@@ -38,11 +41,12 @@ import torch
 from torch import nn
 
 from ..optim.optimizers import OptState
+from ..spmd import full, is_dtensor, local_shard
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "checkpoint_meta"]
 
-HOST = 0  # one process; the reference's jax.process_index()
+HOST = 0  # the writing process (global rank 0 under a mesh); the reference's jax.process_index()
 
 
 def _module_entries(module: nn.Module, prefix: str, out: List[Tuple[str, Any]]):
@@ -109,10 +113,10 @@ def _named_leaves(tree) -> List[Tuple[str, Any]]:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).cpu().numpy().view(np.uint16)
-        return t.cpu().numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy().view(np.uint16)
+        return leaf.cpu().numpy()
     return np.asarray(leaf)
 
 
@@ -132,16 +136,40 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     bitwise the sequential steps)."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + f".tmp{HOST}"
-    os.makedirs(tmp, exist_ok=True)
     arrays = {}
     meta = {"step": step, "leaves": []}
     if extra:
         meta["extra"] = dict(extra)
-    for name, leaf in _named_leaves(tree):
+    named = _named_leaves(tree)
+    sharded, writer = any(is_dtensor(leaf) for _, leaf in named), True
+    if sharded:
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == HOST
+    for name, leaf in named:
+        if is_dtensor(leaf):
+            leaf = full(leaf.detach())  # every rank joins the gather
+        if not writer:
+            continue
         arr = _to_numpy(leaf)
         arrays[name] = arr
         meta["leaves"].append({"name": name, "shape": list(arr.shape),
                                "dtype": _dtype_name(leaf)})
+    if sharded:
+        if not writer:
+            dist.barrier()
+            return final
+        try:
+            _write(tmp, final, arrays, meta)
+        finally:
+            dist.barrier()
+        return final
+    _write(tmp, final, arrays, meta)
+    return final
+
+
+def _write(tmp: str, final: str, arrays: dict, meta: dict) -> None:
+    os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, f"host_{HOST}.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(meta, f)
@@ -149,7 +177,6 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         shutil.rmtree(tmp)
     else:
         os.replace(tmp, final)
-    return final
 
 
 def checkpoint_meta(directory: str, step: int) -> dict:
@@ -168,11 +195,17 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, like: Any, shardings=None) -> Any:
     """Restore the checkpoint into ``like``, a tree of tensors (an
     ``nn.Module``, an optimizer state, or tuples and dicts of them): every
-    leaf is overwritten in place with ``copy_`` (converted to its dtype),
-    and ``like`` itself is returned."""
+    leaf is overwritten in place with ``copy_`` (converted to its dtype; a
+    DTensor leaf receives its shard), and ``like`` itself is returned.
+
+    ``shardings`` (the reference's, for elastic restore onto a new mesh):
+    a tree of :class:`~repro_torch.launch.mesh.Sharding` as
+    :func:`~repro_torch.launch.mesh.place` takes it; each leaf is laid out
+    by its sharding and holds the saved values (a leaf already laid out so
+    is written in place), and the restored tree is returned."""
     path = os.path.join(directory, f"step_{step:08d}")
     with np.load(os.path.join(path, f"host_{HOST}.npz")) as z:
         data = {k: z[k] for k in z.files}
@@ -183,12 +216,23 @@ def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
                             f"{name} is a {type(leaf).__name__}")
         if name not in data:
             raise KeyError(f"checkpoint {path} has no leaf {name}")
+    values = {}
+    for name, leaf in named:
+        arr = data[name]
+        if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
+            src = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            src = torch.from_numpy(np.ascontiguousarray(arr))
+        values[id(leaf)] = src.reshape(leaf.shape)
+    if shardings is not None:
+        from ..launch.mesh import place
+
+        return place(like, shardings, values=values)
     with torch.no_grad():
         for name, leaf in named:
-            arr = data[name]
-            if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
-                src = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            if is_dtensor(leaf):
+                leaf.to_local().copy_(local_shard(values[id(leaf)], leaf.device_mesh,
+                                                  leaf.placements))
             else:
-                src = torch.from_numpy(np.ascontiguousarray(arr))
-            leaf.copy_(src.reshape(leaf.shape))
+                leaf.copy_(values[id(leaf)])
     return like

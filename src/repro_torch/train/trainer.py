@@ -38,11 +38,12 @@ from ..core import prng
 from ..core.pytree import tree_blowup, tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..core.registry import get_solver
 from ..core.sdeint import path_keys, sdeint
-from ..device import not_yet_ported, resolve_device
+from ..device import resolve_device
 from ..kernels._build import GraphLaunches
 from ..launch.mesh import axis_block, gather_blocks
 from ..models import ModelOptions, loss_fn, make_train_step
-from ..models.transformer import apply_update
+from ..models.transformer import apply_update, settle
+from ..spmd import full, is_dtensor
 from ..optim import adamw, cosine_schedule
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault_tolerance import recovery_plan
@@ -72,25 +73,38 @@ def make_accum_train_step(cfg, optimizer, opts: ModelOptions, microbatches: int 
     microbatches' gradients are summed in order into a buffer of
     ``accum_dtype`` (default float32), divided by ``microbatches`` and
     applied once; the loss is the mean of the microbatch losses.  The
-    parameters are updated in place.  ``grad_constraint`` (a sharding of
-    the accumulation buffer) is not ported yet (ROADMAP A14d)."""
-    if grad_constraint is not None:
-        raise not_yet_ported("make_accum_train_step's grad_constraint (a sharded "
-                             "accumulation buffer; ROADMAP A14d)")
+    parameters are updated in place.
+
+    ``grad_constraint``: a function of the list of accumulation buffers
+    (``parameters()`` order) that lays them out, applied to the zero
+    buffers and after each microbatch, as the reference applies it to its
+    carry.  Each microbatch's gradient is reduced straight into the
+    buffer's layout, so a data-axis layout (ZeRO-2: ``lambda bufs:
+    place(bufs, opt_state_shardings(mesh, params, zero1=True).mu)``)
+    turns the gradient all-reduce into a reduce-scatter onto a sharded
+    buffer, and the update reads the gradient in that layout."""
     if microbatches <= 1:
         return make_train_step(cfg, optimizer, opts)
     adt = accum_dtype or torch.float32
+    constrain = grad_constraint or (lambda t: t)
+
+    def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=adt)
+        return torch.zeros(p.shape, dtype=adt, device=p.device)
 
     def step(params, opt_state, batch):
         leaves = list(params.parameters())
-        gsum = [torch.zeros(p.shape, dtype=adt, device=p.device) for p in leaves]
+        gsum = constrain([zeros(p) for p in leaves])
         lsum = None
         for i in range(microbatches):
             mb = {k: v[i] for k, v in batch.items()}
             loss = loss_fn(cfg, params, mb, opts)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            gsum = [a if g is None else a + g.to(adt) for a, g in zip(gsum, grads)]
-            lsum = loss.detach() if lsum is None else lsum + loss.detach()
+            gsum = constrain([a if g is None else a + settle(g.to(adt), a)
+                              for a, g in zip(gsum, grads)])
+            loss = full(loss.detach())
+            lsum = loss if lsum is None else lsum + loss
         grads = [g / microbatches for g in gsum]
         opt_state, gnorm = apply_update(optimizer, params, grads, opt_state)
         return params, opt_state, {"loss": lsum / microbatches, "grad_norm": gnorm}

@@ -4,7 +4,6 @@ reference's, on the same inputs: every output equal (the straggler medians
 are the same numpy calls; the token batches bitwise).
 """
 import itertools
-import time
 
 import numpy as np
 import pytest
@@ -22,7 +21,13 @@ def _both(name, *args, **kwargs):
 # -- HeartbeatMonitor ------------------------------------------------------------
 
 def test_heartbeat_dead_hosts_equal_reference():
-    now = time.monotonic()
+    # A fixed clock reading, not time.monotonic(): host 5 beats exactly one
+    # deadline before the probe at now + 16, and whether (now + 16) - (now +
+    # 6) rounds to 10.0 or just above it depends on the reading's low bits
+    # (4194297.80329046 rounds it above, making host 5 dead).  At 1000.0
+    # every time below is exact, so the boundary is decided by the strict
+    # ``>`` of both monitors, as written.
+    now = 1000.0
     mons = [tft.HeartbeatMonitor([0, 1, 2], deadline_s=10.0),
             jft.HeartbeatMonitor([0, 1, 2], deadline_s=10.0)]
     schedule = [(0, now + 1), (1, now + 5), (5, now + 6), (0, now + 14), (2, now + 3)]

@@ -352,19 +352,24 @@ def test_cpu_forward_launches_no_kernel(models):
 
 def test_training_and_sharding_raise_not_yet_ported(models):
     """Training is ported (``tests/test_torch_lm_train.py`` holds it to the
-    reference); sharding the LM on a mesh still raises, and names the item
-    that ports it (ROADMAP A14d: tensor parallelism on DTensor)."""
+    reference), and so is sharding the LM on a mesh (ROADMAP A14d:
+    ``tests/test_torch_tensor_parallel.py``): a policy with axes and decode
+    cache constraints construct, and a hook with axes asks for a mesh when
+    called outside one.  The dry run's ``attn_impl="stub"`` still raises."""
     cfg, _, tparams = models["qwen3-1.7b"]
     toks = torch.zeros(1, 4, dtype=torch.int64)
     loss = loss_fn(cfg, tparams, {"tokens": toks, "labels": toks})
     assert loss.shape == () and bool(torch.isfinite(loss))
     assert callable(make_train_step(cfg, None))
-    with pytest.raises(NotYetPorted, match="A14d"):
-        ShardingPolicy(batch_axes=("data",))
-    with pytest.raises(NotYetPorted, match="A14d"):
-        ShardingPolicy(model_axis="model")
-    with pytest.raises(NotYetPorted, match="A14d"):
-        ModelOptions(cache_constraints={"k": None})
+    policy = ShardingPolicy(batch_axes=("data",), model_axis="model")
+    assert ShardingPolicy(model_axis="model").model_axis == "model"
+    opts = ModelOptions(shard=policy, cache_constraints={"k": ("data", "model")})
+    assert opts.constrain_cache("v", toks) is toks
+    assert ShardingPolicy().hidden(toks) is toks
+    with pytest.raises(ValueError, match="mesh"):
+        policy.hidden(torch.zeros(1, 4, 8))
+    with pytest.raises(NotYetPorted, match="attn_impl"):
+        ModelOptions(attn_impl="stub")
     assert ModelOptions(remat=True).remat
 
 

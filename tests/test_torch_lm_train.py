@@ -28,7 +28,6 @@ from repro.models import loss_fn as jloss_fn
 from repro.optim import adamw as jadamw
 from repro.optim import cosine_schedule as jcosine_schedule
 from repro_torch.configs import get_arch
-from repro_torch.device import NotYetPorted
 from repro_torch.models import (ModelOptions, constrain, lm_params_from_jax, loss_fn,
                                 make_train_step)
 from repro_torch.optim import adamw
@@ -183,6 +182,11 @@ def test_remat_is_bitwise_neutral(jparams, arch):
 
 
 def test_accum_with_one_microbatch_is_the_train_step_and_constraints_wait(jparams):
+    """One microbatch is the train step; a ``grad_constraint`` (ported with
+    ROADMAP A14d; its sharded buffers: ``tests/test_torch_tensor_parallel.py``)
+    is applied to the buffers at the start and after each microbatch, so the
+    identity leaves the step bitwise as it is; ``constrain`` with a spec
+    asks for a mesh outside one."""
     cfg, _ = _cfgs("qwen3-1.7b")
     opt = adamw(1e-2)
     batch = _batch(cfg, 2, 8, seed=5, mask=False)
@@ -194,10 +198,18 @@ def test_accum_with_one_microbatch_is_the_train_step_and_constraints_wait(jparam
         runs.append(tparams)
     for a, b in zip(runs[0].parameters(), runs[1].parameters()):
         assert torch.equal(a, b)
-    with pytest.raises(NotYetPorted, match="A14d"):
+    two = {k: v.reshape(2, 1, *v.shape[1:]) for k, v in _torch_batch(batch).items()}
+    seen, runs = [], []
+    for constraint in (None, lambda bufs: seen.append(len(bufs)) or bufs):
+        tparams = lm_params_from_jax(jparams["qwen3-1.7b"], device="cpu")
         make_accum_train_step(cfg, opt, ModelOptions(), microbatches=2,
-                              grad_constraint=lambda t: t)
+                              grad_constraint=constraint)(
+            tparams, opt.init(list(tparams.parameters())), two)
+        runs.append(tparams)
+    assert seen == [len(list(runs[1].parameters()))] * 3
+    for a, b in zip(runs[0].parameters(), runs[1].parameters()):
+        assert torch.equal(a, b)
     x = torch.ones(2)
     assert constrain(x, None) is x
-    with pytest.raises(NotYetPorted, match="A14d"):
+    with pytest.raises(ValueError, match="mesh"):
         constrain(x, ("data",))
