@@ -277,7 +277,19 @@ DTensor meshes — and checks what comes out:
    before one within 2e-2, and bitwise a one-rank witness whose attention
    output products are split and summed in bf16 as the mesh sums them),
    every logit gate over the real vocab (the pad columns hold -1e9); each
-   rank's kernels on its half of the heads and experts, on their routes.
+   rank's kernels on its half of the heads and experts, on their routes;
+22. the dry run against the card: (a) 18a's step (zamba2-7b, 12 layers,
+   bf16, 2 x 2048, remat, AdamW) dry-run on fake tensors over a fake world
+   of one rank (``launch/dryrun.py``, in its own process): its FLOPs, peak
+   bytes and roofline terms; (b) the same step built by ``build_cell`` with
+   real weights on a (1, 1) mesh of one NCCL rank, on the plain path:
+   ``FlopCounterMode``'s FLOPs equal the prediction within 1e-6, the
+   predicted peak within 10% of ``max_memory_allocated`` less what was
+   allocated before the step's weights, the roofline
+   bound over the device time printed; the kernel path's peak and device
+   time beside them; (c) ``python -m repro_torch.launch.dryrun`` on
+   qwen3-1.7b ``train_4k`` (256 fake ranks) and zamba2-7b ``decode_32k``
+   (512), each ending ``[ok]``; (a) and (c) run on the host beside (b).
 
 Each phase prints its seconds.  The launch counts are zeroed just before
 each path (phases 4-5, the 60-epoch runs of phase 7, phase 9's drain and its
@@ -6155,6 +6167,176 @@ def tp_phase(torch):
     return launches
 
 
+DRYRUN_FLOP_REL = 1e-6       # 22b: predicted FLOPs against FlopCounterMode's (the same ops)
+DRYRUN_PEAK_REL = 0.10       # 22b: the predicted peak against the plain path's measured one
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("zamba2-7b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 300         # s, each dry-run process
+
+_DRYRUN_ONE_RANK = r"""
+import dataclasses, json, sys
+sys.path[:0] = [{src!r}]
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.launch import dryrun
+cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers={layers})
+dryrun.fake_world(1)
+mesh = DeviceMesh(dryrun.fake_device(), torch.zeros(1, 1, dtype=torch.int64),
+                  mesh_dim_names=("data", "model"))
+rec = dryrun.run_cell(cfg, ShapeSpec("train_{length}", "train", {length}, {batch}), "one",
+                      mesh=mesh)
+print("RESULT " + json.dumps(rec))
+"""
+
+
+def _dryrun_procs():
+    """22a's dry run (a fake world of one rank, in its own process) and
+    22c's two production cells through the CLI, all started at once."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    code = _DRYRUN_ONE_RANK.format(src=SRC, layers=LM_TRAIN_LAYERS, length=LM_TRAIN_LEN,
+                                   batch=LM_TRAIN_BATCH)
+    procs = {"22a": subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                                     text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs[f"{arch} {shape} {mesh}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh], cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+    return procs
+
+
+def _dryrun_card(torch, timer):
+    """22b: 18a's step (zamba2-7b, 12 layers, bf16, B = 2 x 2048, remat,
+    AdamW) built by the dry run's ``build_cell`` with real weights on a
+    (1, 1) mesh of one NCCL rank, on the plain path: its peak memory
+    (``max_memory_allocated`` after a reset, less ``memory_allocated``
+    before the weights: what earlier phases left allocated is not the
+    step's), ``FlopCounterMode``'s count
+    and one profiled step's device time; then the kernel path's peak and
+    device time on the same weights, state and batch."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.core import prng
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_accum_train_step
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=LM_TRAIN_LAYERS)
+    shape = ShapeSpec(f"train_{LM_TRAIN_LEN}", "train", LM_TRAIN_LEN, LM_TRAIN_BATCH)
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros(1, 1, dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        out["base"] = torch.cuda.memory_allocated()
+        params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+        step, args, mb = dryrun.build_cell(cfg, shape, mesh, params=params)
+        params, state, batch = args
+        del args
+        kstep = make_accum_train_step(cfg, adamw(cosine_schedule(3e-4, 2000, 100_000)),
+                                      dataclasses.replace(dryrun._opts(mesh), use_flash="auto"),
+                                      microbatches=mb)
+        for label, fn in (("plain", step), ("kernel", kstep)):
+            def run(fn=fn):
+                with mesh:
+                    return fn(params, state, batch)[1]
+            state = run()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counter = FlopCounterMode(display=False)
+            with counter:
+                state = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            dev_ms, n_kern = _device_ms(timer, run)
+            out[label] = {"peak": peak - out["base"], "raw_peak": peak,
+                          "flops": counter.get_total_flops(),
+                          "device_ms": dev_ms, "kernels": n_kern}
+        out["total_memory"] = torch.cuda.get_device_properties(0).total_memory
+        del params, state, batch, step, kstep
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(torch, timer):
+    """Phase 22: the dry run's predictions against the card.  (a) 18a's
+    step dry-run on a fake world of one rank; (b) the same step on the card
+    (plain path gated: FLOPs equal, peak within 10%; the kernel path
+    beside it); (c) two production cells through the CLI, each ``[ok]``."""
+    from repro_torch.launch import dryrun
+
+    start = time.perf_counter()
+    procs = _dryrun_procs()
+    try:
+        card = _dryrun_card(torch, timer)
+        results = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            check(proc.returncode == 0, f"22: the dry run {name} failed (rc "
+                  f"{proc.returncode}): {stderr[-3000:]}")
+            results[name] = stdout
+    finally:  # a failed gate above leaves no dry run running
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    line = [x for x in results.pop("22a").splitlines() if x.startswith("RESULT ")]
+    check(len(line) == 1, "22a printed no record")
+    rec = json.loads(line[0][len("RESULT "):])
+    mem, roof, full = rec["memory"], rec["roofline"], rec["full_module_cost"]
+    plain, kern = card["plain"], card["kernel"]
+    flop_rel = abs(full["flops"] - plain["flops"]) / plain["flops"]
+    peak_rel = (mem["total_hbm_bytes"] - plain["peak"]) / plain["peak"]
+    bound_ms = max(roof["compute_s"], roof["memory_s"], roof["collective_s"]) * 1e3
+    share = {k: "not measured" if v["device_ms"] is None else f"{bound_ms / v['device_ms']:.3f}"
+             for k, v in card.items() if k in ("plain", "kernel")}
+    gib = 2**30
+    print(f"  (a) zamba2-7b bf16, {LM_TRAIN_LAYERS} of 81 layers, B={LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_LEN}, remat, AdamW, dry-run on a fake world of one rank "
+          f"({rec['compile_s']} s traced, {rec['total_s']} s in all): {full['flops']:.6e} "
+          f"FLOPs (roofline {roof['flops']:.6e}), peak {mem['total_hbm_bytes'] / gib:.3f} "
+          f"GiB (arguments {mem['argument_size_in_bytes'] / gib:.3f}, outputs "
+          f"{mem['output_size_in_bytes'] / gib:.3f} of which in place "
+          f"{mem['alias_size_in_bytes'] / gib:.3f}, temporaries "
+          f"{mem['temp_size_in_bytes'] / gib:.3f}); roofline compute {roof['compute_s'] * 1e3:.2f}"
+          f" ms, memory {roof['memory_s'] * 1e3:.2f} ms (pre-fusion "
+          f"{roof['memory_s_hlo_prefusion'] * 1e3:.2f}, kernel path "
+          f"{roof['memory_s_kernel_prefusion'] * 1e3:.2f}), collective "
+          f"{roof['collective_s'] * 1e3:.2f} ms, dominant {roof['dominant']}, useful "
+          f"{roof['useful_ratio']:.3f}", flush=True)
+    print(f"  (b) the same step built by build_cell on a (1, 1) mesh of one NCCL rank: plain "
+          f"path {plain['flops']:.6e} FLOPs (FlopCounterMode), predicted/measured - 1 = "
+          f"{flop_rel:.2e} (limit {DRYRUN_FLOP_REL:g}); peak {plain['peak'] / gib:.3f} GiB "
+          f"above the {card['base'] / gib:.3f} GiB allocated before the weights "
+          f"(max_memory_allocated {plain['raw_peak'] / gib:.3f} GiB), predicted/measured - 1 "
+          f"= {peak_rel:+.2%} (limit {DRYRUN_PEAK_REL:.0%}); device "
+          f"time {plain['device_ms']} ms over {plain['kernels']} kernels, the roofline "
+          f"bound {bound_ms:.2f} ms of it: {share['plain']} (observed, not gated); kernel "
+          f"path: peak {kern['peak'] / gib:.3f} GiB above the same base, device time {kern['device_ms']} ms over "
+          f"{kern['kernels']} kernels (bound {share['kernel']} of it), {kern['flops']:.6e} "
+          f"FLOPs counted (the LM kernels' own not among them); "
+          f"total_memory {card['total_memory']} bytes (dry run's HBM_BUDGET "
+          f"{dryrun.HBM_BUDGET}: equal {card['total_memory'] == dryrun.HBM_BUDGET})",
+          flush=True)
+    check(flop_rel <= DRYRUN_FLOP_REL, "22b: the predicted FLOPs miss the measured ones")
+    check(abs(peak_rel) <= DRYRUN_PEAK_REL, "22b: the predicted peak misses the measured one")
+    for (arch, shape, mesh), (name, stdout) in zip(DRYRUN_CELLS, results.items()):
+        tags = [x for x in stdout.splitlines() if x.startswith("[")]
+        print(f"  (c) python -m repro_torch.launch.dryrun --arch {arch} --shape {shape} "
+              f"--mesh {mesh}: {tags[-1] if tags else stdout[-300:]}", flush=True)
+        check(len(tags) == 1 and tags[0].startswith(f"[ok] {mesh}"),
+              f"22c: {name} did not end [ok]")
+    print(f"  (phase 22 wall, the dry runs beside the card's step: "
+          f"{time.perf_counter() - start:.1f} s)", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -6332,6 +6514,10 @@ def main() -> int:
     tp_launches = tp_phase(torch)
     print(f"  the LM kernels launched on 21a's path (the (1, 1) mesh steps): {tp_launches}",
           flush=True)
+
+    phase("phase 22: the dry run against the card (18a's step predicted on a fake world, "
+          "then run on the plain path; two production cells through the CLI)")
+    dryrun_phase(torch, timer)
     phase("")
 
     tpu = "src/repro/kernels/sde_step/sde_step.py"

@@ -12,7 +12,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "NotYetPorted", "not_yet_ported"]
+__all__ = ["resolve_device", "NotYetPorted"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -32,11 +32,3 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 class NotYetPorted(NotImplementedError):
     """A feature of the JAX reference that this package does not have yet."""
-
-
-def not_yet_ported(feature: str) -> NotYetPorted:
-    """The error an entry point raises for a reference feature still to port."""
-    return NotYetPorted(
-        f"{feature} is not yet ported to repro_torch (see ROADMAP.md queue A); "
-        "the JAX reference package repro has it"
-    )

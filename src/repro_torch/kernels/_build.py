@@ -238,8 +238,17 @@ def is_current(t: torch.Tensor) -> bool:
     return t.get_device() == current
 
 
+def real(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or ``RuntimeError`` for a fake or meta tensor (no data for a
+    kernel to read)."""
+    if t.is_meta or type(t).__name__ == "FakeTensor":
+        raise RuntimeError(f"a kernel was handed a {type(t).__name__} on {t.device}, "
+                           "which has no data (a dry run takes use_flash='never')")
+    return t
+
+
 def pointer(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(real(t).data_ptr())
 
 
 def cuda_operands(ref: torch.Tensor, *others: torch.Tensor, shapes=None):

@@ -13,8 +13,11 @@ rematerialises each layer in the backward (``torch.utils.checkpoint``), as
 the reference's ``jax.checkpoint`` of its scanned layer; it changes nothing
 on a pass without gradients.  ``bf16_ar_barrier`` pins nothing: eager torch
 runs ops in program order, so there is no upcast for a compiler to hoist
-above the all-reduce.  ``attn_impl="stub"`` (the reference's dry-run cost
-isolation) raises ``NotYetPorted``.
+above the all-reduce.  ``attn_impl="stub"`` is the reference's dry-run cost
+isolation: attention hands its queries through as its output and the Mamba
+block's scan is ``x * dt``, so a traced layer moves what the fused kernels
+leave in HBM and no more (``repro_torch.launch.dryrun``).  Any value other
+than ``"real"`` and ``"stub"`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,6 @@ from typing import Optional
 
 import torch
 
-from ..device import not_yet_ported
 from ..spmd import mesh_of, placements_for, redistribute
 
 __all__ = ["ModelOptions", "ShardingPolicy", "NO_SHARDING", "dtype_of", "constrain"]
@@ -85,15 +87,12 @@ class ModelOptions:
     # Decode-cache layout pins: name -> spec of the *per-layer* cache leaf
     # (leading layer axis stripped), as the reference's
     cache_constraints: Optional[dict] = None
-    # "real" only: the reference's "stub" (the dry run's cost isolation)
-    # comes with the dry run (ROADMAP A16)
-    attn_impl: str = "real"
+    attn_impl: str = "real"  # real | stub (the dry run's cost isolation)
     bf16_ar_barrier: bool = False  # nothing to pin in eager torch
 
     def __post_init__(self):
-        if self.attn_impl != "real":
-            raise not_yet_ported(f"ModelOptions.attn_impl={self.attn_impl!r} (the "
-                                 "dry run's cost isolation)")
+        if self.attn_impl not in ("real", "stub"):
+            raise ValueError(f"ModelOptions.attn_impl={self.attn_impl!r}: 'real' or 'stub'")
 
     def constrain_cache(self, name: str, x):
         if self.cache_constraints is None or name not in self.cache_constraints:

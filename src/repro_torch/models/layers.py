@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import prng
-from ..spmd import block_of, is_dtensor, like, redistribute, replicated_partials
+from ..spmd import (block_of, is_dtensor, like, merge_last, redistribute, replicated_partials,
+                    split_last)
 from .attention import decode_attention, gqa_attention
 from .common import ModelOptions
 
@@ -124,22 +125,6 @@ def init_attn_block(cfg, key, dtype) -> nn.ParameterDict:
     return param_dict(p)
 
 
-def split_last(x, n: int):
-    """(..., n * hd) -> (..., n, hd).  A DTensor sharded on its last dim
-    keeps that sharding on the ``n`` axis where ``n`` divides the mesh axis
-    and is gathered on the mesh axes where it does not (DTensor cannot
-    split a sharded dim unevenly)."""
-    last = x.dim() - 1
-    if is_dtensor(x):
-        from torch.distributed.tensor import Replicate
-
-        mesh = x.device_mesh
-        x = redistribute(x, tuple(
-            Replicate() if p.is_shard() and p.dim == last and n % mesh.size(i) else p
-            for i, p in enumerate(x.placements)))
-    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
-
-
 def _qkv(cfg, p, x, positions):
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -166,10 +151,13 @@ def attn_block(cfg, p, x, opts: ModelOptions):
     q = opts.shard.heads(q)
     k = opts.shard.heads(k)
     v = opts.shard.heads(v)
-    o = gqa_attention(
-        q, k, v, causal=cfg.causal, use_flash=opts.use_flash, chunk=opts.attn_chunk
-    )
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
+    if opts.attn_impl == "stub":
+        o = q  # dry-run cost isolation: no mixing compute / score traffic
+    else:
+        o = gqa_attention(
+            q, k, v, causal=cfg.causal, use_flash=opts.use_flash, chunk=opts.attn_chunk
+        )
+    o = merge_last(o.transpose(1, 2))
     return o @ p["wo"]
 
 

@@ -241,8 +241,10 @@ def moe_block(cfg, p, x: torch.Tensor, opts: ModelOptions = ModelOptions()
             [pd, ph, None, None, stat, stat, stat])
         if grouped:
             xe = opts.shard.moe_dispatch(xe)
-        # each rank's experts, as the expert weights are sharded
-        pw = [placements_of(p[n], mesh) for n in ("wg", "wu", "wd")]
+        # each rank's experts, as the expert weights are sharded (an FSDP
+        # shard of their width is gathered)
+        pw = [tuple(pl if pl.is_shard() and pl.dim == 0 else Replicate()
+                    for pl in placements_of(p[n], mesh)) for n in ("wg", "wu", "wd")]
         pe = tuple(Shard(0) if w.is_shard() and w.dim == 0 else
                    Shard(1) if x_.is_shard() and x_.dim == 1 else Replicate()
                    for w, x_ in zip(pw[0], placements_of(xe, mesh)))

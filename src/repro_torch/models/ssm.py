@@ -27,7 +27,7 @@ from torch import nn
 
 from ..core import prng
 from ..kernels.ssd_scan.ops import ssd
-from ..spmd import heads_layout, local_map, mesh_of, moved
+from ..spmd import heads_layout, local_map, merge_last, mesh_of, moved
 from .common import ModelOptions
 from .layers import param_dict, rmsnorm, scaled_normal, split_last
 
@@ -105,17 +105,20 @@ def mamba_block(cfg, p, xin, opts: ModelOptions):
     dt = softplus(dt.float() + p["dt_bias"])  # (B,S,nh)
     A = -torch.exp(p["A_log"])  # (nh,)
     xh = split_last(x, nh)
-    y = ssd(
-        xh.float(),
-        dt,
-        A,
-        B.float(),
-        C.float(),
-        chunk=opts.ssd_chunk,
-        use_kernel=opts.use_flash,  # same dispatch policy as attention
-    )
+    if opts.attn_impl == "stub":
+        y = xh.float() * dt[..., None]  # cost isolation (dry run)
+    else:
+        y = ssd(
+            xh.float(),
+            dt,
+            A,
+            B.float(),
+            C.float(),
+            chunk=opts.ssd_chunk,
+            use_kernel=opts.use_flash,  # same dispatch policy as attention
+        )
     y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(bsz, s, di).to(xin.dtype)
+    y = merge_last(y).to(xin.dtype)
     y = rmsnorm(p["gate_norm"], y * F.silu(z))
     return y @ p["out_proj"]
 

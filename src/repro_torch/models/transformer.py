@@ -226,6 +226,10 @@ def _lookup(embed, tokens) -> torch.Tensor:
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     pe, pt = embed.placements, placements_of(tokens, mesh)
+    # a mesh dim that shards both the width (FSDP) and the tokens' rows
+    # holds no block of the output: the width is gathered there
+    pe = tuple(Replicate() if e.is_shard() and e.dim == 1 and not t.is_replicate() else e
+               for e, t in zip(pe, pt))
     pt = tuple(Replicate() if e.is_shard() and e.dim == 0 else t for e, t in zip(pe, pt))
     out = tuple(Partial() if e.is_shard() and e.dim == 0 else
                 Shard(tokens.dim()) if e.is_shard() else t for e, t in zip(pe, pt))

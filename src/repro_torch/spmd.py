@@ -40,7 +40,8 @@ import torch
 
 __all__ = ["is_dtensor", "mesh_of", "replicate", "like", "placements_for",
            "redistribute", "local_map", "local_shard", "full", "heads_layout",
-           "moved", "placements_of", "replicated", "replicated_partials", "block_of"]
+           "moved", "placements_of", "replicated", "replicated_partials", "block_of",
+           "merge_last", "split_last"]
 
 
 def is_dtensor(x) -> bool:
@@ -324,6 +325,38 @@ class _GradAs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return redistribute(grad, ctx.placements)
+
+
+def _reshaped(x, shape, dim: int, n: int):
+    """``x.reshape(shape)``, where the reshape splits or merges ``x``'s dim
+    ``dim`` with ``n`` heads.  On a DTensor, a mesh dim that cannot split
+    the heads evenly holds ``dim`` replicated, and the gradient is laid out
+    so before the backward reshapes it back: DTensor cannot flatten or
+    unflatten an uneven shard (24 SSM heads, or 40 query heads, on a model
+    axis of 16)."""
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    mesh = x.device_mesh
+    uneven = [i for i in range(mesh.ndim) if n % mesh.size(i)]
+    if not uneven:
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate
+
+    x = redistribute(x, tuple(Replicate() if i in uneven and p.is_shard() and p.dim == dim
+                              else p for i, p in enumerate(x.placements)))
+    return _GradAs.apply(x.reshape(shape))
+
+
+def split_last(x, n: int):
+    """``(..., n * d) -> (..., n, d)``; on a DTensor, as :func:`_reshaped`
+    lays it out (an even shard of the last dim stays on the heads)."""
+    return _reshaped(x, (*x.shape[:-1], n, x.shape[-1] // n), x.dim() - 1, n)
+
+
+def merge_last(x):
+    """``(..., n, d) -> (..., n * d)``; on a DTensor, as :func:`_reshaped`
+    lays it out."""
+    return _reshaped(x, (*x.shape[:-2], x.shape[-2] * x.shape[-1]), x.dim() - 2, x.shape[-2])
 
 
 def heads_layout(mesh, lead, heads_dim: int, n_heads: Sequence[int]) -> tuple:

@@ -15,8 +15,9 @@ subprocess (x64 off, the reference's default).  The moe family and the
 weights only, as the reference's tier-1 keeps its smoke run out) are held
 to the reference the same way: ``forward``, ``loss_fn`` and its gradients,
 ``serve_step``, decode == forward, the decode ``Engine`` and checkpoints.
-What is not ported raises ``NotYetPorted``; training is held to the
-reference in ``tests/test_torch_lm_train.py``.
+``attn_impl="stub"`` (the dry run's cost isolation) is held to the
+reference's forward under it; training is held to the reference in
+``tests/test_torch_lm_train.py``.
 """
 import dataclasses
 import json
@@ -40,7 +41,6 @@ from repro.models import make_serve_step as jmake_serve_step
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import ServeConfig as JServeConfig
 from repro_torch import configs
-from repro_torch.device import NotYetPorted
 from repro_torch.kernels import FLASH_ATTENTION, SSD_SCAN
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import (LMParams, ModelOptions, ShardingPolicy, forward, init_cache,
@@ -259,10 +259,26 @@ def test_forward_options_match_reference(models, arch, opt):
 
 
 @pytest.mark.parametrize("impl", ["stub", "anything-else"])
-def test_attn_impl_other_than_real_raises_not_yet_ported(impl):
-    with pytest.raises(NotYetPorted, match="attn_impl"):
-        ModelOptions(attn_impl=impl)
+def test_attn_impl_other_than_real_raises_not_yet_ported(models, impl):
+    """Once ``NotYetPorted``: ``"stub"`` now takes the dry run's cost
+    isolation (the reference's forward under it, at the forward tests'
+    limit, and not the real forward); any other value but ``"real"``
+    raises ``ValueError``, where the reference runs it as ``"real"``."""
     assert ModelOptions(attn_impl="real").attn_impl == "real"
+    if impl != "stub":
+        with pytest.raises(ValueError, match="attn_impl"):
+            ModelOptions(attn_impl=impl)
+        return
+    cfg, jparams, tparams = models["qwen3-1.7b"]
+    toks = _tokens(cfg, 2, 16, seed=2)
+    want, _ = jforward(jconfigs.get_arch("qwen3-1.7b").smoke(), jparams,
+                       {"tokens": jnp.asarray(toks)}, JModelOptions(attn_impl="stub"))
+    with torch.no_grad():
+        got, _ = forward(cfg, tparams, {"tokens": torch.from_numpy(toks)},
+                         ModelOptions(attn_impl="stub"))
+        real, _ = forward(cfg, tparams, {"tokens": torch.from_numpy(toks)}, ModelOptions())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    assert np.abs(real.numpy() - np.asarray(want)).max() > 1e-3
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -368,8 +384,9 @@ def test_training_and_sharding_raise_not_yet_ported(models):
     assert ShardingPolicy().hidden(toks) is toks
     with pytest.raises(ValueError, match="mesh"):
         policy.hidden(torch.zeros(1, 4, 8))
-    with pytest.raises(NotYetPorted, match="attn_impl"):
-        ModelOptions(attn_impl="stub")
+    assert ModelOptions(attn_impl="stub").attn_impl == "stub"
+    with pytest.raises(ValueError, match="attn_impl"):
+        ModelOptions(attn_impl="anything-else")
     assert ModelOptions(remat=True).remat
 
 

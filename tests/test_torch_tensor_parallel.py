@@ -66,6 +66,14 @@ GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
 # float32 ulps of its largest element (measured: under 8).
 REORDER = 64 * 2.0 ** -23
 RESHARD = ((1, 4), (4, 1))
+# More layouts, their loss and gradients against the single process, with
+# the batch's rows on "data" as the production step places them: the
+# parameters also sharded on "data" (FSDP: the lookup gathers the embedding's
+# width, the experts their weights'), and heads the model axis cannot split
+# evenly (3 query heads and 1 KV head on 2: held replicated there).
+VARIANTS = {"qwen3-1.7b-fsdp": ("qwen3-1.7b", True, {}),
+            "olmoe-1b-7b-fsdp": ("olmoe-1b-7b", True, {}),
+            "qwen3-1.7b-3-heads": ("qwen3-1.7b", False, dict(n_heads=3, n_kv_heads=1))}
 
 
 def _free_port():
@@ -78,6 +86,13 @@ def _cfg(arch):
     from repro_torch.configs import get_arch
 
     return get_arch(arch).smoke()
+
+
+def _variant_cfg(case):
+    import dataclasses
+
+    arch, _, over = VARIANTS[case]
+    return dataclasses.replace(_cfg(arch), **over)
 
 
 def _batch(cfg, seed=0):
@@ -97,17 +112,26 @@ def _params(weights, arch):
 OPTS = dict(use_flash="interpret")
 
 
-def _loss_and_grads(cfg, params, opts, mesh=None):
+def _loss_and_grads(cfg, params, opts, mesh=None, batch_on_data=False):
+    """``loss_fn`` and its gradients, full; with ``batch_on_data``, the
+    batch's rows laid out on ``"data"`` (``batch_pspecs``) as the
+    production step lays them out."""
+    from repro_torch.launch.mesh import Sharding, batch_pspecs, place
     from repro_torch.models import loss_fn
     from repro_torch.models.transformer import settle
-    from repro_torch.spmd import full
+    from repro_torch.spmd import full, placements_for
 
     leaves = list(params.parameters())
+    batch = _batch(cfg)
+    if batch_on_data:
+        specs = batch_pspecs(mesh, batch)
+        batch = {k: place(v, Sharding(mesh, placements_for(mesh, specs[k])))
+                 for k, v in batch.items()}
     if mesh is None:
-        loss = loss_fn(cfg, params, _batch(cfg), opts)
+        loss = loss_fn(cfg, params, batch, opts)
     else:
         with mesh:
-            loss = loss_fn(cfg, params, _batch(cfg), opts)
+            loss = loss_fn(cfg, params, batch, opts)
     grads = torch.autograd.grad(loss, leaves)
     names = [n for n, _ in params.named_parameters()]
     return full(loss.detach()), {n: full(settle(g, p)) for n, g, p in zip(names, grads, leaves)}
@@ -289,6 +313,14 @@ def _rank_checks(weights, rank):
                         for z in (False, True)}
         res["reshard"] = _reshard(cfg, weights, arch, mesh)
         got[arch] = res
+    for case, (_, fsdp, _) in VARIANTS.items():
+        seen["attention"] = set()
+        params = _params(weights, case)
+        place(params, param_shardings(mesh, params, fsdp=fsdp))
+        got[case] = {"loss_grads": _loss_and_grads(_variant_cfg(case), params, opts, mesh,
+                                                   batch_on_data=True),
+                     "attention": sorted(seen["attention"]),
+                     "on_data": sum(p.placements[0].is_shard() for p in params.parameters())}
     return got
 
 
@@ -316,14 +348,22 @@ def _worker(world: int, rank: int, port: int, out: str) -> None:
 
 @pytest.fixture(scope="module")
 def weights():
-    """The reference's ``init_params(PRNGKey(0))`` per smoke arch, as numpy."""
+    """The reference's ``init_params(PRNGKey(0))`` per smoke arch and per
+    variant of :data:`VARIANTS`, as numpy."""
+    import dataclasses
+
     import jax
 
     from repro.configs import get_arch as jget_arch
     from repro.models import init_params as jinit_params
 
-    return {arch: jax.tree_util.tree_map(np.asarray, jax.jit(jinit_params, static_argnums=0)(
+    init = jax.jit(jinit_params, static_argnums=0)
+    out = {arch: jax.tree_util.tree_map(np.asarray, init(
         jget_arch(arch).smoke(), jax.random.PRNGKey(0))) for arch in ARCHS}
+    for case, (arch, _, over) in VARIANTS.items():
+        out[case] = out[arch] if not over else jax.tree_util.tree_map(np.asarray, init(
+            dataclasses.replace(jget_arch(arch).smoke(), **over), jax.random.PRNGKey(0)))
+    return out
 
 
 def _single(weights):
@@ -342,6 +382,9 @@ def _single(weights):
                                               ModelOptions(**OPTS)),
                 "decode": _decode(cfg, _params(weights, arch),
                                   init_cache(cfg, 2, DECODE, device="cpu"), ModelOptions())}
+        for case in VARIANTS:
+            out[case] = {"loss_grads": _loss_and_grads(_variant_cfg(case), _params(weights, case),
+                                                       ModelOptions(**OPTS))}
         return out
     finally:
         torch.set_num_threads(threads)
@@ -422,6 +465,23 @@ def _reorder_close(got, want):
 def test_sharded_loss_and_gradients_match_the_single_process(world, arch):
     loss, grads = world["ranks"][0][arch]["loss_grads"]
     loss0, grads0 = world["single"][arch]["loss_grads"]
+    _reorder_close(loss, loss0)
+    assert sorted(grads) == sorted(grads0)
+    for name, g in grads.items():
+        _reorder_close(g, grads0[name])
+
+
+@pytest.mark.parametrize("case", list(VARIANTS))
+def test_fsdp_and_uneven_heads_match_the_single_process(world, case):
+    """FSDP parameters (on "data" as well as "model"), and heads the model
+    axis cannot split: loss and gradients within the reorder bound."""
+    _, fsdp, over = VARIANTS[case]
+    res = world["ranks"][0][case]
+    assert (res["on_data"] > 0) == fsdp
+    if over:  # the kernel saw every head: the heads are whole on each rank
+        assert res["attention"] == [(B // 2, over["n_heads"], over["n_kv_heads"])]
+    loss, grads = res["loss_grads"]
+    loss0, grads0 = world["single"][case]["loss_grads"]
     _reorder_close(loss, loss0)
     assert sorted(grads) == sorted(grads0)
     for name, g in grads.items():
