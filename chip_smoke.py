@@ -111,7 +111,7 @@ DTensor meshes — and checks what comes out:
    wgmma route, 81 ``ssd_scan``), peak memory, tokens/s, the profile by
    kernel kind, and no host sync;
 12. the decode ``Engine`` on those weights: 8 requests of 8-token prompts,
-   greedy, ``slots=8, max_len=64``: tokens/s, ticks, finite logits, and the
+   greedy, ``slots=8, max_len=32``: tokens/s, ticks, finite logits, and the
    same tokens from a second drain on a new engine; one decode step's host
    wall, device time and launches;
 13. the paper's Euclidean experiments at the reference's sizes
@@ -147,7 +147,7 @@ DTensor meshes — and checks what comes out:
    printed;
 15. adaptive solves on Virtual Brownian Trees, on phase 4's model: (a)
    request O (``ees25:adaptive,use_kernels=True``, t1 = 2, a 256-trial
-   budget, 131,072 paths, rtol 1e-3, ``save_at`` 0.5/1/1.5/2) and P (O's
+   budget, 65,536 paths, rtol 1e-3, ``save_at`` 0.5/1/1.5/2) and P (O's
    plain spec) through the sync engine at 65,536 slots, bitwise equal
    (y_final, ys, t_final, counts), every path at t1, O only through the
    per-path ``ws_stage_diag`` entry; paths/s, trials, host syncs, mean
@@ -1972,6 +1972,7 @@ def noise_serve_phase(torch, timer):
 
 
 WIDE_CHANNELS = 128  # the reference kernel's lane-aligned width (its m % 128 == 0)
+WIDE_PATHS = SERVE_SLOTS // 4  # the m = 128 request (its ticks are ~2.6 s at 65,536 paths)
 
 
 def general_routes(since=None):
@@ -1988,7 +1989,7 @@ def general_routes(since=None):
 
 def wide_general_request(torch, timer):
     """Phase 9's general-noise request at the reference kernel's width:
-    65,536 paths of the step-kernel benchmark's general term (d = 16) with
+    16,384 paths of the step-kernel benchmark's general term (d = 16) with
     m = 128 channels, ``ees25:use_kernels=True`` against plain ``ees25`` on
     the same seed (1e-5), with the device ms of one tick of each; returns the
     kernels' launches and the general kernels' launches by route."""
@@ -2004,7 +2005,7 @@ def wide_general_request(torch, timer):
     specs = ("ees25:use_kernels=True", "ees25")
     with torch.no_grad():
         for spec in specs:  # first use at full size, outside the count and the clock
-            eng.submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS, n_paths=SERVE_SLOTS, seed=99)
+            eng.submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS, n_paths=WIDE_PATHS, seed=99)
             eng.run()
         torch.cuda.synchronize()
         _zero_launches()
@@ -2013,7 +2014,7 @@ def wide_general_request(torch, timer):
         for spec in specs:
             start = time.perf_counter()
             rids[spec] = eng.submit(spec, t1=NOISE_T1, n_steps=NOISE_STEPS,
-                                    n_paths=SERVE_SLOTS, seed=51)
+                                    n_paths=WIDE_PATHS, seed=51)
             eng.run()
             torch.cuda.synchronize()
             walls[spec] = time.perf_counter() - start
@@ -2021,10 +2022,10 @@ def wide_general_request(torch, timer):
     routes = general_routes(since=routes_before)
     got, want = (eng.done[rids[s]] for s in specs)
     for r in (got, want):
-        check(r.y_final.shape == (SERVE_SLOTS, sk.DIM) and bool(np.isfinite(r.y_final).all())
+        check(r.y_final.shape == (WIDE_PATHS, sk.DIM) and bool(np.isfinite(r.y_final).all())
               and not r.diverged.any(), "the m = 128 request returned a bad sample")
     err = _rel(got.y_final, want.y_final)
-    print(f"  m = {WIDE_CHANNELS} request ({SERVE_SLOTS} paths, d = {sk.DIM}, "
+    print(f"  m = {WIDE_CHANNELS} request ({WIDE_PATHS} paths, d = {sk.DIM}, "
           f"{NOISE_STEPS} steps): {specs[0]!r} vs {specs[1]!r}, same seed: max rel err "
           f"{err:.3e} (tolerance 1e-5); drains {walls[specs[0]]:.3f} s and "
           f"{walls[specs[1]]:.3f} s (host wall); kernel launches {launches}, general "
@@ -2032,7 +2033,7 @@ def wide_general_request(torch, timer):
     check(err <= 1e-5, "the m = 128 request: the kernel route disagrees with the plain route")
     check(routes["ws_stage_general"]["staged"] > 0,
           "the m = 128 request launched no ws_stage_general kernel on the staged route")
-    keys = path_keys(PRNGKey(7, device="cuda"), SERVE_SLOTS)[None]
+    keys = path_keys(PRNGKey(7, device="cuda"), WIDE_PATHS)[None]
     for spec in specs:
         bucket = BucketKey(spec, 0.0, NOISE_T1 / NOISE_STEPS, NOISE_STEPS)
         with torch.no_grad():  # the drains above warmed the bucket
@@ -2042,7 +2043,7 @@ def wide_general_request(torch, timer):
         dev_ms = sum(us for us, _ in totals.values()) / TICK_PROFILE_REPS / 1e3
         general_ms = sum(us for name, (us, _) in totals.items()
                          if "general_kernel" in name) / TICK_PROFILE_REPS / 1e3
-        print(f"  one m = {WIDE_CHANNELS} tick, {spec!r} ({SERVE_SLOTS} paths x "
+        print(f"  one m = {WIDE_CHANNELS} tick, {spec!r} ({WIDE_PATHS} paths x "
               f"{NOISE_STEPS} steps): device kernel time {dev_ms:.3f} ms, "
               f"{general_ms:.3f} ms of it in the general-noise kernels", flush=True)
         rows = sorted(((us / TICK_PROFILE_REPS, n // TICK_PROFILE_REPS, name)
@@ -2393,17 +2394,20 @@ def _engine_drain(torch, cfg, params, prompts, max_len):
     return done, time.perf_counter() - start, ticks[0], bool(torch.stack(finite).all())
 
 
+LM_SERVE_LEN = 32                # phase 12: the Engine's max_len (8-token prompts)
+
+
 def lm_serve_phase(torch, timer, cfg, params):
     """Phase 12: zamba2-7b (bf16, full width and depth) served by the decode
     Engine: 8 requests of 8-token prompts, greedy, twice."""
     prompts = np.random.default_rng(13).integers(2, cfg.vocab, size=(8, 8)).tolist()
 
     def drain():
-        return _engine_drain(torch, cfg, params, prompts, 64)
+        return _engine_drain(torch, cfg, params, prompts, LM_SERVE_LEN)
 
     first, wall, ticks, finite = drain()
     new = sum(len(t) - len(p) for t, p in zip(first.values(), prompts))
-    print(f"  Engine(slots=8, max_len=64), 8 requests x 8-token prompts, greedy: "
+    print(f"  Engine(slots=8, max_len={LM_SERVE_LEN}), 8 requests x 8-token prompts, greedy: "
           f"{new} new tokens in {ticks} ticks, {wall:.3f} s = {new / wall:.1f} "
           f"tokens/s ({wall / ticks * 1e3:.1f} ms a tick, host wall clock incl. "
           f"the token-by-token prefill); logits finite: {finite}", flush=True)
@@ -2523,8 +2527,8 @@ def table2_phase(torch, timer):
     params = init_lsde(key, 1, t2.D_Z, width=t2.WIDTH, device="cuda")
 
     def timed(loss):
-        """(loss, grads, ms): one warm call, then one timed call."""
-        t2.value_and_grad(loss, params, key)
+        """(loss, grads, ms): one timed call (the kernels, the allocator and
+        the solvers' code paths are warm from phases 7-12)."""
         torch.cuda.synchronize()
         start = time.perf_counter()
         val, grads = t2.value_and_grad(loss, params, key)
@@ -2543,8 +2547,8 @@ def table2_phase(torch, timer):
         l_err, g_err = _loss_err([vk], [vp]), _leaf_rel(torch, gk, gp)
         print(f"  table2_vol/{name} ({n} steps, {t2.BATCH} paths, adjoint="
               f"reversible): {msk:.3f} ms per forward + backward with the "
-              f"kernels, {msp:.3f} plain (host wall, one timed call after a "
-              f"warm one); sig_mmd={vk:.6f}; kernels vs plain: loss {l_err:.2e}, "
+              f"kernels, {msp:.3f} plain (host wall, one timed call); "
+              f"sig_mmd={vk:.6f}; kernels vs plain: loss {l_err:.2e}, "
               f"gradients {g_err:.2e} of each leaf's max (tolerance 1e-5)",
               flush=True)
         check(np.isfinite(vk) and all(bool(torch.isfinite(g).all()) for g in gk),
@@ -2552,17 +2556,18 @@ def table2_phase(torch, timer):
         check(l_err <= 1e-5 and g_err <= 1e-5,
               f"Table 2 {name}: the kernels disagree with the plain path")
 
-    # The device's share of one call (a profile of its ~60k launches takes
-    # ~20 s to read).
-    loss = t2.make_loss("ees25:use_kernels=True", t2.NFE // 3, target)
+    # The device's share of one call at 24 steps, 4 between observations
+    # (a profile of the 168-step call's ~60k launches takes ~20 s to read).
+    n_seg = 4 * t2.N_OBS
+    loss = t2.make_loss("ees25:use_kernels=True", n_seg, target)
     run = lambda: t2.value_and_grad(loss, params, key)  # noqa: E731
     totals = timer.kernels_us(run, reps=1, flush=False)
     dev_ms = sum(t for t, _ in totals.values()) / 1e3
     n_launch = sum(n for _, n in totals.values())
     _, _, wall_ms = timed(loss)
-    print(f"  table2_vol/EES(2,5) kernels, one forward + backward: device kernel "
-          f"time {dev_ms:.3f} ms over {n_launch} launches against {wall_ms:.3f} "
-          f"ms of host wall (device busy {dev_ms / wall_ms:.1%})", flush=True)
+    print(f"  table2_vol/EES(2,5) kernels, one forward + backward over {n_seg} steps: "
+          f"device kernel time {dev_ms:.3f} ms over {n_launch} launches against "
+          f"{wall_ms:.3f} ms of host wall (device busy {dev_ms / wall_ms:.1%})", flush=True)
 
     spec, n = "ees25:use_kernels=True", t2.NFE // 3
     seg = n // t2.N_OBS
@@ -3086,7 +3091,7 @@ def rows_kernel_phase(torch, timer, stats):
 
 ADAPTIVE_SAVE_AT = (0.5, 1.0, 1.5, 2.0)
 # Request O (P is O with the plain spec): spec, t1, trial budget, paths, rtol.
-ADAPTIVE_O = ("ees25:adaptive,use_kernels=True", 2.0, 256, 2 * SERVE_SLOTS, 1e-3, 31)
+ADAPTIVE_O = ("ees25:adaptive,use_kernels=True", 2.0, 256, SERVE_SLOTS, 1e-3, 31)
 ADAPTIVE_CPU_PATHS = 256
 ADAPTIVE_GRAD_PATHS = 4096
 PROFILE_TRIALS = 4
@@ -3396,7 +3401,7 @@ def adaptive_phase(torch, timer, params, y0):
 
 # 15d: the other five per-path entries on the public paths that reach them.
 # Adaptive solves (paths, trial budget, t1, rtol; at or under request O's
-# 131,072 paths and 256 trials) and solves over one realized grid (paths):
+# 65,536 paths and 256 trials) and solves over one realized grid (paths):
 # the Langevin model's diagonal noise (increment_diag and axpy_chain in
 # Butcher and MCF stages, Milstein's increment, Reversible Heun), phase 9's
 # general term (m = 4) and its additive term under the full adjoint with
@@ -4000,10 +4005,11 @@ def _sphere_engine(torch, device, slots):
                            noise_shape=(t4.M_NOISE,), device=device)
 
 
-def _worker_table3_memory(torch):
-    """Fig 5b on the card: the per-step series at 32 / 128 / 512 steps and
-    the bulk one at 32 and 512, on the parameters Table 3's run leaves off
-    at (``init_kuramoto_nsde`` of the chained key)."""
+def _worker_table3_memory(torch, tag):
+    """Fig 5b on the card: the per-step series at 32 / 128 / 512 steps or
+    (``tag``) the bulk one at 32 and 512, each in a process of its own, on
+    the parameters Table 3's run leaves off at (``init_kuramoto_nsde`` of
+    the chained key)."""
     from repro_torch.benchmarks import table3_kuramoto as t3
     from repro_torch.core import prng
     from repro_torch.nsde import init_kuramoto_nsde
@@ -4016,8 +4022,9 @@ def _worker_table3_memory(torch):
     # cuBLAS workspace, ~64 MiB): one unread series first, so no reading
     # of the curve includes it.
     t3.memory_series(params, key, inputs, steps=ends[:1])
-    return {"per-step": t3.memory_series(params, key, inputs, bulk_increments=False),
-            "bulk": t3.memory_series(params, key, inputs, steps=ends)}
+    if tag == "per-step":
+        return t3.memory_series(params, key, inputs, bulk_increments=False)
+    return t3.memory_series(params, key, inputs, steps=ends)
 
 
 def _worker_table4_memory(torch, tag):
@@ -4073,7 +4080,8 @@ def _worker_cpu(torch):
 
 
 MANIFOLD_WORKERS = {
-    "table3 memory": _worker_table3_memory,
+    "table3 memory, per-step": lambda torch: _worker_table3_memory(torch, "per-step"),
+    "table3 memory, bulk": lambda torch: _worker_table3_memory(torch, "bulk"),
     "table4 memory, per-step": lambda torch: _worker_table4_memory(torch, "per-step"),
     "table4 memory, bulk": lambda torch: _worker_table4_memory(torch, "bulk"),
     "cpu": _worker_cpu,
@@ -4087,7 +4095,10 @@ def manifold_worker(name: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(MANIFOLD_WORKERS[name](torch)), flush=True)
+    start = time.perf_counter()
+    out = MANIFOLD_WORKERS[name](torch)
+    print(json.dumps({"result": out, "seconds": round(time.perf_counter() - start, 1)}),
+          flush=True)
 
 
 def _start_worker(name):
@@ -4098,10 +4109,13 @@ def _start_worker(name):
 
 
 def _finish_worker(proc, name):
+    """The worker's result; prints the seconds its work took."""
     out, err = proc.communicate(timeout=900)
     if proc.returncode != 0:
         fail(f"phase 17's {name} worker failed (rc {proc.returncode}): {err[-3000:]}")
-    return json.loads(out.strip().splitlines()[-1])
+    report = json.loads(out.strip().splitlines()[-1])
+    print(f"  (17e, the {name} worker: {report['seconds']} s of work)", flush=True)
+    return report["result"]
 
 
 def _memory_gates(label, series, steps):
@@ -4320,7 +4334,8 @@ def manifold_phase(torch, params, y0):
     print(" 17a: Table 3 and Fig 5b", flush=True)
     _print_runs("table3_kuramoto", t3.cases(), card["t3"], cpu["t3"], t3.EPOCHS,
                 lambda r: f"energy_score={r.losses[-1]:.6f} (first {r.losses[0]:.6f})")
-    _print_memory("Fig 5b", done["table3 memory"], t3.MEMORY_STEPS)
+    _print_memory("Fig 5b", {tag: done[f"table3 memory, {tag}"]
+                             for tag in ("per-step", "bulk")}, t3.MEMORY_STEPS)
     print(" 17b: Table 4 and Fig 6", flush=True)
     labels, runs = card["t4"]
     check(labels.tolist() == cpu["labels"], "Table 4: labels differ from the CPU's")
@@ -4366,6 +4381,7 @@ EES_GRAD_GAP = 1.5
 # max against the full adjoint's 3.7e-6.
 EES_KERNEL_REL = 1e-3
 LM_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
+LM_GRAPH_K = 4              # 18e: 18a's steps a graphed chunk of train_loop
 
 
 class _Microbatched:
@@ -4381,9 +4397,11 @@ class _Microbatched:
         return {k: v.reshape(m, v.shape[0] // m, *v.shape[1:]) for k, v in batch.items()}
 
 
-def _lm_train_run(torch, cfg, params, microbatches, steps, ckpt_dir=None, ckpt_every=100):
+def _lm_train_run(torch, cfg, params, microbatches, steps, ckpt_dir=None, ckpt_every=100,
+                  steps_per_call=1):
     """``train_loop`` with its default step on the synthetic stream, AdamW on
-    the launcher's cosine schedule, each layer rematerialised."""
+    the launcher's cosine schedule, each layer rematerialised (chunks of
+    ``steps_per_call`` steps, CUDA graphs when more than one)."""
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.models import ModelOptions
     from repro_torch.optim import adamw, cosine_schedule
@@ -4396,8 +4414,8 @@ def _lm_train_run(torch, cfg, params, microbatches, steps, ckpt_dir=None, ckpt_e
                       optimizer=adamw(cosine_schedule(3e-4, 10, LM_TRAIN_STEPS)),
                       opts=ModelOptions(remat=True),
                       loop=TrainLoopConfig(steps=steps, log_every=1, ckpt_dir=ckpt_dir,
-                                           ckpt_every=ckpt_every,
-                                           microbatches=microbatches))
+                                           ckpt_every=ckpt_every, microbatches=microbatches,
+                                           steps_per_call=steps_per_call))
 
 
 def _step_twice_bitwise(torch, step, params, state, batch, label):
@@ -4424,7 +4442,9 @@ def lm_train_card(torch, timer):
     two microbatches; ms a step, tokens/s, peak memory, busy share, the LM
     kernels' launches; one step run twice from one state, bitwise; and,
     at 2 layers, a run interrupted at step 2 and resumed from its
-    checkpoint, bitwise an unbroken one.  Returns the first run's launches."""
+    checkpoint, bitwise an unbroken one.  Returns the first run's launches
+    and, for 18e, its final parameters, losses and peak memory and the
+    timed step's host wall and device ms."""
     import dataclasses
     import tempfile
 
@@ -4486,6 +4506,9 @@ def lm_train_card(torch, timer):
               f"the bf16 training step's attention backward took the routes "
               f"{BWD_ROUTE_LAUNCHES}")
         runs[mb] = (launched, losses)
+        if mb == 1:  # 18e's eager side
+            eager = dict(params=[p.detach().clone() for p in out["params"].parameters()],
+                         losses=losses, peak=peak)
         del out  # its optimizer state: 12.8 GB of AdamW moments
     first = runs[1][1][0], runs[2][1][0]
     print(f"  step 1's loss, microbatches 1 vs 2 (the same weights and tokens, split in "
@@ -4531,6 +4554,7 @@ def lm_train_card(torch, timer):
           flush=True)
 
     _step_twice_bitwise(torch, step, params, state, batch, "zamba2-7b")
+    eager["ms"] = (wall * 1e3, dev_ms if dev_ms else None)
     del params, state, step, runs, batch
     torch.cuda.empty_cache()
 
@@ -4559,7 +4583,98 @@ def lm_train_card(torch, timer):
     check(same and resumed["n_dispatches"] == LM_TRAIN_STEPS - 2,
           "the resumed run differs from the unbroken one")
     check(kinds.get("bfloat16", 0) > 0, "the checkpoint holds no bf16 leaf")
-    return main_launches
+    return main_launches, eager
+
+
+def _lm_step_launches(cfg, steps):
+    """The LM kernels' launches of ``steps`` remat training steps of
+    ``cfg`` (zamba2): each layer's forward twice, its backward once."""
+    n_inv = -(-cfg.n_layers // cfg.shared_attn_every)
+    return {"flash_attention": 2 * n_inv * steps, "ssd_scan": 2 * cfg.n_layers * steps,
+            "flash_attention_bwd": n_inv * steps, "ssd_scan_bwd": cfg.n_layers * steps}
+
+
+def _stacked_batches(torch, data, steps):
+    """``data``'s batches of ``steps`` stacked leafwise on the card, as
+    ``train_loop`` hands a chunk its batches."""
+    batches = [data.batch_at(s) for s in steps]
+    return {k: torch.as_tensor(np.stack([b[k] for b in batches]), device="cuda")
+            for k in batches[0]}
+
+
+def _graph_ms(torch, timer, fn, steps):
+    """(host wall ms a step, device ms a step, its source) of ``fn``, a call
+    that runs ``steps`` training steps: the wall up to the end of its device
+    work, the device time from the profiler's kernels (or, where the
+    profiler records none, CUDA events around the call)."""
+    wall = _wall_s(torch, fn) * 1e3 / steps
+    dev, _ = _device_ms(timer, fn)
+    if dev is not None:
+        return wall, dev / steps, "profiler"
+    return wall, timer.event_ms(fn, reps=1, flush=False) / steps, "CUDA events"
+
+
+def lm_train_graphed_card(torch, timer, eager):
+    """18e: 18a's run (zamba2-7b at full width, bf16, 2 x 2048, remat,
+    AdamW on its schedule, LM_TRAIN_STEPS steps of ``train_loop``'s default
+    step from ``init_params(PRNGKey(0))``) again with ``steps_per_call`` =
+    LM_GRAPH_K: one CUDA graph for the chunk length, since the step is
+    marked capturable.  Its parameters and losses must be bitwise those of
+    18a's eager run (``eager``); prints the capture seconds, ms a step of
+    host wall and of device time of a replay against 18a's timed eager
+    step, the peaks of both runs, and the LM kernels' launches (captured
+    once, counted at each replay).  A capture that fails raises: nothing
+    falls back to eager steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=LM_TRAIN_LAYERS)
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    start = time.perf_counter()
+    out = _lm_train_run(torch, cfg, params, 1, LM_TRAIN_STEPS, steps_per_call=LM_GRAPH_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launched = {k: v for k, v in _read_launches().items() if k in LM_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    graph = out["graphs"].get(LM_GRAPH_K)
+    check(graph is not None, "18e: train_loop ran the LM step's chunks eagerly")
+    losses = [v for _, v in out["losses"]]
+    same_params = all(torch.equal(a, b) for a, b in zip(eager["params"],
+                                                        out["params"].parameters()))
+    data = SyntheticTokens(DataConfig(LM_TRAIN_BATCH, LM_TRAIN_LEN, cfg.vocab))
+    chunk = _stacked_batches(torch, data, range(LM_GRAPH_K))
+    state = (out["params"], out["opt_state"])
+    wall, dev, source = _graph_ms(torch, timer, lambda: graph(state, chunk), LM_GRAPH_K)
+    record = graph.record.by_kernel()
+    one = _lm_step_launches(cfg, 1)
+    n_chunks = -(-LM_TRAIN_STEPS // LM_GRAPH_K)
+    want = {k: n * (n_chunks * LM_GRAPH_K + 1) for k, n in one.items()}  # + the warm-up
+    want_rec = {k: n * LM_GRAPH_K for k, n in one.items()}
+    e_wall, e_dev = eager["ms"]
+    gib = 2**30
+    print(f"  18e zamba2-7b bf16, {cfg.n_layers} of 81 layers, B={LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_LEN}, remat, AdamW: 18a's train_loop run with K={LM_GRAPH_K}, graphed: "
+          f"bitwise 18a's eager run: parameters {same_params}, losses "
+          f"{losses == eager['losses']} ({', '.join(f'{v:.6f}' for v in losses)}); capture "
+          f"{graph.capture_seconds:.2f} s (the warm-up step included); ms a step, host wall"
+          f" / device: a replay {wall:.2f} / {dev:.2f} ({source}), 18a's timed eager step "
+          f"{e_wall:.2f} / {e_dev if e_dev is None else round(e_dev, 2)} (profiler); peak "
+          f"device memory graphed {peak / gib:.3f} GiB vs eager {eager['peak'] / gib:.3f}; "
+          f"run wall {seconds:.1f} s; launches {launched} (captured a chunk {record}); card "
+          f"{card_line()}", flush=True)
+    check(same_params and losses == eager["losses"],
+          "18e: the graphed chunks differ from 18a's eager steps")
+    check(launched == want and record == want_rec,
+          f"18e: the graphed run launched {launched} (captured {record}), not {want} "
+          f"({want_rec})")
+    del out, state, graph, params
+    torch.cuda.empty_cache()
+    return launched
 
 
 def lm_grad_card(torch):
@@ -4882,15 +4997,24 @@ def launcher_card(torch):
 
 def lm_training_phase(torch, timer):
     """Phase 18: LM training at full width; returns 18a's launches."""
-    launches = {}
-    for label, fn in (("18a", lambda: launches.update(lm_train_card(torch, timer))),
+    launches, eager = {}, {}
+
+    def train_card():
+        got, ref = lm_train_card(torch, timer)
+        launches.update(got)
+        eager.update(ref)
+
+    for label, fn in (("18a", train_card),
                       ("18b", lambda: lm_grad_card(torch)),
                       ("18c", lambda: ees_depth_card(torch)),
-                      ("18d", lambda: launcher_card(torch))):
+                      ("18d", lambda: launcher_card(torch)),
+                      ("18e", lambda: lm_train_graphed_card(torch, timer, eager))):
         start = time.perf_counter()
         print(f" {label}", flush=True)
         fn()
         print(f"  ({label}: {time.perf_counter() - start:.1f} s)", flush=True)
+        if label == "18e":
+            eager.clear()  # its parameters
     return launches
 
 
@@ -5632,6 +5756,7 @@ def mesh_phase(torch, params, y0, sync_abc):
 
 
 TP_TRAIN_STEPS = 2           # 21a: AdamW steps on a (1, 1) mesh against no mesh
+TP_GRAPH_K = 2               # 21a: DTensor steps a graphed chunk of train_loop
 TP_WORKERS = 2               # 21b: ranks on the one card (gloo), a (1, 2) mesh
 TP_F32 = (2, 1, 512)         # 21b: zamba2-7b float32 (layers, batch, tokens)
 TP_BF16 = (4, 1, 2048)       # 21b: zamba2-7b bf16, one training step
@@ -5742,6 +5867,9 @@ def tp_one_rank_card(torch):
                                   torch.stack(runs["mesh"]["losses"]))
         placed = sum(1 for p in runs["mesh"]["params"].parameters() if hasattr(p, "to_local"))
         n_par = len(list(runs["mesh"]["params"].parameters()))
+        del runs["plain"]["params"], runs["plain"]["state"], runs["mesh"]["state"]
+        torch.cuda.empty_cache()
+        graphed = _tp_graphed(torch, cfg, mesh, data, runs["mesh"])
     finally:
         dist.destroy_process_group()
     walls = {label: ", ".join(f"{w * 1e3:.1f}" for w in r["walls"]) for label, r in runs.items()}
@@ -5763,6 +5891,16 @@ def tp_one_rank_card(torch):
             "ssd_scan_bwd": cfg.n_layers * TP_TRAIN_STEPS}
     check({k: launched.get(k, 0) for k in want} == want,
           f"21a: the LM kernels launched {launched}, not {want}")
+    mesh_ms = runs["mesh"]["walls"][-1] * 1e3
+    print(f"  (a) graphed: the mesh steps again, through train_loop with K={TP_GRAPH_K} "
+          f"(one CUDA graph): bitwise the eager mesh steps: parameters "
+          f"{graphed['same_params']}, losses {graphed['same_losses']}; capture "
+          f"{graphed['capture']:.2f} s; ms a step, host wall / device ({graphed['ms'][2]}): a "
+          f"replay {graphed['ms'][0]:.2f} / {graphed['ms'][1]:.2f}, against the eager mesh "
+          f"step's host wall {mesh_ms:.1f} (step {TP_TRAIN_STEPS} above): the graph removes "
+          f"{1 - graphed['ms'][0] / mesh_ms:.1%} of it; card {card_line()}", flush=True)
+    check(graphed["same_params"] and graphed["same_losses"],
+          "21a: the graphed DTensor chunks differ from the eager ones")
     check(fwd["wgmma"] == want["flash_attention"]
           and bwd["wgmma"] == want["flash_attention_bwd"],
           f"21a: the attention took the routes {fwd} / {bwd}")
@@ -5771,23 +5909,68 @@ def tp_one_rank_card(torch):
     return {k: launched.get(k, 0) for k in LM_KERNELS}
 
 
+def _tp_graphed(torch, cfg, mesh, data, eager):
+    """21a's graphed part, on the live (1, 1) NCCL mesh: ``make_train_step``
+    on DTensor parameters under ``ShardingPolicy(("data", ), "model")``,
+    from the same weights, optimizer and batches as 21a's eager mesh steps
+    (``eager``), through ``train_loop`` with K = TP_GRAPH_K: the chunk runs
+    as one CUDA graph (the step is marked capturable), and its parameters
+    and losses must be bitwise the eager steps'.  Returns that, the capture
+    seconds and a replay's ms a step (host wall, device).  A capture that
+    fails raises."""
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import param_shardings, place
+    from repro_torch.models import ModelOptions, ShardingPolicy, init_params, make_train_step
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    timer = Timer(torch)
+    params = init_params(cfg, prng.PRNGKey(0, device="cuda"), device="cuda")
+    place(params, param_shardings(mesh, params))
+    opt = adamw(cosine_schedule(3e-4, 10, LM_TRAIN_STEPS))
+    step = make_train_step(cfg, opt, ModelOptions(remat=True,
+                                                  shard=ShardingPolicy(("data",), "model")))
+    with mesh:
+        res = train_loop(cfg, params, data, optimizer=opt, step_fn=step,
+                         loop=TrainLoopConfig(steps=TP_TRAIN_STEPS, log_every=1,
+                                              steps_per_call=TP_GRAPH_K))
+    graph = res["graphs"].get(TP_GRAPH_K)
+    check(graph is not None, "21a: train_loop ran the DTensor step's chunks eagerly")
+    same_params = all(torch.equal(_local(a), _local(b)) for a, b in zip(
+        eager["params"].parameters(), res["params"].parameters()))
+    same_losses = [v for _, v in res["losses"]] == [float(v) for v in eager["losses"]]
+    chunk = _stacked_batches(torch, data, range(TP_GRAPH_K))
+    state = (res["params"], res["opt_state"])
+
+    def replay():
+        with mesh:
+            graph(state, chunk)
+
+    out = dict(same_params=same_params, same_losses=same_losses,
+               capture=graph.capture_seconds, ms=_graph_ms(torch, timer, replay, TP_GRAPH_K))
+    del res, state, graph, params, timer
+    torch.cuda.empty_cache()
+    return out
+
+
 class _LocalShapes:
     """Records what the LM kernels' wrappers and the experts' GEMMs were
     handed on this rank (their module globals, wrapped): attention's
     (batch, query heads, KV heads, dtype), the scan's (batch, heads,
-    state), the experts' local count."""
+    state), the experts' local count, and the width of the logits the
+    vocab-parallel loss takes."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
-        from repro_torch.models import moe
+        from repro_torch.models import moe, transformer
 
-        self.mods = (fa_ops, ssd_ops, moe)
+        self.mods = (fa_ops, ssd_ops, moe, transformer)
         self.inner = (fa_ops.flash_attention, fa_ops.flash_attention_bwd, ssd_ops.ssd_scan,
-                      ssd_ops.ssd_scan_bwd, moe._experts)
+                      ssd_ops.ssd_scan_bwd, moe._experts, transformer._sharded_nll_sums)
         self.seen = {k: set() for k in ("flash_attention", "flash_attention_bwd", "ssd_scan",
-                                        "ssd_scan_bwd", "experts")}
-        fa, fab, ssd, ssdb, experts = self.inner
+                                        "ssd_scan_bwd", "experts", "loss_vocab")}
+        fa, fab, ssd, ssdb, experts, nll = self.inner
 
         def heads(name, fn):
             def wrapped(q, k, *a, **kw):
@@ -5805,16 +5988,21 @@ class _LocalShapes:
             self.seen["experts"].add(p["wg"].shape[0])
             return experts(p, xe)
 
+        def loss_vocab(logits, *a):
+            self.seen["loss_vocab"].add(logits.shape[-1])
+            return nll(logits, *a)
+
         fa_ops.flash_attention = heads("flash_attention", fa)
         fa_ops.flash_attention_bwd = heads("flash_attention_bwd", fab)
         ssd_ops.ssd_scan, ssd_ops.ssd_scan_bwd = scan("ssd_scan", ssd), scan("ssd_scan_bwd", ssdb)
         moe._experts = local_experts
+        transformer._sharded_nll_sums = loss_vocab
         return self
 
     def __exit__(self, *exc):
-        fa_ops, ssd_ops, moe = self.mods
+        fa_ops, ssd_ops, moe, transformer = self.mods
         (fa_ops.flash_attention, fa_ops.flash_attention_bwd, ssd_ops.ssd_scan,
-         ssd_ops.ssd_scan_bwd, moe._experts) = self.inner
+         ssd_ops.ssd_scan_bwd, moe._experts, transformer._sharded_nll_sums) = self.inner
         return False
 
     def report(self):
@@ -6085,6 +6273,16 @@ def tp_phase(torch):
                   f"{rep[part]['bwd']}; local shapes {rep[part]['shapes']}", flush=True)
     f32, bf16, dec = zero["f32"], zero["bf16"], zero["decode"]
     moe32, moe16 = zero["moe float32"], zero["moe bfloat16"]
+    from repro_torch.configs import get_arch
+
+    vocab = get_arch("zamba2-7b").padded_vocab
+    for r, rep in enumerate(ranks):
+        widths = {part: rep[part]["shapes"].get("loss_vocab") for part in ("f32", "bf16")}
+        print(f"  (b) rank {r}: the loss's local logits width (the vocab-parallel "
+              f"log-softmax), float32 gradients {widths['f32']}, bf16 step {widths['bf16']}, of "
+              f"{vocab} columns", flush=True)
+        check(all(w == [vocab // TP_WORKERS] for w in widths.values()),
+              f"21b rank {r}: the loss took logits of widths {widths}, not {vocab // TP_WORKERS}")
     print(f"  (b) {TP_WORKERS} processes on the one card (gloo, CUDA tensors), mesh (1, "
           f"{TP_WORKERS}): zamba2-7b float32 {TP_F32[0]} layers B={TP_F32[1]} x {TP_F32[2]}: "
           f"logits {f32['logit_rel']:.3e} of max|logit| from the one-rank run (limit "
@@ -6127,8 +6325,6 @@ def tp_phase(torch):
     check(moe16["vs_witness"]["bitwise"],
           "21b: the bf16 moe prefill differs from the one-rank witness of its reduction")
     check(dec["tokens_equal"], "21b: the sharded decode's tokens differ")
-    from repro_torch.configs import get_arch
-
     f32_cfg, moe_cfg = get_arch("zamba2-7b"), get_arch("olmoe-1b-7b")
     half = TP_WORKERS
     for r, rep in enumerate(ranks):
@@ -6169,7 +6365,13 @@ def tp_phase(torch):
 
 DRYRUN_FLOP_REL = 1e-6       # 22b: predicted FLOPs against FlopCounterMode's (the same ops)
 DRYRUN_PEAK_REL = 0.10       # 22b: the predicted peak against the plain path's measured one
-DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("zamba2-7b", "decode_32k", "multi"))
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("zamba2-7b", "decode_32k", "multi"),
+                ("yi-9b", "decode_32k", "single"))
+# 22c: predicted peaks a rank (GiB) before the vocab-parallel loss, decode q
+# on the cache's batch shard and query heads over a gathered KV group (the
+# dry run's table, PERF.md)
+DRYRUN_PEAKS_BEFORE = {("qwen3-1.7b", "train_4k", "single"): 122.02,
+                       ("yi-9b", "decode_32k", "single"): 169.57}
 DRYRUN_TIMEOUT = 300         # s, each dry-run process
 
 _DRYRUN_ONE_RANK = r"""
@@ -6333,6 +6535,15 @@ def dryrun_phase(torch, timer):
               f"--mesh {mesh}: {tags[-1] if tags else stdout[-300:]}", flush=True)
         check(len(tags) == 1 and tags[0].startswith(f"[ok] {mesh}"),
               f"22c: {name} did not end [ok]")
+        before = DRYRUN_PEAKS_BEFORE.get((arch, shape, mesh))
+        if before is not None:
+            peak = float(re.search(r"hbm=([0-9.]+)GiB", tags[0]).group(1))
+            print(f"      predicted peak a rank {peak:.2f} GiB, {before:.2f} GiB before the "
+                  f"vocab-parallel loss and the decode and head layouts (the card: "
+                  f"{dryrun.HBM_BUDGET / gib:.2f} GiB); card {card_line()}", flush=True)
+            check(peak < before, f"22c: {name}'s predicted peak did not fall")
+            if shape.startswith("train"):
+                check(peak * gib < dryrun.HBM_BUDGET, f"22c: {name} does not fit the card")
     print(f"  (phase 22 wall, the dry runs beside the card's step: "
           f"{time.perf_counter() - start:.1f} s)", flush=True)
 
@@ -6354,12 +6565,14 @@ def main() -> int:
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
     clock = {"phase": None, "start": t_start}
+    seconds_by_phase = {}
 
     def phase(label):
         """Prints the previous phase's seconds, then this phase's heading."""
         now = time.perf_counter()
         if clock["phase"] is not None:
             print(f"  ({clock['phase']}: {now - clock['start']:.1f} s)", flush=True)
+            seconds_by_phase[clock["phase"]] = round(now - clock["start"], 1)
         clock.update(phase=label.split(":")[0], start=now)
         if label:
             print(label, flush=True)
@@ -6516,7 +6729,7 @@ def main() -> int:
           flush=True)
 
     phase("phase 22: the dry run against the card (18a's step predicted on a fake world, "
-          "then run on the plain path; two production cells through the CLI)")
+          "then run on the plain path; three production cells through the CLI)")
     dryrun_phase(torch, timer)
     phase("")
 
@@ -6570,6 +6783,7 @@ def main() -> int:
          **({"launches_phase_21": tp_launches[name]} if name in tp_launches else {}),
          **({"launches_phase_15d": axpy_15d} if name == "axpy_chain" else {})}
         for name in sources]}
+    print(f"  seconds by phase: {seconds_by_phase}", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)

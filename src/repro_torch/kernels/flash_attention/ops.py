@@ -9,17 +9,20 @@ CUDA tensor and its twin ``attention_bwd_ref`` on a CPU tensor; the
 reference, which has no backward kernel, differentiates ``attention_ref``.
 
 Under a mesh (DTensor ``q``, ``k``, ``v``) each rank runs the same dispatch
-on its local shard: the batch as it is sharded and the heads where both
-head counts divide the mesh axis (``H/W`` query and ``KV/W`` KV heads keep
-their GQA grouping), everything else gathered first; the output comes back
-as a DTensor in that layout, and its gradient runs the backward on the same
-shards.
+on its local shard (:func:`repro_torch.spmd.gqa_map`): the batch as it is
+sharded and the heads where both head counts divide the mesh axis (``H/W``
+query and ``KV/W`` KV heads keep their GQA grouping); where only the query
+heads divide it, ``H/W`` query heads beside the one KV head of their
+group, taken from K and V whole; everything else gathered first.  The
+output comes back as a DTensor in q's layout, and its gradient runs the
+backward on the same shards (the KV gradients of a group summed over its
+ranks).
 """
 from __future__ import annotations
 
 import torch
 
-from ...spmd import heads_layout, local_map, mesh_of
+from ...spmd import gqa_map, mesh_of
 from .flash_attention import flash_attention, flash_attention_bwd
 from .ref import attention_ref
 
@@ -46,10 +49,8 @@ def attention(q, k, v, *, causal=True, sm_scale=None, use_kernel: str = "auto"):
     """use_kernel: 'auto' (the kernel on a CUDA tensor), 'never', 'interpret'."""
     mesh = mesh_of(q, k, v)
     if mesh is not None:
-        pl = heads_layout(mesh, q, 1, (q.shape[1], k.shape[1]))
-        return local_map(lambda *t: attention(*t, causal=causal, sm_scale=sm_scale,
-                                              use_kernel=use_kernel),
-                         mesh, (q, k, v), (pl, pl, pl), pl)
+        return gqa_map(lambda *t: attention(*t, causal=causal, sm_scale=sm_scale,
+                                            use_kernel=use_kernel), mesh, q, k, v)
     if use_kernel == "auto" and q.device.type == "cuda":
         return _FlashAttention.apply(q, k, v, causal, sm_scale)
     return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)

@@ -48,7 +48,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, use_kernel: str = "auto"):
                          f"chunk {chunk}")
     mesh = mesh_of(x, dt, A, B, C)
     if mesh is not None:
-        px = heads_layout(mesh, x, 2, (x.shape[2],))
+        px = heads_layout(mesh, x, 2)
         pa, pb = moved(px, {2: 0}), moved(px, {0: 0})
         return local_map(lambda *t: ssd(*t, chunk=chunk, use_kernel=use_kernel),
                          mesh, (x, dt, A, B, C), (px, px, pa, pb, pb), px)

@@ -12,11 +12,13 @@ Both accept q (B, H, Sq, hd), k/v (B, KV, Sk, hd) and broadcast KV heads by
 GQA grouping.  :func:`decode_attention` is the one-token path against a
 cache (plain torch; it reaches no kernel, as in the reference).
 
-Under a mesh (DTensor inputs) both run on each rank's local shard, heads
-sharded where the head counts divide the mesh axis
-(:func:`repro_torch.spmd.heads_layout`): ``flash`` takes the DTensors to
-the kernel's dispatch, which maps them to the shards itself, and
-``chunked`` is mapped here.
+Under a mesh (DTensor inputs) both run on each rank's local shard
+(:func:`repro_torch.spmd.gqa_map`): the batch as q shards it, and the
+query heads where the mesh axis divides them, the KV heads beside them
+where it divides those too, else each rank's KV head of its query group
+taken from K and V whole.  ``flash`` takes the DTensors to the kernel's
+dispatch, which maps them to the shards itself, and ``chunked`` and
+:func:`decode_attention` are mapped here.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention.ops import attention as flash_dispatch
-from ..spmd import heads_layout, local_map, mesh_of
+from ..spmd import gqa_map, mesh_of
 
 __all__ = ["gqa_attention", "decode_attention"]
 
@@ -73,10 +75,8 @@ def gqa_attention(
             )
     mesh = mesh_of(q, k, v)
     if mesh is not None:
-        pl = heads_layout(mesh, q, 1, (q.shape[1], k.shape[1]))
-        return local_map(lambda *t: _chunked(*t, causal=causal, sm_scale=sm_scale,
-                                             chunk=chunk),
-                         mesh, (q, k, v), (pl, pl, pl), pl)
+        return gqa_map(lambda *t: _chunked(*t, causal=causal, sm_scale=sm_scale, chunk=chunk),
+                       mesh, q, k, v)
     return _chunked(q, k, v, causal=causal, sm_scale=sm_scale, chunk=chunk)
 
 
@@ -84,13 +84,17 @@ def decode_attention(q, k_cache, v_cache, pos, *, sm_scale: Optional[float] = No
     """Single-token attention against a (B, KV, S_max, hd) cache.
 
     ``pos`` (an int or a 0-d integer tensor) is the index of the *current*
-    token (attend to cols <= pos).  O(S_max) per token.
+    token (attend to cols <= pos).  O(S_max) per token.  Under a mesh each
+    rank attends over its batch shard of the cache, as ``q`` is laid out
+    (``attn_block_decode`` lays it out as the cache's batch).
     """
     mesh = mesh_of(q, k_cache, v_cache)
     if mesh is not None:
-        pl = heads_layout(mesh, q, 1, (q.shape[1], k_cache.shape[1]))
-        return local_map(lambda *t: decode_attention(*t, pos, sm_scale=sm_scale),
-                         mesh, (q, k_cache, v_cache), (pl, pl, pl), pl)
+        return gqa_map(lambda *t: _decode(*t, pos, sm_scale), mesh, q, k_cache, v_cache)
+    return _decode(q, k_cache, v_cache, pos, sm_scale)
+
+
+def _decode(q, k_cache, v_cache, pos, sm_scale):
     b, hq, one, d = q.shape
     _, hk, smax, _ = k_cache.shape
     group = hq // hk

@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import prng
-from ..spmd import (block_of, is_dtensor, like, merge_last, redistribute, replicated_partials,
-                    split_last)
+from ..spmd import (batch_like, block_of, is_dtensor, like, merge_last, redistribute,
+                    replicated_partials, split_last)
 from .attention import decode_attention, gqa_attention
 from .common import ModelOptions
 
@@ -199,13 +199,17 @@ def attn_block_decode(cfg, p, x, k_cache, v_cache, pos):
 
     The caches are updated in place (the reference returns new arrays):
     k and v land at index ``pos``, clamped into the cache as
-    ``dynamic_update_slice`` clamps it, in the caches' own layout.
+    ``dynamic_update_slice`` clamps it, in the caches' own layout.  Under a
+    mesh q, k and v are first laid out on the cache's batch shard (under
+    FSDP ``x @ wq`` comes back as partial sums over ``"data"``, which would
+    otherwise gather the whole cache), so each rank attends over its own
+    rows of the cache.
     """
     b, one, d = x.shape
     hd = cfg.resolved_head_dim
     h = apply_norm(cfg.norm, p.get("ln"), x)
     idx = position_index(pos, x.device)
-    q, k, v = _qkv(cfg, p, h, idx)
+    q, k, v = (batch_like(t, k_cache) for t in _qkv(cfg, p, h, idx))
     # q, k, v: (B, H/KV, 1, hd); insert k, v at position pos.
     slot = idx.clamp(0, k_cache.shape[2] - 1)
     _write_slot(k_cache, k, slot)

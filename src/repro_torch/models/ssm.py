@@ -80,7 +80,7 @@ def _causal_conv(x, w, b):
     mesh each rank convolves its own channels (and batch rows)."""
     mesh = mesh_of(x, w, b)
     if mesh is not None:
-        px = heads_layout(mesh, x, 2, (x.shape[2],))
+        px = heads_layout(mesh, x, 2)
         return local_map(_causal_conv, mesh, (x, w, b),
                          (px, moved(px, {2: 1}), moved(px, {2: 0})), px)
     k = w.shape[0]
@@ -140,7 +140,7 @@ def _conv_step(cache, new, w, b):
     channels under a mesh."""
     mesh = mesh_of(cache, new, w, b)
     if mesh is not None:
-        pn = heads_layout(mesh, new, 1, (new.shape[1],))
+        pn = heads_layout(mesh, new, 1)
         pc = moved(pn, {0: 0, 1: 2})
         return local_map(_conv_step, mesh, (cache, new, w, b),
                          (pc, pn, moved(pn, {1: 1}), moved(pn, {1: 0})), [pn, pc])
@@ -155,7 +155,7 @@ def _ssm_step(xh, dt, A, B, C, D, state):
     state).  Under a mesh each rank steps its own heads (B and C whole)."""
     mesh = mesh_of(xh, dt, A, B, C, D, state)
     if mesh is not None:
-        px = heads_layout(mesh, xh, 1, (xh.shape[1],))
+        px = heads_layout(mesh, xh, 1)
         ph, pb = moved(px, {1: 0}), moved(px, {0: 0})
         return local_map(_ssm_step, mesh, (xh, dt, A, B, C, D, state),
                          (px, px, ph, pb, pb, ph, px), [px, px])

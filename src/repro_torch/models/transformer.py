@@ -32,10 +32,15 @@ reference's SPMD program, one process per card.  The embedding is a
 would gather the table); ``hidden`` lays out the residual stream after the
 embedding, after each block's row-parallel product (reducing its partial
 sums, as the reference's partitioner does before the residual add) and
-after each layer.  The loss gathers the vocab-sharded logits of each
-rank's batch rows before ``log_softmax``: aten's own log-softmax, so a mesh
-of one rank is bitwise the no-mesh path (``loss_parallel`` computes
-another one), at the cost of one all-gather of the logits.
+after each layer.  The loss is vocab-parallel where a mesh dim larger than
+one shards the logits' vocabulary (:class:`_ShardedNLL`): each rank takes
+the row maxima, the sums of exponentials and the label's logit over its
+own columns and combines them with all-reduces over those dims, and its
+gradient is its own columns' ``(onehot - softmax) * mask``, so no rank
+forms a full-vocab row, forward or backward.  Elsewhere (no such dim, as
+on a mesh of one rank) the rows go through aten's own ``log_softmax`` as
+without a mesh, so a mesh of one rank is bitwise the no-mesh path
+(``loss_parallel`` computes another log-softmax there).
 """
 from __future__ import annotations
 
@@ -326,26 +331,90 @@ def _nll_sums(logits, labels, mask):
     return torch.sum(ll * mask), torch.sum(mask)
 
 
+class _ShardedNLL(torch.autograd.Function):
+    """The masked log-likelihood sum of rows whose vocabulary is split over
+    the process ``groups``: ``logits`` (..., V/n) holds this rank's columns
+    from ``start``, ``labels`` the global ids.  The row max, the sum of
+    ``exp(x - max)`` and the label's logit (a masked local gather, zero on
+    the ranks that do not hold it) are reduced over ``groups``; the
+    log-likelihood is ``(x[label] - max) - log(sum)``, as aten's
+    log-softmax forms it.  The backward is this rank's columns of
+    ``(onehot - softmax) * mask * upstream``: no collective, nothing of
+    full-vocab width."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask, start, groups):
+        import torch.distributed as dist
+
+        m = logits.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+        m = torch.where(torch.isfinite(m), m, 0.0)  # a row of -inf: no nan
+        total = torch.exp(logits - m[..., None]).sum(dim=-1)
+        rel = labels - start
+        mine = (rel >= 0) & (rel < logits.shape[-1])
+        idx = torch.where(mine, rel, 0)[..., None]
+        picked = torch.where(mine, torch.gather(logits, -1, idx)[..., 0], 0.0)
+        for g in groups:
+            dist.all_reduce(total, group=g)
+            dist.all_reduce(picked, group=g)
+        log_total = torch.log(total)
+        ctx.save_for_backward(logits, m, log_total, idx, mine, mask)
+        return torch.sum(((picked - m) - log_total) * mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, m, log_total, idx, mine, mask = ctx.saved_tensors
+        out = -torch.exp((logits - m[..., None]) - log_total[..., None])
+        out.scatter_add_(-1, idx, mine[..., None].to(out.dtype))
+        return out * (mask * grad)[..., None], None, None, None, None
+
+
+def _sharded_nll_sums(logits, labels, mask, start, groups):
+    """:func:`_nll_sums` on this rank's vocabulary shard (:class:`_ShardedNLL`)."""
+    return _ShardedNLL.apply(logits, labels, mask, start, groups), torch.sum(mask)
+
+
+def _mesh_nll_sums(logits, labels, mask):
+    """:func:`_nll_sums` of DTensor logits: vocab-parallel over the mesh dims
+    larger than one that shard the vocabulary, each rank's rows as the
+    logits shard them; without such a dim, every rank's rows over the
+    whole vocabulary through :func:`_nll_sums`.  Both sums replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, vocab = logits.device_mesh, logits.dim() - 1
+    split = [i for i, p in enumerate(logits.placements)
+             if p.is_shard() and p.dim == vocab and mesh.size(i) > 1]
+    if not split:
+        rows = moved(logits.placements, {0: 0})
+        sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+        return (replicated(t) for t in local_map(
+            _nll_sums, mesh, (logits, labels, mask), (rows, rows, rows), [sums, sums]))
+    rows = tuple(Shard(p.dim) if p.is_shard() and p.dim < vocab else Replicate()
+                 for p in logits.placements)
+    cols = tuple(Shard(vocab) if i in split else p for i, p in enumerate(rows))
+    sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    start, groups = block_of(logits, vocab)[0], [mesh.get_group(i) for i in split]
+    return (replicated(t) for t in local_map(
+        lambda x, t, w: _sharded_nll_sums(x, t, w, start, groups), mesh,
+        (logits, labels, mask), (cols, rows, rows), [sums, sums]))
+
+
 def loss_fn(cfg: ArchConfig, params, batch, opts: ModelOptions = ModelOptions()):
     """Masked next-token cross-entropy over ``batch["labels"]`` and the
     optional ``batch["loss_mask"]`` (+0.01 * MoE aux / n_layers for moe).
-    Under a mesh each rank sums its batch rows over the whole vocabulary;
-    the loss is replicated."""
+    Under a mesh each rank sums its batch rows, over its vocabulary shard
+    where the vocabulary is split (:func:`_mesh_nll_sums`); the loss is
+    replicated."""
     logits, aux = forward(cfg, params, batch, opts)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    mesh = mesh_of(logits)
-    if mesh is None:
+    if mesh_of(logits) is None:
         num, den = _nll_sums(logits, labels, mask)
     else:
-        from torch.distributed.tensor import Partial, Replicate
-
-        rows = moved(logits.placements, {0: 0})
-        sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
-        num, den = (replicated(t) for t in local_map(
-            _nll_sums, mesh, (logits, labels, mask), (rows, rows, rows), [sums, sums]))
+        num, den = _mesh_nll_sums(logits, labels, mask)
     loss = -num / torch.clamp(den, min=1.0)
     if cfg.family == "moe":
         loss = loss + 0.01 * aux / cfg.n_layers
@@ -479,7 +548,13 @@ def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOption
     ``metrics`` holds the device scalars ``loss`` and ``grad_norm``.
     DTensor parameters (:func:`repro_torch.launch.mesh.place`) are taken as
     they are: each gradient is settled into its parameter's layout before
-    the update, which runs shard by shard."""
+    the update, which runs shard by shard.
+
+    The step carries ``capturable = True``: it reads nothing back on the
+    host (the optimizer's step count and schedule are device tensors, the
+    kernels' scratch is allocated on each call, MoE routing sorts on the
+    device), so :func:`repro_torch.train.train_loop` captures its chunks
+    into CUDA graphs on the card."""
 
     def train_step(params, opt_state, batch):
         leaves = list(params.parameters())
@@ -490,6 +565,7 @@ def make_train_step(cfg: ArchConfig, optimizer, opts: ModelOptions = ModelOption
         opt_state, gnorm = apply_update(optimizer, params, grads, opt_state)
         return params, opt_state, {"loss": full(loss.detach()), "grad_norm": gnorm}
 
+    train_step.capturable = True
     return train_step
 
 

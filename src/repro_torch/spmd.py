@@ -16,7 +16,10 @@ redistributed to the placements the function needs and handed over with
 ``to_local``, the outputs rebuilt with ``from_local``.  Its backward
 returns the gradient of an input that is replicated on a mesh dim the
 outputs are sharded on as a ``Partial`` sum: every rank holds only its
-shard's share of it.
+shard's share of it.  :func:`gqa_map` is the layout of the attention
+kernels over it (query heads sharded beside their KV group where the KV
+heads do not divide the mesh dim), and :func:`batch_like` lays a decode's
+q, k and v out on its cache's batch shard.
 
 :func:`redistribute` is DTensor's, with two changes.  A reduction of
 partial sums hands its gradient back replicated (DTensor's would mark it
@@ -39,9 +42,9 @@ from typing import Callable, Sequence
 import torch
 
 __all__ = ["is_dtensor", "mesh_of", "replicate", "like", "placements_for",
-           "redistribute", "local_map", "local_shard", "full", "heads_layout",
-           "moved", "placements_of", "replicated", "replicated_partials", "block_of",
-           "merge_last", "split_last"]
+           "redistribute", "local_map", "local_shard", "full", "heads_layout", "gqa_map",
+           "batch_like", "moved", "placements_of", "replicated", "replicated_partials",
+           "block_of", "merge_last", "split_last"]
 
 
 def is_dtensor(x) -> bool:
@@ -359,24 +362,87 @@ def merge_last(x):
     return _reshaped(x, (*x.shape[:-2], x.shape[-2] * x.shape[-1]), x.dim() - 2, x.shape[-2])
 
 
-def heads_layout(mesh, lead, heads_dim: int, n_heads: Sequence[int]) -> tuple:
+def heads_layout(mesh, lead, heads_dim: int) -> tuple:
     """Placements a per-head kernel can run under: ``lead``'s sharding of
-    its batch dim (0), and of its heads dim where every count in
-    ``n_heads`` divides the mesh dim; replicated elsewhere (a sequence or
-    partial layout is gathered or reduced: the kernels need every
-    position)."""
+    its batch dim (0), and of its heads dim where the mesh dim divides
+    ``lead``'s head count; replicated elsewhere (a sequence or partial
+    layout is gathered or reduced: the kernels need every position)."""
     from torch.distributed.tensor import Replicate, Shard
 
     out = []
     for i, p in enumerate(placements_of(lead, mesh)):
-        n = mesh.size(i)
         if p.is_shard() and p.dim == 0:
             out.append(Shard(0))
-        elif p.is_shard() and p.dim == heads_dim and all(h % n == 0 for h in n_heads):
+        elif p.is_shard() and p.dim == heads_dim and lead.shape[heads_dim] % mesh.size(i) == 0:
             out.append(Shard(heads_dim))
         else:
             out.append(Replicate())
     return tuple(out)
+
+
+def gqa_map(fn: Callable, mesh, q, k, v):
+    """``fn(q, k, v)``, attention of plain tensors with grouped KV heads (q
+    ``(B, Hq, ...)``, k and v ``(B, Hk, ...)``, query head ``h`` reading KV
+    head ``h // (Hq / Hk)``), on each rank's shards; the output is laid out
+    as ``q``.
+
+    The batch is sharded as ``q`` shards it.  On a mesh dim that shards
+    ``q``'s heads: where it divides both counts, both are sharded (each rank
+    keeps ``Hq/n`` query and ``Hk/n`` KV heads); where it divides only the
+    query heads and each rank's query heads fall in one KV group (and no
+    other mesh dim shards heads), ``q`` keeps its heads shard and K and V
+    come whole on that dim, each rank handing ``fn`` the KV head of its
+    group.  Their gradients then come back as partial sums over the ranks
+    (zero outside each rank's head), which the layout of K and V reduces.
+    Elsewhere everything is replicated (a sequence or partial layout is
+    gathered or reduced: attention needs every position)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    hq, hk = q.shape[1], k.shape[1]
+    group = hq // hk
+    pq, pkv, grouped = [], [], []
+    for i, p in enumerate(placements_of(q, mesh)):
+        n = mesh.size(i)
+        if p.is_shard() and p.dim == 0:
+            pq.append(Shard(0))
+            pkv.append(Shard(0))
+        elif p.is_shard() and p.dim == 1 and hq % n == 0 and hk % n == 0:
+            pq.append(Shard(1))
+            pkv.append(Shard(1))
+        elif p.is_shard() and p.dim == 1 and hq % n == 0 and group % (hq // n) == 0:
+            pq.append(Shard(1))
+            pkv.append(Replicate())
+            grouped.append(i)
+        else:
+            pq.append(Replicate())
+            pkv.append(Replicate())
+    heads = [i for i, p in enumerate(pq) if p.is_shard() and p.dim == 1]
+    if grouped and len(heads) > 1:
+        for i in grouped:
+            pq[i] = Replicate()
+        grouped = []
+    pq, pkv = tuple(pq), tuple(pkv)
+    if not grouped:
+        return local_map(fn, mesh, (q, k, v), (pq, pkv, pkv), pq)
+    n = mesh.size(grouped[0])
+    j = mesh.get_local_rank(grouped[0]) * (hq // n) // group
+    return local_map(lambda a, b, c: fn(a, b[:, j:j + 1], c[:, j:j + 1]), mesh, (q, k, v),
+                     (pq, pkv, pkv), pq)
+
+
+def batch_like(x, ref):
+    """``x`` (a DTensor; anything else is returned as it is) with its batch
+    dim (0) laid out as ``ref``'s: sharded on each mesh dim where ``ref``
+    shards dim 0 (partial sums reduce-scattered onto it), ``x``'s other
+    shards kept, and replicated elsewhere."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = tuple(Shard(0) if r.is_shard() and r.dim == 0 else
+                p if p.is_shard() and p.dim != 0 else Replicate()
+                for p, r in zip(x.placements, placements_of(ref, x.device_mesh)))
+    return redistribute(x, out)
 
 
 def moved(placements, dims: dict) -> tuple:

@@ -82,7 +82,10 @@ def make_accum_train_step(cfg, optimizer, opts: ModelOptions, microbatches: int 
     buffer's layout, so a data-axis layout (ZeRO-2: ``lambda bufs:
     place(bufs, opt_state_shardings(mesh, params, zero1=True).mu)``)
     turns the gradient all-reduce into a reduce-scatter onto a sharded
-    buffer, and the update reads the gradient in that layout."""
+    buffer, and the update reads the gradient in that layout.
+
+    The step carries ``capturable = True``, as
+    :func:`~repro_torch.models.make_train_step`'s does."""
     if microbatches <= 1:
         return make_train_step(cfg, optimizer, opts)
     adt = accum_dtype or torch.float32
@@ -109,6 +112,7 @@ def make_accum_train_step(cfg, optimizer, opts: ModelOptions, microbatches: int 
         opt_state, gnorm = apply_update(optimizer, params, grads, opt_state)
         return params, opt_state, {"loss": lsum / microbatches, "grad_norm": gnorm}
 
+    step.capturable = True
     return step
 
 
@@ -551,17 +555,19 @@ def train_loop(
     ``step_fn`` is marked ``capturable``, the stacked batches copied into
     its static buffer — and checkpoints land at chunk boundaries.  Metrics
     are read back ONCE at the end; ``n_dispatches`` counts the step calls
-    (K = 1) or chunks.  With ``loop.ckpt_dir`` the loop resumes from the
-    latest checkpoint there, restoring into ``params`` and the optimizer
-    state in place, and saves ``(params, opt_state)`` with
-    ``extra={"steps_per_call": K}``.
+    (K = 1) or chunks, and ``graphs`` maps each chunk length that ran as a
+    CUDA graph to it (its ``capture_seconds`` and ``record`` of captured
+    launches; a call replays it on a state and stacked batches).  With
+    ``loop.ckpt_dir`` the loop resumes from the latest checkpoint there,
+    restoring into ``params`` and the optimizer state in place, and saves
+    ``(params, opt_state)`` with ``extra={"steps_per_call": K}``.
 
     ``step_fn`` defaults to the LM's step, ``make_accum_train_step(cfg,
     optimizer, opts or ModelOptions(), loop.microbatches)`` with ``params``
     an :class:`~repro_torch.models.LMParams` (batches of ``tokens``,
     ``labels`` and ``loss_mask``, with a leading microbatch axis when
-    ``loop.microbatches > 1``); it is not marked capturable, so chunks of
-    it run eagerly."""
+    ``loop.microbatches > 1``); it is marked capturable, so on the card
+    its chunks run as CUDA graphs, bitwise the eager steps."""
     device = _state_leaves(params)[0].device
     optimizer = optimizer or adamw(cosine_schedule(3e-4, 10, loop.steps))
     if step_fn is None:
@@ -587,6 +593,7 @@ def train_loop(
     t0 = time.time()
     n_dispatches = 0
     pending = []  # (step info, device losses): read back once at the end
+    chunk_cache: Dict[int, Callable] = {}
     if K == 1:
         for step in range(start, loop.steps):
             params, opt_state, metrics = step_fn(params, opt_state,
@@ -599,7 +606,6 @@ def train_loop(
                                 extra={"steps_per_call": K})
     else:
         graphable = device.type == "cuda" and getattr(step_fn, "capturable", False)
-        chunk_cache: Dict[int, Callable] = {}
 
         def chunk_fn(length):
             if length not in chunk_cache:
@@ -642,8 +648,9 @@ def train_loop(
                 s1 = s0 + j + 1
                 if s1 % loop.log_every == 0 or s1 == loop.steps:
                     losses.append((s1, vals[j]))
+    graphs = {n: c for n, c in chunk_cache.items() if isinstance(c, _ChunkGraph)}
     return {"params": params, "opt_state": opt_state, "losses": losses,
-            "wall_s": time.time() - t0, "n_dispatches": n_dispatches}
+            "wall_s": time.time() - t0, "n_dispatches": n_dispatches, "graphs": graphs}
 
 
 @dataclasses.dataclass(frozen=True)

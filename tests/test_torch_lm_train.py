@@ -213,3 +213,37 @@ def test_accum_with_one_microbatch_is_the_train_step_and_constraints_wait(jparam
     assert constrain(x, None) is x
     with pytest.raises(ValueError, match="mesh"):
         constrain(x, ("data",))
+
+
+# -- graphed chunks (train_loop's CUDA graphs on the card) -------------------------
+
+def test_lm_steps_are_capturable_and_chunks_are_bitwise_the_steps():
+    """The LM steps carry ``capturable`` (so ``train_loop`` captures their
+    chunks on the card); on the CPU, chunks of K = 2 of the accumulating
+    step on olmoe's smoke config (moe: routing sorts on the device) give the
+    parameters and losses of K = 1, bitwise."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    cfg, _ = _cfgs("olmoe-1b-7b")
+    opt = adamw(1e-3)
+    for mb in (1, 2):
+        assert make_accum_train_step(cfg, opt, ModelOptions(), microbatches=mb).capturable
+    assert make_train_step(cfg, opt, ModelOptions()).capturable
+
+    class Data:  # two microbatches a step
+        source = SyntheticTokens(DataConfig(4, 8, cfg.vocab))
+
+        def batch_at(self, step):
+            return {k: v.reshape(2, 2, *v.shape[1:])
+                    for k, v in self.source.batch_at(step).items()}
+
+    runs = [train_loop(cfg, init_params(cfg, 0, device="cpu"), Data(), optimizer=opt,
+                       loop=TrainLoopConfig(steps=3, log_every=1, microbatches=2,
+                                            steps_per_call=k))
+            for k in (1, 2)]
+    assert runs[0]["losses"] == runs[1]["losses"] and len(runs[0]["losses"]) == 3
+    assert runs[1]["n_dispatches"] == 2 and runs[1]["graphs"] == {}
+    for a, b in zip(runs[0]["params"].parameters(), runs[1]["params"].parameters()):
+        assert torch.equal(a, b)

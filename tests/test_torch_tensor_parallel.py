@@ -28,7 +28,10 @@ counts the kernels' entries saw.  The parent holds the ranks' results:
 * ``make_accum_train_step`` with a data-axis ``grad_constraint`` (ZeRO-2:
   the buffers sharded on ``"data"``) against the step without it;
 * ``serve_step`` with ``cache_constraints`` (caches placed by
-  ``cache_pspecs``): the greedy tokens of the single process;
+  ``cache_pspecs``): the greedy tokens of the single process, also under
+  FSDP, where each rank's decode attends over its batch shard of the cache;
+* the loss vocab-parallel: each rank's log-softmax takes its half of the
+  vocabulary;
 * a checkpoint saved on the (2, 2) mesh restored onto (1, 4) and (4, 1),
   bitwise (the counterpart of the reference's
   ``tests/test_launch_distributed.py::test_elastic_checkpoint_reshard``).
@@ -70,10 +73,20 @@ RESHARD = ((1, 4), (4, 1))
 # the batch's rows on "data" as the production step places them: the
 # parameters also sharded on "data" (FSDP: the lookup gathers the embedding's
 # width, the experts their weights'), and heads the model axis cannot split
-# evenly (3 query heads and 1 KV head on 2: held replicated there).
+# evenly (3 query heads and 1 KV head on 2: held replicated there), and
+# query heads it splits beside a KV head it cannot (4 and 1 on 2: each rank
+# takes 2 query heads and the KV head of their group).
 VARIANTS = {"qwen3-1.7b-fsdp": ("qwen3-1.7b", True, {}),
             "olmoe-1b-7b-fsdp": ("olmoe-1b-7b", True, {}),
-            "qwen3-1.7b-3-heads": ("qwen3-1.7b", False, dict(n_heads=3, n_kv_heads=1))}
+            "qwen3-1.7b-3-heads": ("qwen3-1.7b", False, dict(n_heads=3, n_kv_heads=1)),
+            "qwen3-1.7b-kv1": ("qwen3-1.7b", False, dict(n_heads=4, n_kv_heads=1))}
+# (query heads, KV heads) the attention kernel sees on each rank, by variant
+HEADS_SEEN = {"qwen3-1.7b-3-heads": (3, 1), "qwen3-1.7b-kv1": (2, 1)}
+# The FSDP decode's widths: qwen3-1.7b's smoke d_model, and one at which
+# DTensor resolves x @ wq as partial sums over "data" (at 64 and 256 it
+# gathers wq instead and q keeps its batch shard; at 512 and 1024 it does
+# not), with the port's own init_params(0) weights.
+FSDP_DECODE = {"d64": None, "d512": 512}
 
 
 def _free_port():
@@ -262,12 +275,22 @@ def _rank_checks(weights, rank):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.mesh import cache_shardings, param_shardings, place
-    from repro_torch.models import ModelOptions, ShardingPolicy, init_cache
-    from repro_torch.models import moe
+    from repro_torch.models import ModelOptions, ShardingPolicy, init_cache, init_params
+    from repro_torch.models import attention, moe, transformer
     from torch.distributed.device_mesh import DeviceMesh
 
-    seen = {"attention": set(), "ssd": set(), "experts": set()}
+    seen = {"attention": set(), "ssd": set(), "experts": set(), "loss_vocab": set(),
+            "decode_cache": set()}
     attention_ref, ssd_ref, experts = fa_ops.attention_ref, ssd_ops.ssd_chunked_ref, moe._experts
+    nll, decode = transformer._sharded_nll_sums, attention._decode
+
+    def record_nll(logits, *args):
+        seen["loss_vocab"].add(logits.shape[-1])
+        return nll(logits, *args)
+
+    def record_decode(q, k_cache, *args):
+        seen["decode_cache"].add(tuple(k_cache.shape[:2]))
+        return decode(q, k_cache, *args)
 
     def record_attention(q, k, v, **kw):
         seen["attention"].add((q.shape[0], q.shape[1], k.shape[1]))
@@ -283,6 +306,7 @@ def _rank_checks(weights, rank):
 
     fa_ops.attention_ref, ssd_ops.ssd_chunked_ref = record_attention, record_ssd
     moe._experts = record_experts
+    transformer._sharded_nll_sums, attention._decode = record_nll, record_decode
     mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(SHAPE),
                       mesh_dim_names=("data", "model"))
     opts = ModelOptions(**OPTS, shard=ShardingPolicy(("data",), "model"))
@@ -294,7 +318,7 @@ def _rank_checks(weights, rank):
         params = _params(weights, arch)
         place(params, param_shardings(mesh, params))
         res = {"loss_grads": _loss_and_grads(cfg, params, opts, mesh),
-               "seen": {k: sorted(v) for k, v in seen.items()}}
+               "seen": {k: sorted(v) for k, v in seen.items() if k != "decode_cache"}}
         gathers = spmd._gathers_by_all_reduce
         spmd._gathers_by_all_reduce = lambda mesh: True
         try:
@@ -315,13 +339,32 @@ def _rank_checks(weights, rank):
         got[arch] = res
     for case, (_, fsdp, _) in VARIANTS.items():
         seen["attention"] = set()
+        cfg = _variant_cfg(case)
         params = _params(weights, case)
         place(params, param_shardings(mesh, params, fsdp=fsdp))
-        got[case] = {"loss_grads": _loss_and_grads(_variant_cfg(case), params, opts, mesh,
-                                                   batch_on_data=True),
+        got[case] = {"loss_grads": _loss_and_grads(cfg, params, opts, mesh, batch_on_data=True),
                      "attention": sorted(seen["attention"]),
                      "on_data": sum(p.placements[0].is_shard() for p in params.parameters())}
+    for label, width in FSDP_DECODE.items():  # decode with the batch on "data"
+        cfg = _fsdp_decode_cfg(width)
+        params = _params(weights, "qwen3-1.7b") if width is None else init_params(cfg, 0,
+                                                                                   device="cpu")
+        place(params, param_shardings(mesh, params, fsdp=True))
+        seen["decode_cache"] = set()
+        cache = init_cache(cfg, 2, DECODE, device="cpu")
+        shardings, constraints = cache_shardings(mesh, cache, batch=2)
+        got[f"fsdp-decode-{label}"] = {
+            "decode": _decode(cfg, params, place(cache, shardings), ModelOptions(
+                shard=opts.shard, cache_constraints=constraints), mesh),
+            "decode_cache": sorted(seen["decode_cache"])}
     return got
+
+
+def _fsdp_decode_cfg(width):
+    import dataclasses
+
+    cfg = _cfg("qwen3-1.7b")
+    return cfg if width is None else dataclasses.replace(cfg, d_model=width)
 
 
 def _placed(weights, arch, mesh):
@@ -369,7 +412,7 @@ def weights():
 def _single(weights):
     """The single-process port: loss, gradients, decode and accumulating
     steps, with the same twins as the ranks."""
-    from repro_torch.models import ModelOptions, init_cache
+    from repro_torch.models import ModelOptions, init_cache, init_params
 
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -385,6 +428,11 @@ def _single(weights):
         for case in VARIANTS:
             out[case] = {"loss_grads": _loss_and_grads(_variant_cfg(case), _params(weights, case),
                                                        ModelOptions(**OPTS))}
+        cfg = _fsdp_decode_cfg(FSDP_DECODE["d512"])
+        out["fsdp-decode-d512"] = {"decode": _decode(cfg, init_params(cfg, 0, device="cpu"),
+                                                     init_cache(cfg, 2, DECODE, device="cpu"),
+                                                     ModelOptions())}
+        out["fsdp-decode-d64"] = out["qwen3-1.7b"]  # the same weights
         return out
     finally:
         torch.set_num_threads(threads)
@@ -478,14 +526,57 @@ def test_fsdp_and_uneven_heads_match_the_single_process(world, case):
     _, fsdp, over = VARIANTS[case]
     res = world["ranks"][0][case]
     assert (res["on_data"] > 0) == fsdp
-    if over:  # the kernel saw every head: the heads are whole on each rank
-        assert res["attention"] == [(B // 2, over["n_heads"], over["n_kv_heads"])]
+    if over:  # the heads the kernel saw on each rank
+        assert res["attention"] == [(B // 2, *HEADS_SEEN[case])]
     loss, grads = res["loss_grads"]
     loss0, grads0 = world["single"][case]["loss_grads"]
     _reorder_close(loss, loss0)
     assert sorted(grads) == sorted(grads0)
     for name, g in grads.items():
         _reorder_close(g, grads0[name])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_takes_each_rank_vocabulary_shard(world, arch):
+    """The vocab-parallel loss: each rank's log-softmax saw the logits of its
+    half of the (padded) vocabulary, never the whole rows; its loss and
+    gradients are held to the single process and the reference above."""
+    width = _cfg(arch).padded_vocab // SHAPE[1]
+    for rank in world["ranks"]:
+        assert rank[arch]["seen"]["loss_vocab"] == [width]
+
+
+def test_query_heads_shard_over_a_gathered_kv_group(world):
+    """4 query heads and 1 KV head on a model axis of 2: each rank's kernel
+    ran its 2 query heads against the one KV head (taken whole), and loss
+    and gradients (the KV gradients summed over the two ranks) match the
+    single process within the reorder bound."""
+    case = "qwen3-1.7b-kv1"
+    for rank in world["ranks"]:
+        assert rank[case]["attention"] == [(B // 2, 2, 1)]
+    loss, grads = world["ranks"][0][case]["loss_grads"]
+    loss0, grads0 = world["single"][case]["loss_grads"]
+    _reorder_close(loss, loss0)
+    assert sorted(grads) == sorted(grads0)
+    for name, g in grads.items():
+        _reorder_close(g, grads0[name])
+
+
+@pytest.mark.parametrize("width", list(FSDP_DECODE))
+def test_fsdp_decode_attends_over_each_rank_batch_shard(world, width):
+    """qwen3-1.7b's FSDP parameters (on "data" as well as "model"): the
+    decode lays q, k and v out on the cache's batch shard (at d512 ``x @
+    wq`` comes back as partial sums over "data"), so each rank's attention
+    read its 1 of 2 batch rows of the cache (and 1 of 2 KV heads), and the
+    greedy tokens are the single process's."""
+    case = f"fsdp-decode-{width}"
+    cfg = _cfg("qwen3-1.7b")
+    for rank in world["ranks"]:
+        assert rank[case]["decode_cache"] == [(1, cfg.n_kv_heads // SHAPE[1])]
+    toks, logits = world["ranks"][0][case]["decode"]
+    toks0, logits0 = world["single"][case]["decode"]
+    assert torch.equal(toks, toks0)
+    _reorder_close(logits, logits0)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
