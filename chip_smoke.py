@@ -68,11 +68,18 @@ DTensor meshes — and checks what comes out:
    bf16 gate printed (the tensor cores' toward-zero accumulation, ROADMAP
    C6), timed beside SDPA's forward and backward;
 4. serving requests A-D (A and B share a padded bucket; D is A's seed on the
-   plain path), with shapes, finiteness, A against D, A against a CPU run of
-   the plain path, paths/s, dispatch counts and a profile of one dispatch;
+   plain path) through captured tick graphs (one per signature and per
+   bucket and live-step count, every tick of the drain a replay), with
+   shapes, finiteness, A against D, A against a CPU run of the plain path,
+   paths/s, dispatch counts, the graphs' count, capture seconds, replays
+   and pool MiB, a profile of one replayed dispatch and a replayed dispatch
+   under ``set_sync_debug_mode("error")``; then one tick of each captured
+   key (A/B's bucket at 8 and 6 live steps, C's signature with
+   ``save_every=4``, D's bucket) replayed against the eager
+   ``sdeint_ticks`` on the same keys, bitwise;
 5. an ODE-mode ``sdeint`` through the ``williamson2n`` kernel against the
    plain path;
-6. the serving path's launch counts;
+6. the serving path's launch counts, the replayed ones among them;
 7. Table 1 on the card: the four ``:use_kernels=True`` solvers trained for
    the reference's 60 epochs at 256 paths, after their first epochs are
    held against the plain path on the card and on the CPU; the
@@ -111,9 +118,11 @@ DTensor meshes — and checks what comes out:
    wgmma route, 81 ``ssd_scan``), peak memory, tokens/s, the profile by
    kernel kind, and no host sync;
 12. the decode ``Engine`` on those weights: 8 requests of 8-token prompts,
-   greedy, ``slots=8, max_len=32``: tokens/s, ticks, finite logits, and the
-   same tokens from a second drain on a new engine; one decode step's host
-   wall, device time and launches;
+   greedy, ``slots=8, max_len=32``, its ``serve_step`` captured into a CUDA
+   graph: tokens/s, ticks, finite logits, capture seconds, the same tokens
+   from a drain whose step is the eager ``make_serve_step(cfg)`` and from a
+   second graphed drain on a new engine, ms a tick graphed and eager; one
+   decode step's host wall, device time and launches, eager and replayed;
 13. the paper's Euclidean experiments at the reference's sizes
    (``repro_torch.benchmarks.table7_gbm``, ``table2_vol``,
    ``bench_stability``): (a) Table 7's four solvers through the kernels,
@@ -137,14 +146,15 @@ DTensor meshes — and checks what comes out:
    to phase 4's sync drain, through ``ws_stage_diag``, with async and sync
    paths/s, the second round's host time by layer, no host sync inside a
    steady-state dispatch under ``set_sync_debug_mode("warn")``, first
-   dispatches in worker threads, every launch on the executor's stream and
-   no result carrying an autograd graph; (b) seeded NaN faults (rate 0.3,
+   dispatches (and every tick-graph capture) in worker threads, every
+   eager launch and every replay on the executor's stream, every tick a
+   replay, and no result carrying an autograd graph; (b) seeded NaN faults (rate 0.3,
    seed 0, plus one targeted cell of A): every request completes, A retries,
    B and C bitwise (a); (c) one injected crash: one supervised restart,
    bitwise (a); (d) ``warmup`` of A-C's signatures in a fresh process with a
    temporary ``compile_cache_dir`` builds ``ws_stage_diag`` there, and a
-   second process on that directory runs no ``nvcc``, each one's seconds
-   printed;
+   second process on that directory runs no ``nvcc`` but captures its
+   tick graphs again, each one's seconds printed;
 15. adaptive solves on Virtual Brownian Trees, on phase 4's model: (a)
    request O (``ees25:adaptive,use_kernels=True``, t1 = 2, a 256-trial
    budget, 65,536 paths, rtol 1e-3, ``save_at`` 0.5/1/1.5/2) and P (O's
@@ -250,7 +260,8 @@ DTensor meshes — and checks what comes out:
    tokens may);
 20. mesh data parallelism (``repro_torch.launch.mesh``): (a) requests A-C
    through ``SDESampleEngine`` with its slots sharded on
-   ``make_sample_mesh(1)`` over a world of one NCCL rank, bitwise phase 4's
+   ``make_sample_mesh(1)`` over a world of one NCCL rank, its ticks
+   replayed from tick graphs that hold the all-gather, bitwise phase 4's
    drain, paths/s beside phase 4's, ``ws_stage_diag`` launched; (b) the
    Table-1 EES(2,5) step (kernels, reversible adjoint) for 3 AdamW steps on
    ``make_train_mesh(1)``, bitwise the steps without a mesh, ms a step,
@@ -258,8 +269,8 @@ DTensor meshes — and checks what comes out:
    ``make_scanned_step`` into a CUDA graph, bitwise the sequential steps;
    (c) two processes on the one card over gloo's CUDA collectives (NCCL
    refuses two ranks on one device): request A sharded (held to one rank's
-   drain) and one Table-1 step (the gradient within the reorder bound of
-   one device's);
+   drain; the gloo executors run eagerly) and one Table-1 step (the
+   gradient within the reorder bound of one device's);
 21. the LM's tensor, expert and sequence parallelism on DTensor: (a)
    zamba2-7b at full width, bf16, 12 layers, B = 2 x 2048, remat: two AdamW
    steps of ``make_train_step`` with every parameter a DTensor on a (1, 1)
@@ -1302,6 +1313,14 @@ def flash_long_phase(torch, timer):
     return rows
 
 
+# Requests A-C of phase 4: (spec, t1, n_steps, n_paths, save_every, seed);
+# D is A on the plain path.
+ABC = (("ees25:use_kernels=True", 2.0, 8, 2 * SERVE_SLOTS, None, 11),
+       ("ees25:use_kernels=True", 1.5, 6, SERVE_SLOTS, None, 12),
+       ("ees27:use_kernels=True", 2.0, 16, SERVE_SLOTS, 4, 13))
+D_REQUEST = ("ees25", 2.0, 8, 2 * SERVE_SLOTS, None, 11)
+
+
 def tick_breakdown(torch, timer, engine, keys, bucket):
     """Device time by kernel over one bucketed single-tick dispatch, the
     share of it spent realizing the threefry increments, and the device's
@@ -1325,8 +1344,8 @@ def tick_breakdown(torch, timer, engine, keys, bucket):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - start)
     wall_ms = min(walls) * 1e3
-    print(f"  one bucketed tick ({SERVE_SLOTS} paths x 8 steps): host wall "
-          f"{wall_ms:.3f} ms, device kernel time {dev_ms:.3f} ms over "
+    print(f"  one bucketed tick ({SERVE_SLOTS} paths x 8 steps), a graph replay: host "
+          f"wall {wall_ms:.3f} ms, device kernel time {dev_ms:.3f} ms over "
           f"{launches} launches (device busy {dev_ms / wall_ms:.0%}); bulk "
           f"threefry increments {rng_ms:.3f} ms of it", flush=True)
     rows = sorted(((t / 3, n // 3, name) for name, (t, n) in totals.items()),
@@ -1354,11 +1373,15 @@ def serve_phase(torch, timer):
                       n_paths=1024, seed=99)
         engine.run()
         bucket = BucketKey("ees25:use_kernels=True", 0.0, 0.25, 8)
+        check(engine.executor.graphed and (bucket, 8, SERVE_SLOTS) in engine.executor._graphs,
+              "the warm-up drain captured no tick graph of A's bucket")
         tick_keys = path_keys(PRNGKey(7, device="cuda"), SERVE_SLOTS)[None]
         tick_breakdown(torch, timer, engine, tick_keys, bucket)
 
         # Dispatch and key packing must not wait on the device, or double
-        # buffering cannot overlap planning with integration.
+        # buffering cannot overlap planning with integration: a replay,
+        # after the capture.
+        n_graphs, n_replays = len(engine.executor._graphs), engine.executor.n_replays
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1368,8 +1391,11 @@ def serve_phase(torch, timer):
             fail(f"dispatch synchronized with the host: {exc}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        print("  a bucketed dispatch and a request's key packing ran with "
-              "torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
+        check(len(engine.executor._graphs) == n_graphs
+              and engine.executor.n_replays == n_replays + 1,
+              "the sync-checked dispatch was not a replay")
+        print("  a bucketed dispatch (a graph replay) and a request's key packing ran "
+              "with torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
 
         host = {"dispatch": 0.0, "deliver": 0.0}
 
@@ -1382,21 +1408,25 @@ def serve_phase(torch, timer):
                     host[name] += time.perf_counter() - start
             return wrapper
 
+        # A-D's keys captured ahead of traffic, so the timed drain replays
+        start = time.perf_counter()
+        fresh = engine.warmup([dict(solver=s, t1=t1, n_steps=n, save_every=se)
+                               for s, t1, n, _, se, _ in ABC + (D_REQUEST,)])
+        print(f"  warmup of A-D's signatures: {fresh} entries, "
+              f"{len(engine.executor._graphs)} tick graphs in "
+              f"{time.perf_counter() - start:.3f} s", flush=True)
         engine.executor.dispatch = timed("dispatch", engine.executor.dispatch)
         engine.scheduler.deliver = timed("deliver", engine.scheduler.deliver)
         engine.executor.n_dispatches = engine.executor.n_ticks = 0
-        WS_STAGE_DIAG.launches = 0
+        replays_before = engine.executor.n_replays
+        graphs_before = len(engine.executor._graphs)
+        WS_STAGE_DIAG.launches = WS_STAGE_DIAG.replayed_launches = 0
         WILLIAMSON2N.launches = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
-        rid_a = engine.submit("ees25:use_kernels=True", t1=2.0, n_steps=8,
-                              n_paths=2 * SERVE_SLOTS, seed=11)
-        rid_b = engine.submit("ees25:use_kernels=True", t1=1.5, n_steps=6,
-                              n_paths=SERVE_SLOTS, seed=12)
-        rid_c = engine.submit("ees27:use_kernels=True", t1=2.0, n_steps=16,
-                              save_every=4, n_paths=SERVE_SLOTS, seed=13)
-        rid_d = engine.submit("ees25", t1=2.0, n_steps=8,
-                              n_paths=2 * SERVE_SLOTS, seed=11)
+        rid_a, rid_b, rid_c, rid_d = (
+            engine.submit(s, t1=t1, n_steps=n, n_paths=p, save_every=se, seed=seed)
+            for s, t1, n, p, se, seed in ABC + (D_REQUEST,))
         done = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
@@ -1406,7 +1436,18 @@ def serve_phase(torch, timer):
           f"{n_paths / wall:.0f} paths/s (host wall clock incl. delivery); "
           f"n_dispatches={engine.executor.n_dispatches} "
           f"n_ticks={engine.executor.n_ticks}; ws_stage_diag launches="
-          f"{WS_STAGE_DIAG.launches}", flush=True)
+          f"{WS_STAGE_DIAG.launches} ({WS_STAGE_DIAG.replayed_launches} of them replayed "
+          f"from tick graphs)", flush=True)
+    replays = engine.executor.n_replays - replays_before
+    stats = engine.executor.graph_stats()
+    print(f"  tick graphs: {stats['graphs']} captured in {stats['capture_s']:.3f} s "
+          f"({stats['capture_s'] / max(1, stats['graphs']):.3f} s a graph, its eager "
+          f"warm-up tick included; {stats['graphs'] - graphs_before} of them in the drain: "
+          f"warmup captures a bucket's full-length tick), {replays} replays in the drain "
+          f"for its {engine.executor.n_ticks} ticks, shared pool {stats['pool_mib']:.1f} "
+          f"MiB", flush=True)
+    check(replays == engine.executor.n_ticks,
+          "a tick of the drain ran outside its tick graph")
     print(f"  host time in that run: {host['dispatch']:.3f} s enqueuing "
           f"dispatches, {host['deliver']:.3f} s scattering results to "
           f"requests, {wall - host['dispatch'] - host['deliver']:.3f} s "
@@ -1453,7 +1494,49 @@ def serve_phase(torch, timer):
           f"{cpu_err:.3e} (tolerance {cpu_tol:.1e})", flush=True)
     check(cpu_err <= cpu_tol, "served samples disagree with the CPU run")
     check(WS_STAGE_DIAG.launches > 0, "serving launched no ws_stage_diag kernel")
+    # the witnesses' launches are not the drain's
+    counts = WS_STAGE_DIAG.launches, WS_STAGE_DIAG.replayed_launches
+    graphed_vs_eager(torch, engine.executor)
+    WS_STAGE_DIAG.launches, WS_STAGE_DIAG.replayed_launches = counts
     return params, y0, [done[rid_a], done[rid_b], done[rid_c]]
+
+
+def _eager_tick(torch, executor, key, n_active, keys):
+    """The eager ``sdeint_ticks`` call a tick graph of ``executor`` holds:
+    ``key`` a signature or a bucket at ``n_active`` live steps."""
+    from repro_torch.core import sdeint_ticks
+    from repro_torch.serving import BucketKey
+
+    common = dict(args=executor.args, noise_shape=executor.noise_shape,
+                  dtype=executor.dtype, guard=executor.guard, device=executor.device,
+                  mesh=executor.mesh, mesh_axis=executor.mesh_axis)
+    if isinstance(key, BucketKey):
+        return sdeint_ticks(executor.term, key.solver, key.t0, key.t0 + key.n_padded * key.h,
+                            key.n_padded, executor.y0, keys, active_steps=(n_active,),
+                            step_size=key.h, **common)
+    solver, t0, t1, n_steps, save_every = key[:5]
+    return sdeint_ticks(executor.term, solver, t0, t1, n_steps, executor.y0, keys,
+                        save_every=save_every, **common)
+
+
+def graphed_vs_eager(torch, executor):
+    """One tick of each key the drain captured, replayed and through the
+    eager ``sdeint_ticks`` on the same keys: bitwise on every output leaf."""
+    from repro_torch.core import PRNGKey, path_keys
+    from repro_torch.core.pytree import tree_flatten
+
+    with torch.no_grad():
+        for i, (key, n_active, slots) in enumerate(list(executor._graphs)):
+            keys = path_keys(PRNGKey(500 + i, device="cuda"), slots)[None]
+            got = executor.dispatch(key, keys, None if n_active is None else (n_active,))
+            want = _eager_tick(torch, executor, key, n_active, keys)
+            got, want = tree_flatten(got)[0], tree_flatten(want)[0]
+            same = len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+            label = (f"{key.solver} bucket at {n_active} live" if n_active is not None
+                     else f"{key[0]} t1={key[2]} n={key[3]} save_every={key[4]}")
+            print(f"  graphed tick vs eager sdeint_ticks, {label}: {len(got)} leaves "
+                  f"bitwise equal: {same}", flush=True)
+            check(same, f"the graphed tick of {label} differs from the eager one")
 
 
 def ode_phase(torch, params):
@@ -1960,6 +2043,14 @@ def noise_serve_phase(torch, timer):
         for us, n, name in rows[:6]:
             print(f"    {us / 1e3:8.3f} ms {n:5d}x  {name[:100]}", flush=True)
     print(f"  (the tick profiles: {time.perf_counter() - start:.1f} s)", flush=True)
+    for name, eng in engines.items():
+        stats = eng.executor.graph_stats()
+        print(f"  {name} engine: {stats['graphs']} tick graphs captured in "
+              f"{stats['capture_s']:.3f} s, {stats['replays']} replays for its "
+              f"{eng.executor.n_ticks} ticks, shared pool {stats['pool_mib']:.1f} MiB",
+              flush=True)
+        check(stats["graphs"] > 0 and stats["replays"] == eng.executor.n_ticks,
+              f"a tick of the {name} engine ran outside its tick graph")
     start = time.perf_counter()
     wide, wide_routes = wide_general_request(torch, timer)
     print(f"  (the m = {WIDE_CHANNELS} request: {time.perf_counter() - start:.1f} s)",
@@ -2031,15 +2122,17 @@ def wide_general_request(torch, timer):
           f"{walls[specs[1]]:.3f} s (host wall); kernel launches {launches}, general "
           f"kernels by route {routes}", flush=True)
     check(err <= 1e-5, "the m = 128 request: the kernel route disagrees with the plain route")
+    check(eng.executor.n_replays == eng.executor.n_ticks,
+          "a tick of the m = 128 request ran outside its tick graph")
     check(routes["ws_stage_general"]["staged"] > 0,
           "the m = 128 request launched no ws_stage_general kernel on the staged route")
     keys = path_keys(PRNGKey(7, device="cuda"), WIDE_PATHS)[None]
     for spec in specs:
         bucket = BucketKey(spec, 0.0, NOISE_T1 / NOISE_STEPS, NOISE_STEPS)
-        with torch.no_grad():  # the drains above warmed the bucket
+        with torch.no_grad():  # the unprofiled call captures this slot count's graph
             totals = timer.kernels_us(
                 lambda: eng.executor.dispatch(bucket, keys, (NOISE_STEPS,)),
-                reps=TICK_PROFILE_REPS, flush=False, warm=False)
+                reps=TICK_PROFILE_REPS, flush=False, warm=True)
         dev_ms = sum(us for us, _ in totals.values()) / TICK_PROFILE_REPS / 1e3
         general_ms = sum(us for name, (us, _) in totals.items()
                          if "general_kernel" in name) / TICK_PROFILE_REPS / 1e3
@@ -2370,12 +2463,21 @@ def lm_prefill_phase(torch, timer):
     return cfg, params, launches
 
 
-def _engine_drain(torch, cfg, params, prompts, max_len):
+def _engine_drain(torch, cfg, params, prompts, max_len, eager=False):
     """One drain of ``prompts`` through a new decode Engine (a slot each,
-    greedy): (tokens by request, host seconds, ticks, every logit finite)."""
+    greedy): (tokens by request, host seconds, ticks, every logit finite,
+    the engine's decode graph).  The Engine captures its step on the card;
+    ``eager`` sets its step to the eager ``make_serve_step(cfg)`` instead
+    (the graph is then None)."""
+    from repro_torch.models import make_serve_step
     from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.engine import _DecodeGraph
 
     eng = Engine(cfg, params, ServeConfig(slots=len(prompts), max_len=max_len))
+    if eager:
+        eng._step = make_serve_step(cfg)
+    check(isinstance(eng._step, _DecodeGraph) != eager,
+          f"{cfg.name}: the Engine's decode step is {'not ' * (not eager)}graphed")
     step, finite, ticks = eng._step, [], [0]
 
     def counted(*args):
@@ -2391,7 +2493,11 @@ def _engine_drain(torch, cfg, params, prompts, max_len):
     start = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
-    return done, time.perf_counter() - start, ticks[0], bool(torch.stack(finite).all())
+    wall = time.perf_counter() - start
+    graph = None if eager else step
+    check(graph is None or graph.replays == ticks[0],
+          f"{cfg.name}: a decode tick ran outside the Engine's graph")
+    return done, wall, ticks[0], bool(torch.stack(finite).all()), graph
 
 
 LM_SERVE_LEN = 32                # phase 12: the Engine's max_len (8-token prompts)
@@ -2399,57 +2505,75 @@ LM_SERVE_LEN = 32                # phase 12: the Engine's max_len (8-token promp
 
 def lm_serve_phase(torch, timer, cfg, params):
     """Phase 12: zamba2-7b (bf16, full width and depth) served by the decode
-    Engine: 8 requests of 8-token prompts, greedy, twice."""
+    Engine: 8 requests of 8-token prompts, greedy; graphed, eager, and
+    graphed again on a new engine, the same tokens each time."""
     prompts = np.random.default_rng(13).integers(2, cfg.vocab, size=(8, 8)).tolist()
 
-    def drain():
-        return _engine_drain(torch, cfg, params, prompts, LM_SERVE_LEN)
+    def drain(eager=False):
+        return _engine_drain(torch, cfg, params, prompts, LM_SERVE_LEN, eager)
 
-    first, wall, ticks, finite = drain()
+    first, wall, ticks, finite, graph = drain()
     new = sum(len(t) - len(p) for t, p in zip(first.values(), prompts))
-    print(f"  Engine(slots=8, max_len={LM_SERVE_LEN}), 8 requests x 8-token prompts, greedy: "
-          f"{new} new tokens in {ticks} ticks, {wall:.3f} s = {new / wall:.1f} "
-          f"tokens/s ({wall / ticks * 1e3:.1f} ms a tick, host wall clock incl. "
-          f"the token-by-token prefill); logits finite: {finite}", flush=True)
+    replay_s = wall - graph.capture_seconds
+    print(f"  Engine(slots=8, max_len={LM_SERVE_LEN}), 8 requests x 8-token prompts, greedy, "
+          f"graphed: {new} new tokens in {ticks} ticks, {wall:.3f} s = {new / wall:.1f} "
+          f"tokens/s ({wall / ticks * 1e3:.1f} ms a tick, host wall clock incl. the "
+          f"token-by-token prefill and the capture; {replay_s / ticks * 1e3:.1f} ms a "
+          f"tick without the capture's {graph.capture_seconds:.3f} s); {graph.replays} "
+          f"replays; logits finite: {finite}", flush=True)
     check(finite, "the served logits are not finite")
     check(len(first) == 8 and all(t[:8] == p for t, p in
                                   zip((first[i] for i in range(8)), prompts)),
           "the engine did not finish the 8 requests")
-    second, wall2, _, _ = drain()
+    eager, wall_e, ticks_e, _, _ = drain(eager=True)
+    print(f"  the same drain with the eager make_serve_step(cfg) as the Engine's step: "
+          f"{ticks_e} ticks, {wall_e:.3f} s ({wall_e / ticks_e * 1e3:.1f} ms a tick against "
+          f"{replay_s / ticks * 1e3:.1f} ms replayed); the same tokens: {eager == first}",
+          flush=True)
+    check(eager == first, "the graphed Engine's tokens differ from the eager step's")
+    second, wall2, _, _, graph2 = drain()
     same = second == first
-    print(f"  a second drain of the same requests on a new engine ({wall2:.3f} s, "
-          f"{new / wall2:.1f} tokens/s): the same tokens: {same}", flush=True)
+    print(f"  a second graphed drain on a new engine ({wall2:.3f} s, {new / wall2:.1f} "
+          f"tokens/s, capture {graph2.capture_seconds:.3f} s): the same tokens: {same}",
+          flush=True)
     check(same, "a second drain returned other tokens")
     print(f"  request 0: prompt {prompts[0]} -> {first[0][8:16]} ...", flush=True)
     tick_profile(torch, timer, cfg, params)
 
 
 def tick_profile(torch, timer, cfg, params):
-    """One decode step of 8 slots: host wall, device time, launches."""
-    from repro_torch.models import init_cache, serve_step
+    """One decode step of 8 slots, eager and as a replay of its graph: host
+    wall, device time, launches."""
+    from repro_torch.models import init_cache, make_serve_step
+    from repro_torch.serving.engine import _DecodeGraph
 
     cache = init_cache(cfg, 8, 64, device="cuda")
     toks = torch.full((8,), 7, dtype=torch.int64, device="cuda")
-
-    def step():
-        return serve_step(cfg, params, cache, toks, 9)
-
-    with torch.no_grad():
-        totals = timer.kernels_us(step, reps=3, flush=False)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - start)
-    dev_ms = sum(t for t, _ in totals.values()) / 3 / 1e3
-    launches = sum(n for _, n in totals.values()) // 3
-    wall_ms = min(walls) * 1e3
-    print(f"  one serve_step (8 slots, {cfg.n_layers} layers): host wall {wall_ms:.3f} "
-          f"ms, device kernel time {dev_ms:.3f} ms over {launches} launches "
-          f"(device busy {dev_ms / wall_ms:.0%}; {wall_ms / launches * 1e3:.1f} us of "
-          f"host per launch)", flush=True)
+    eager = make_serve_step(cfg)
+    graph = _DecodeGraph(eager)
+    for label, step in (("eager", lambda: eager(params, cache, toks, 9)),
+                        ("a graph replay", lambda: graph(params, cache, toks, 9))):
+        with torch.no_grad():
+            totals = timer.kernels_us(step, reps=3, flush=False)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - start)
+        dev_ms = sum(t for t, _ in totals.values()) / 3 / 1e3
+        launches = sum(n for _, n in totals.values()) // 3
+        wall_ms = min(walls) * 1e3
+        if dev_ms == 0:  # the profiler saw no kernel of the graph
+            with torch.no_grad():
+                dev_ms = timer.event_ms(step, reps=3, flush=False)
+            print("  (the profiler recorded no kernel of the replay: device time from "
+                  "CUDA events around it, launches not measured)", flush=True)
+        print(f"  one serve_step (8 slots, {cfg.n_layers} layers), {label}: host wall "
+              f"{wall_ms:.3f} ms, device kernel time {dev_ms:.3f} ms over {launches} "
+              f"launches (device busy {dev_ms / wall_ms:.0%}; "
+              f"{wall_ms / max(1, launches) * 1e3:.1f} us of host per launch)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2680,10 +2804,6 @@ def paper_tables_phase(torch, timer):
 # persistent kernel cache, on phase 4's model and requests A-C.
 # ---------------------------------------------------------------------------
 
-# Requests A-C of phase 4: (spec, t1, n_steps, n_paths, save_every, seed).
-ABC = (("ees25:use_kernels=True", 2.0, 8, 2 * SERVE_SLOTS, None, 11),
-       ("ees25:use_kernels=True", 1.5, 6, SERVE_SLOTS, None, 12),
-       ("ees27:use_kernels=True", 2.0, 16, SERVE_SLOTS, 4, 13))
 
 
 def _async_drain(torch, engine, rounds: int = 1, on_round=None):
@@ -2738,6 +2858,7 @@ engine = SDESampleEngine(lsde_term(), torch.zeros(16, device="cuda"),
 fresh = engine.warmup(signatures)
 seconds = time.perf_counter() - start
 print(json.dumps({"seconds": seconds, "fresh": fresh,
+                  "graphs": engine.executor.graph_stats(),
                   "nvcc_runs": {k.name: k.nvcc_runs for k in KERNELS if k.nvcc_runs},
                   "loaded": sorted(k.name for k in KERNELS if k._lib is not None)}))
 """
@@ -2771,6 +2892,7 @@ def async_phase(torch, params, y0, sync_abc):
     from repro_torch.nsde import lsde_term
     from repro_torch.serving import (AsyncSDESampleEngine, FaultConfig, SDESampleConfig,
                                      SDESampleEngine, inject_faults)
+    from repro_torch.serving import executor as executor_mod
 
     cfg = SDESampleConfig(slots=SERVE_SLOTS, ticks_per_dispatch=2)
     n_paths = sum(r[3] for r in ABC)
@@ -2793,12 +2915,27 @@ def async_phase(torch, params, y0, sync_abc):
     check(all(p.requires_grad for p in params.parameters()) and torch.is_grad_enabled(),
           "phase 14 serves a model whose parameters require gradients")
     main_thread = threading.get_ident()
-    log = {"streams": set(), "threads": [], "syncs": [], "dispatch_streams": set()}
+    log = {"streams": set(), "threads": [], "syncs": [], "dispatch_streams": set(),
+           "capture_streams": set(), "replay_streams": set(), "captures": []}
     real_launch = WS_STAGE_DIAG.launch
 
     def launch(fn, *args):
-        log["streams"].add(torch.cuda.current_stream().cuda_stream)
+        # a launch while a tick graph is captured runs at its replays
+        kind = "capture_streams" if torch.cuda.is_current_stream_capturing() else "streams"
+        log[kind].add(torch.cuda.current_stream().cuda_stream)
         return real_launch(fn, *args)
+
+    real_graph = executor_mod._TickGraph
+
+    class LoggedGraph(real_graph):
+        def __init__(self, *args):
+            log["captures"].append("loop" if threading.get_ident() == main_thread
+                                   else "worker")
+            super().__init__(*args)
+
+        def replay(self, keys):
+            log["replay_streams"].add(torch.cuda.current_stream().cuda_stream)
+            return super().replay(keys)
 
     engine = AsyncSDESampleEngine(lsde_term(), y0, cfg, args=params, device="cuda")
     executor = engine.executor
@@ -2838,6 +2975,7 @@ def async_phase(torch, params, y0, sync_abc):
     rounds = []
     WS_STAGE_DIAG.launches = 0
     WS_STAGE_DIAG.launch = launch
+    executor_mod._TickGraph = LoggedGraph
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -2846,6 +2984,7 @@ def async_phase(torch, params, y0, sync_abc):
     finally:
         torch.cuda.set_sync_debug_mode("default")
         WS_STAGE_DIAG.launch = real_launch
+        executor_mod._TickGraph = real_graph
     launches_a = WS_STAGE_DIAG.launches
     total_launches += launches_a
     steady = [n for on_loop, n in log["syncs"] if on_loop]
@@ -2867,13 +3006,22 @@ def async_phase(torch, params, y0, sync_abc):
           f"(steady state, in the loop thread: {steady}); executor stream "
           f"{exec_stream:#x}; streams the dispatches entered "
           f"{sorted(map(hex, log['dispatch_streams']))}; streams ws_stage_diag "
-          f"launched on {sorted(map(hex, log['streams']))}", flush=True)
+          f"launched on {sorted(map(hex, log['streams']))} (eager: the captures' warm-up "
+          f"ticks), captured on {sorted(map(hex, log['capture_streams']))}, replayed "
+          f"on {sorted(map(hex, log['replay_streams']))}", flush=True)
+    stats = executor.graph_stats()
+    print(f"  (a) tick graphs captured by thread {log['captures']}, {stats['graphs']} in "
+          f"{stats['capture_s']:.3f} s; {stats['replays']} replays for "
+          f"{executor.n_ticks} ticks; shared pool {stats['pool_mib']:.1f} MiB", flush=True)
     check(launches_a > 0, "the async path launched no ws_stage_diag kernel")
     check(bool(steady) and max(steady) == 0,
           f"a steady-state async dispatch synchronized with the host: {steady}")
     check("worker" in log["threads"], "no dispatch ran in a worker thread")
-    check(log["streams"] == {exec_stream} == log["dispatch_streams"],
-          "a kernel launched off the executor's stream")
+    check(bool(log["captures"]) and set(log["captures"]) == {"worker"},
+          "a tick graph was captured outside a worker thread")
+    check(stats["replays"] == executor.n_ticks, "an async tick ran outside its tick graph")
+    check(log["streams"] | log["replay_streams"] == {exec_stream} == log["dispatch_streams"],
+          "a kernel launched or a graph replayed off the executor's stream")
     for results in rounds:
         for label, got, want in zip("ABC", results, sync_abc):
             check(got.y_final.is_cuda and not got.y_final.requires_grad,
@@ -2935,9 +3083,14 @@ def async_phase(torch, params, y0, sync_abc):
         libs = sorted(os.listdir(cache_dir))
     print(f"  (d) warmup of A-C's signatures in a fresh process: cold cache "
           f"{cold['seconds']:.3f} s ({cold['fresh']} entries, nvcc runs "
-          f"{cold['nvcc_runs']}, loaded {cold['loaded']}); warm cache "
+          f"{cold['nvcc_runs']}, loaded {cold['loaded']}, tick graphs captured "
+          f"{cold['graphs']['graphs']} in {cold['graphs']['capture_s']:.3f} s); warm cache "
           f"{warm['seconds']:.3f} s ({warm['fresh']} entries, nvcc runs "
-          f"{warm['nvcc_runs']}); cache holds {libs}", flush=True)
+          f"{warm['nvcc_runs']}, tick graphs captured again {warm['graphs']['graphs']} in "
+          f"{warm['graphs']['capture_s']:.3f} s: the cache holds kernel libraries, graphs "
+          f"belong to their process); cache holds {libs}", flush=True)
+    check(cold["graphs"]["graphs"] == warm["graphs"]["graphs"] > 0,
+          "the warmups captured no tick graph, or different ones")
     check(cold["nvcc_runs"].get("ws_stage_diag", 0) == 1,
           "the cold warmup did not build ws_stage_diag into the cache")
     check(warm["nvcc_runs"] == {} and "ws_stage_diag" in warm["loaded"],
@@ -3191,6 +3344,8 @@ def adaptive_phase(torch, timer, params, y0):
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - start
     res_o, res_p = engine.done[rid_o], engine.done[rid_p]
+    # the controller reads the host between trials: adaptive keys run eagerly
+    check(engine.executor.graph_stats()["graphs"] == 0, "an adaptive key captured a tick graph")
     check(launches["ws_stage_diag_rows"] > 0,
           "request O launched no per-path ws_stage_diag entry")
     check(launches["ws_stage_diag_rows"] == launches["ws_stage_diag"],
@@ -5222,7 +5377,7 @@ def _p19_engine(torch, cfg, params):
     finite logits, and the same tokens from a second drain."""
     n_req, n_prompt, max_len = P19_SERVE
     prompts = np.random.default_rng(19).integers(2, cfg.vocab, size=(n_req, n_prompt)).tolist()
-    first, wall, ticks, finite = _engine_drain(torch, cfg, params, prompts, max_len)
+    first, wall, ticks, finite, _ = _engine_drain(torch, cfg, params, prompts, max_len)
     second = _engine_drain(torch, cfg, params, prompts, max_len)[0]
     new = sum(len(t) - len(p) for t, p in zip(first.values(), prompts))
     print(f"  Engine(slots={n_req}, max_len={max_len}), {n_req} requests x {n_prompt}-token "
@@ -5524,7 +5679,7 @@ def _mesh_serve_a(torch, mesh, slots):
     spec, t1_, n, n_paths, save_every, seed = ABC[0]
     rid = engine.submit(spec, t1=t1_, n_steps=n, n_paths=n_paths, save_every=save_every,
                         seed=seed)
-    return engine.run()[rid]
+    return engine.run()[rid], engine.executor.graphed
 
 
 def _mesh_grad(torch, mesh=None):
@@ -5555,9 +5710,10 @@ def mesh_worker(rank: int, port: int, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=MESH_WORKERS)
     try:
-        a = _mesh_serve_a(torch, make_sample_mesh(), SERVE_SLOTS)
+        a, graphed = _mesh_serve_a(torch, make_sample_mesh(), SERVE_SLOTS)
         loss, grads = _mesh_grad(torch, make_train_mesh())
         got = {"a": {f: getattr(a, f) for f in ("y_final", "ys", "diverged")},
+               "graphed": graphed,
                "loss": loss.cpu(), "grads": [g.cpu() for g in grads]}
         if rank == 0:
             got["blocks"] = _block_partials(torch)
@@ -5653,6 +5809,13 @@ def mesh_phase(torch, params, y0, sync_abc):
                 wall = time.perf_counter() - start
             launches = {"ws_stage_diag": WS_STAGE_DIAG.launches}
             same = all(_host_same(done[r], w) for r, w in zip(rids, sync_abc))
+            stats = engine.executor.graph_stats()
+            print(f"  (a) the NCCL mesh's executor is graphed: {engine.executor.graphed}; "
+                  f"{stats['graphs']} tick graphs (the all-gather captured with the solve), "
+                  f"{stats['replays']} replays for {engine.executor.n_ticks} ticks, "
+                  f"shared pool {stats['pool_mib']:.1f} MiB", flush=True)
+            check(engine.executor.graphed and stats["replays"] == engine.executor.n_ticks,
+                  "20a: a tick of the NCCL mesh's drain ran outside its tick graph")
             n_paths = sum(p for _, _, _, p, _, _ in ABC)
             print(f"  (a) A-C with slots sharded on make_sample_mesh(1) (one NCCL rank, axis "
                   f"'mc'): bitwise equal to phase 4's drain: {same}; {n_paths} paths in "
@@ -5721,6 +5884,8 @@ def mesh_phase(torch, params, y0, sync_abc):
                  for r in range(MESH_WORKERS)]
         a_same = all(np.array_equal(ranks[r]["a"][f], getattr(sync_abc[0], f))
                      for r in range(MESH_WORKERS) for f in ("y_final", "diverged"))
+        check(not any(r["graphed"] for r in ranks),
+              "20c: an executor on a gloo mesh captured tick graphs")
         a_err = float(np.abs(ranks[0]["a"]["y_final"] - sync_abc[0].y_final).max())
         ranks_same = (torch.equal(ranks[0]["loss"], ranks[1]["loss"])
                       and all(torch.equal(x, y) for x, y in zip(ranks[0]["grads"],
@@ -5741,7 +5906,7 @@ def mesh_phase(torch, params, y0, sync_abc):
               f"{loss_bitwise}); gradient vs one "
               f"device at most {ratio:.3f} eps sum_r |g_r| (limit {256 // MESH_WORKERS - 1}: "
               f"the reorder bound of a block's {256 // MESH_WORKERS} paths over the blocks' "
-              f"partials)", flush=True)
+              f"partials); the gloo ranks' executors ran eagerly", flush=True)
         check(a_err <= 1e-5 * max(1.0, float(np.abs(sync_abc[0].y_final).max())),
               "20c: request A sharded over two ranks differs from one rank's")
         check(ranks_same and loss_rel <= 1e-6 and ratio <= 256 // MESH_WORKERS - 1,
@@ -6612,7 +6777,7 @@ def main() -> int:
 
     phase("phase 4: serve requests A-D")
     params, y0, sync_abc = serve_phase(torch, timer)
-    ws_launches = WS_STAGE_DIAG.launches
+    ws_launches, ws_replayed = WS_STAGE_DIAG.launches, WS_STAGE_DIAG.replayed_launches
 
     phase("phase 5: ODE sdeint through williamson2n")
     ode_phase(torch, params)
@@ -6620,10 +6785,11 @@ def main() -> int:
     launches = {"ws_stage_diag": WS_STAGE_DIAG.launches,
                 "williamson2n": WILLIAMSON2N.launches}
     print(f"phase 6: kernels launched on the main path (phases 4-5): "
-          f"{launches} (ws_stage_diag {ws_launches} of them while serving)",
-          flush=True)
+          f"{launches} (ws_stage_diag {ws_launches} of them while serving, "
+          f"{ws_replayed} of those replayed from tick graphs)", flush=True)
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    check(ws_replayed > 0, "ws_stage_diag was not replayed from a tick graph")
 
     phase("phase 7: Table 1 on the card")
     train_launches = table1_phase(torch)

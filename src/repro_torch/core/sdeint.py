@@ -44,7 +44,7 @@ from .grid import TimeGrid
 from .pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .registry import get_solver
 
-__all__ = ["sdeint", "sdeint_ticks", "path_keys"]
+__all__ = ["sdeint", "sdeint_ticks", "path_keys", "tick_solve"]
 
 
 def path_keys(key: torch.Tensor, n_paths: int) -> torch.Tensor:
@@ -133,7 +133,12 @@ def _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, *, args=None,
     """Validate options and build the ``(keys, n_active) -> result`` solve
     over a batch of keys (``(*batch, 2)``).  With ``step_size`` the grid is
     padded: ``n_steps`` steps of exact size ``step_size``, ``n_active``
-    live; otherwise ``n_active`` is ignored."""
+    live; otherwise ``n_active`` is ignored.
+
+    The solve carries ``capturable``: True for a fixed or padded grid, whose
+    solve reads nothing back on the host (live step counts are host
+    integers), so a CUDA graph can capture it; False for an adaptive solve,
+    whose controller reads the loop condition on the host between trials."""
     solver = get_solver(solver)
     adaptive = _check_options(solver, adjoint, adaptive, save_every, save_at,
                               rtol, atol, h0, bm_tol, bounded)
@@ -161,6 +166,7 @@ def _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, *, args=None,
                 bulk_increments=bulk_increments, guard=guard, **tols)
             return _saves_last(out, batch)
 
+        adaptive_one.capturable = False
         return adaptive_one
 
     def one(keys: torch.Tensor, n_active: Optional[int] = None):
@@ -182,6 +188,7 @@ def _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, *, args=None,
                     guard=guard, batch_dims=len(batch))
         return _saves_last(out, batch)
 
+    one.capturable = True
     return one
 
 
@@ -308,6 +315,20 @@ def _stack_ticks(outs):
                            for i in range(len(outs[0]))))
 
 
+def tick_solve(term, solver, t0: float, t1: float, n_steps: int, y0, *,
+               step_size: Optional[float] = None, device=None, **kwargs):
+    """The solve :func:`sdeint_ticks` runs on each tick's key batch:
+    ``(keys, n_active) -> result``, over the padded grid of ``n_steps``
+    steps of ``step_size`` when one is given (``t1`` is then unused).  Its
+    ``capturable`` says whether a CUDA graph can capture a tick (see
+    ``_trajectory_fn``).  Keyword arguments are as for :func:`sdeint`."""
+    device = resolve_device(device)
+    if step_size is None:
+        return _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, **kwargs)
+    return _trajectory_fn(term, solver, t0, t0 + n_steps * step_size, n_steps,
+                          y0, device, step_size=float(step_size), **kwargs)
+
+
 def sdeint_ticks(
     term,
     solver,
@@ -372,13 +393,12 @@ def sdeint_ticks(
                 "padded bucketed dispatch carries no saved trajectories; "
                 "save_every/save_at requests must dispatch exact"
             )
-        one = _trajectory_fn(term, solver, t0, t0 + n_steps * step_size,
-                             n_steps, y0, device, step_size=float(step_size),
-                             **kwargs)
+        one = tick_solve(term, solver, t0, t1, n_steps, y0,
+                         step_size=step_size, device=device, **kwargs)
         return _stack_ticks([one(tick_keys[t], active[t])
                              for t in range(n_ticks)])
     if step_size is not None:
         raise ValueError("step_size only applies with active_steps (padded "
                          "bucketed dispatch)")
-    one = _trajectory_fn(term, solver, t0, t1, n_steps, y0, device, **kwargs)
+    one = tick_solve(term, solver, t0, t1, n_steps, y0, device=device, **kwargs)
     return _stack_ticks([one(tick_keys[t]) for t in range(n_ticks)])

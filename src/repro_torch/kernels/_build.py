@@ -18,6 +18,7 @@ import collections
 import concurrent.futures
 import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -30,7 +31,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "GraphLaunches", "build_all", "cuda_operands", "is_current",
+__all__ = ["CudaKernel", "GraphLaunches", "build_all", "capture_graph", "cuda_operands",
+           "is_current",
            "pointer", "stream_handle", "set_library_dir", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -210,6 +212,33 @@ class GraphLaunches:
             kernel.launches += n
             kernel.replayed_launches += n
             kernel.entry_launches[fn] += n
+
+
+def capture_graph(run, record: GraphLaunches, stream, pool=None):
+    """``run()`` captured into a new ``torch.cuda.CUDAGraph`` on ``stream``
+    (a stream other than the legacy default one), into the memory pool
+    ``pool`` (a private one when None), its kernel launches counted in
+    ``record``; returns ``(graph, run's output)``.  Nothing synchronises:
+    the capture may run in a worker thread while other threads use the
+    device (``thread_local`` capture mode).  Another graph destroyed while
+    this one is captured (by the cyclic collector) would invalidate the
+    capture, so the collector runs before it and is off during it.  A
+    capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with record.capturing(), torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = run()
+            finally:
+                graph.capture_end()
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+    return graph, out
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

@@ -56,6 +56,7 @@ __all__ = [
     "AxisBlock",
     "axis_block",
     "gather_blocks",
+    "graph_capturable",
     "Sharding",
     "param_shardings",
     "opt_state_shardings",
@@ -203,6 +204,15 @@ def gather_blocks(x: torch.Tensor, block: AxisBlock, dim: int = 0) -> torch.Tens
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, src, group=block.group)
     return out.movedim(0, dim).contiguous()
+
+
+def graph_capturable(mesh) -> bool:
+    """Whether collectives over ``mesh``'s process groups can be captured
+    into a CUDA graph: NCCL's run on the device and can; gloo's stage CUDA
+    tensors through the host and cannot."""
+    import torch.distributed as dist
+
+    return all(dist.get_backend(g) == "nccl" for g in mesh.get_all_groups())
 
 
 def _sizes(mesh) -> Mapping[str, int]:

@@ -181,7 +181,10 @@ def _dispatch(h, router, e: int, k: int, cap: int, grouped: bool, shards: int = 
     gate_vals, gate_idx = top_k(probs, k)  # (b, s, k)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
     me = torch.mean(probs, dim=(0, 1)) / shards
-    ce = torch.mean(F.one_hot(gate_idx, e).sum(dim=2).float(), dim=(0, 1)) / shards
+    # Each token's picks counted per expert: one_hot's sum over k, without
+    # one_hot, which reads its indices' range on the host off CUDA.
+    picks = (gate_idx[..., None] == torch.arange(e, device=gate_idx.device)).sum(dim=2)
+    ce = torch.mean(picks.float(), dim=(0, 1)) / shards
     zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) / shards
 
     groups, n = (b, s) if grouped else (1, b * s)

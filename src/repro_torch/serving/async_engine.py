@@ -36,9 +36,11 @@ mixed-signature request stream instead of drain-style ``run()`` calls:
   because async plans are unreserved and delivery is atomic per subplan the
   replan serves exactly the undelivered ticks.
 
-A first dispatch of a (signature-or-bucket, depth) runs in a worker thread
-(``asyncio.to_thread``), as in the reference, since it may pay the kernel
-libraries' build; the executor fixes grad mode and the CUDA stream inside
+A first dispatch of a (signature-or-bucket, depth), and on the card any
+dispatch that captures a tick graph (``has_compiled`` with its live-step
+counts), runs in a worker thread (``asyncio.to_thread``), as in the
+reference, since it may pay the kernel libraries' build and the capture;
+the executor fixes grad mode and the CUDA stream inside
 every dispatch, so a worker thread serves exactly as the loop thread does.
 Samples are pure functions of ``(seed, path index)``, so the async plane
 returns results bitwise equal to ``SDESampleEngine.run()`` on the same
@@ -421,11 +423,12 @@ class AsyncSDESampleEngine:
                 offset += sp.n_ticks
                 ek = self._eng._exec_key(sp)
                 active = self._eng._active_steps(sp)
-                if self.executor.has_compiled(ek, sp.n_ticks):
+                if self.executor.has_compiled(ek, sp.n_ticks, active):
                     out = self.executor.dispatch(ek, sp_keys, active)
                 else:
-                    # A first dispatch may build kernel libraries: run it
-                    # off-thread so submit()/result() stay live meanwhile.
+                    # A first dispatch may build kernel libraries and capture
+                    # tick graphs: run it off-thread so submit()/result()
+                    # stay live meanwhile.
                     out = await asyncio.to_thread(
                         self.executor.dispatch, ek, sp_keys, active)
                 landing = self.executor.landing

@@ -8,6 +8,13 @@ reference's, including its simplifications: prompts prefill token by token,
 all slots share one position per tick (the largest live slot position), and
 a slot's cache is not cleared when a new request takes it.
 
+On the card the engine captures ``serve_step`` once into a CUDA graph (the
+batch shape is fixed by ``slots``) and every tick replays it, as the
+reference jits the step: an eager step pays every op's launch on the host.  A
+model whose DTensor parameters live on a mesh with a gloo process group
+stays eager: gloo stages CUDA tensors through the host, which no graph can
+hold.
+
 Sampling: greedy by default; with ``greedy=False`` the next token is drawn
 as ``jax.random.categorical`` draws it — the engine's threefry key (seed 0)
 is split once per draw and the token is the argmax of Gumbel noise plus
@@ -17,6 +24,7 @@ rounding in the noise's two logarithms.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -24,7 +32,12 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..core.pytree import tree_map
+from ..kernels._build import GraphLaunches, capture_graph
+from ..launch.mesh import graph_capturable
 from ..models import ModelOptions, init_cache, make_serve_step
+from ..models.transformer import _pin_cache
+from ..spmd import is_dtensor
 
 __all__ = ["ServeConfig", "Engine"]
 
@@ -54,9 +67,73 @@ def categorical(key, logits: torch.Tensor) -> int:
     return int(torch.argmax(-torch.log(-torch.log(u)) + logits))
 
 
+class _DecodeGraph:
+    """A decode step captured once into a CUDA graph and replayed.
+
+    Called as the step it wraps, ``(params, cache, tokens, pos) -> (logits,
+    cache)``.  The first call warms the step up on a clone of ``cache``
+    (the step writes the KV rows and the Mamba2 states in place, so a
+    warm-up on the live cache would advance a recurrence one extra step),
+    then captures it on a side stream on static ``(slots,)`` token and 0-d
+    position buffers, the graph writing into ``cache`` in place.  Every call
+    copies ``tokens`` and ``pos`` in and replays; the logits it returns live
+    in the graph's pool until the next call.  Only the ``params`` and
+    ``cache`` it was captured with are accepted.  A capture that fails
+    raises."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graph = None
+        self.record = GraphLaunches()
+        self.capture_seconds = None
+        self.replays = 0
+
+    def _capture(self, params, cache, tokens):
+        device = tokens.device
+        self.params, self.cache = params, cache
+        self.tokens = tokens.clone()
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        start = time.perf_counter()
+        self.step(params, tree_map(torch.clone, cache), self.tokens, self.pos)
+        current, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+        side.wait_stream(current)
+        graph, (self.logits, _) = capture_graph(
+            lambda: self.step(params, cache, self.tokens, self.pos), self.record, side)
+        current.wait_stream(side)
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - start
+
+    def __call__(self, params, cache, tokens, pos):
+        if self.graph is None:
+            self._capture(params, cache, tokens)
+        elif params is not self.params or cache is not self.cache:
+            raise ValueError("a captured decode step reads the parameters and "
+                             "writes the cache it was captured with")
+        self.tokens.copy_(tokens)
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(pos)
+        else:
+            self.pos.fill_(int(pos))
+        self.graph.replay()
+        self.record.replay()
+        self.replays += 1
+        return self.logits, cache
+
+
+def _graph_capturable(params) -> bool:
+    """Whether a decode step over ``params`` can be captured: every mesh its
+    DTensor parameters live on runs NCCL."""
+    meshes = {id(p.device_mesh): p.device_mesh for p in params.parameters()
+              if is_dtensor(p)}
+    return all(graph_capturable(m) for m in meshes.values())
+
+
 class Engine:
     """The LM decode engine on the device of ``params``; dispatch runs
-    under ``torch.no_grad()``."""
+    under ``torch.no_grad()``.  ``graphed``: the step is replayed from a
+    CUDA graph (``_step`` is then a ``_DecodeGraph``: its
+    ``capture_seconds``, ``replays`` and ``record`` of captured
+    launches)."""
 
     def __init__(self, cfg, params, serve_cfg: ServeConfig = ServeConfig(),
                  opts: ModelOptions = ModelOptions()):
@@ -68,7 +145,13 @@ class Engine:
         self.device = params["embed"].device
         self.cache = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                 device=self.device)
+        # Lay the cache out before a capture, not inside it (a layout change
+        # captured would copy the stale leaf over the cache on every replay).
+        _pin_cache(self.cache, opts)
         self._step = make_serve_step(cfg, opts)
+        self.graphed = self.device.type == "cuda" and _graph_capturable(params)
+        if self.graphed:
+            self._step = _DecodeGraph(self._step)
         self.slots = [_Slot() for _ in range(serve_cfg.slots)]
         self.queue: deque = deque()
         self.done: Dict[int, List[int]] = {}

@@ -10,7 +10,8 @@ each tick with paths of compatible queued requests (continuous batching),
   admission control (:class:`QueueFull`), priorities, cancellation, slot
   plans with reservations, result scatter and retirement;
 * :class:`~repro_torch.serving.executor.TickExecutor` — the device side:
-  runs a tick stack of path keys through ``sdeint_ticks``.
+  runs a tick stack of path keys through ``sdeint_ticks``, on the card as
+  replays of captured tick graphs (adaptive keys and gloo meshes eager).
 
 Path ``i`` of request ``r`` always uses ``fold_in(PRNGKey(seed_r), i)`` —
 the reference's convention, computed on the device — so a request's samples
@@ -248,8 +249,10 @@ class SDESampleEngine:
         Each resolves to its bucket (or exact signature) and is warmed at
         both dispatch depths the engine uses (``ticks_per_dispatch`` and the
         single-tick tail): the kernel libraries it launches are built — into
-        ``compile_cache_dir`` when set, so later processes load them — and
-        its callable cached.  Returns the number of entries this call
+        ``compile_cache_dir`` when set, so later processes load them — its
+        callable cached and, on the card, its tick graph captured at
+        ``slots`` paths (the bucket's full-length tick; graphs are not
+        cached across processes).  Returns the number of entries this call
         created (cached ones do not count)."""
         fresh = 0
         for spec in signatures:

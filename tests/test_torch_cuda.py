@@ -999,3 +999,57 @@ def test_scanned_step_graph_equals_sequential_steps(cuda, spec, adjoint, donate)
     for k in (WS_STAGE_DIAG, WS_STAGE_DIAG_BWD, INCREMENT_DIAG, AXPY_CHAIN):
         assert k.host_launches == host[k.name]
         assert k.launches == device[k.name] + record.get(k.name, 0)
+
+
+# -- graphed serving: tick graphs and the decode graph against eager -------------
+
+def _leaves_equal(a, b) -> bool:
+    from repro_torch.core.pytree import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def test_graphed_ticks_equal_eager_sdeint_ticks(cuda):
+    """A bucketed stack with mixed live counts replayed from two tick graphs
+    (the guard's flags among the outputs) is bitwise the eager stack."""
+    from repro_torch.core import sdeint_ticks
+    from repro_torch.serving import TickExecutor
+
+    params = init_lsde(0, 1, 16, 32, device=cuda)
+    y0 = torch.zeros(16, device=cuda)
+    ex = TickExecutor(lsde_term(), y0, args=params, guard=1e6, device=cuda)
+    bk = BucketKey("ees25:use_kernels=True", 0.0, 0.25, 8)
+    live = (8, 6, 8)
+    keys = path_keys(PRNGKey(7, device=cuda), 3 * 1024).reshape(3, 1024, 2)
+    with torch.no_grad():
+        got = ex.dispatch(bk, keys, live)
+        want = sdeint_ticks(lsde_term(), bk.solver, 0.0, 2.0, 8, y0, keys, args=params,
+                            active_steps=live, step_size=0.25, guard=1e6, device=cuda)
+    assert ex.graphed and ex.graph_stats()["graphs"] == 2 and ex.n_replays == 3
+    assert _leaves_equal(got, want)
+
+
+def test_graphed_decode_engine_equals_eager_engine(cuda):
+    """The Engine's captured serve_step drains the requests of an eager
+    Engine token for token, twice (zamba2's smoke config: SSM states and
+    the shared attention's KV rows updated in place by the replays)."""
+    from repro_torch.models import make_serve_step
+    from repro_torch.serving import Engine
+    from repro_torch.serving.engine import _DecodeGraph
+
+    cfg = get_arch("zamba2-7b").smoke()
+    params = init_params(cfg, 0, device=cuda)
+    prompts = np.random.default_rng(3).integers(2, cfg.vocab, size=(4, 5)).tolist()
+    runs = []
+    for graphed in (True, False, True):
+        eng = Engine(cfg, params)
+        if not graphed:
+            eng._step = make_serve_step(cfg)
+        for p in prompts:
+            eng.submit(p)
+        runs.append(eng.run(max_ticks=40))
+        assert isinstance(eng._step, _DecodeGraph) == graphed
+        assert not graphed or eng._step.replays > 0
+    assert runs[0] == runs[1] == runs[2]
+
